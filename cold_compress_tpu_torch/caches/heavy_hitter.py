@@ -1,0 +1,79 @@
+"""Heavy-hitter (ScissorHands / H2O-style) cache strategy.
+
+Port of ``cold_compress_tpu/caches/heavy_hitter.py`` (its XLA eviction path;
+the fused Pallas evict kernel is opt-in there and not ported yet). Evicts
+the slot with the lowest windowed average attention. The history lives in
+``extra``: a numerator of attention mass per slot and a count of
+observations, both updated in place after every attention call and zeroed
+at the evicted slot.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .base import CacheStrategy, scatter_scalar
+
+
+class HeavyHitterCache(CacheStrategy):
+    name = "heavy_hitter"
+    needs_attn = True
+
+    @staticmethod
+    def init_extra(spec, B, H, D, device=None):
+        C, W = spec.max_cache_length, spec.history_window_size
+        return {
+            # W == 1 accumulates the full history in one slot; W > 1 keeps a
+            # ring of the last W observations.
+            "attn_num": torch.zeros(
+                (B, H, C) if W == 1 else (B, H, C, W), dtype=torch.float32, device=device
+            ),
+            "attn_denom": torch.zeros((B, H, C), dtype=torch.int32, device=device),
+            "attn_counter": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    @classmethod
+    def eviction_idx(cls, spec, state, input_pos) -> torch.Tensor:
+        W = spec.history_window_size
+        num_buf = state.extra["attn_num"]
+        denom_buf = state.extra["attn_denom"]
+        num = num_buf if W == 1 else num_buf.sum(dim=-1)
+        denom = denom_buf.clamp_min(1) if W == 1 else denom_buf.clamp(1, W)
+        avg = num / denom.float()
+        protected = (state.pos < spec.global_tokens) | (
+            state.pos >= input_pos - spec.recent_window
+        )
+        avg = torch.where(protected, 1.0, avg)
+        avg = torch.where(state.pos == -1, 0.0, avg)
+        idx = avg.argmin(dim=-1).to(torch.int32)  # first minimum, like jnp
+        # Zero the attention history of the newly claimed slot.
+        if W == 1:
+            scatter_scalar(num_buf, idx, 0.0)
+        else:
+            index = idx.long()[..., None, None].expand(idx.shape + (1, W))
+            num_buf.scatter_(2, index, 0.0)
+        scatter_scalar(denom_buf, idx, 0)
+        return idx
+
+    @classmethod
+    def update_state(cls, spec, state, input_pos, attn, is_prefill, prompt_len=None):
+        """Add the latest [B, KVH, C]-aligned attention observation."""
+        if attn is None:
+            return state
+        W = spec.history_window_size
+        attn = attn.float()
+        C = state.pos.shape[-1]
+        if attn.shape[-1] < C:
+            attn = torch.nn.functional.pad(attn, (0, C - attn.shape[-1]))
+        if spec.attn_thresholding:
+            uniform = 1.0 / state.cache_ct.float().clamp_min(1.0)
+            attn = (attn >= uniform[..., None]).float()
+        ex = state.extra
+        if W == 1:
+            ex["attn_num"] += attn
+        else:
+            slot = ex["attn_counter"].long() % W
+            ex["attn_num"].index_copy_(3, slot.reshape(1), attn[..., None])
+        ex["attn_denom"] += 1
+        ex["attn_counter"] += 1
+        return state

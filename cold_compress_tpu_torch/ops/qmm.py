@@ -1,0 +1,180 @@
+"""W4A8 decode matmul (kernel K1/K2): wrapper, plain version and layout.
+
+Counterpart of ``cold_compress_tpu/ops/pallas_qmm.py``. The CUDA kernel
+(``csrc/w4a8_gemv.cu``) replaces ``qmm_w4a8_cpt`` (pallas_qmm.py:712, the
+layer projections) and the tiled branch of ``qmm_w4a8_cp_stacked``
+(pallas_qmm.py:407, the int4 vocab head): both compute the same W4A8
+function, and one kernel serves both.
+
+Function: x is quantized per row to int8 (``sx = max(absmax, 1e-8) / 127``,
+round half to even, clip to +-127); per group g, ``d_g = sum xq * (q - 8)``
+and ``xs_g = sum xq`` are exact integers; ``y = sx * sum_g (s_g * d_g +
+z_g * xs_g)`` in f32. This is W4A8, as on the TPU, not W4A16.
+
+Bound on the H100: bytes (the weight stream at batch 1). The layout is the
+port's own ("gemv", see the kernel source): each output column's nibbles
+contiguous, repacked once from the checkpoint's rowpack. The prefill path
+(``dequantize_gemv``) reads the same stored bytes, so the weights are held
+once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+#: Launch counts of the CUDA kernel, by caller: the four layer projections
+#: (K1) and the vocab head (K2). Incremented only where the kernel launches.
+LAUNCHES = {
+    "w4a8_gemv.wqkv": 0, "w4a8_gemv.wo": 0, "w4a8_gemv.w13": 0,
+    "w4a8_gemv.w2": 0, "w4a8_gemv.head": 0,
+}
+
+_MASK = 0x0F
+
+#: Output columns the plain version unpacks at a time (bounds its memory).
+PLAIN_COL_CHUNK = 16384
+
+
+def rowpack_to_gemv(w: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor):
+    """Repack one rowpack int4 weight into the kernel's layout.
+
+    w: int8 [IN/2, OUT]; byte r holds row r (low nibble, unsigned q) and row
+    r + IN/2 (high nibble, signed q - 8). scales/zeros: [IN/gs, OUT] bf16.
+    Returns (wg uint8 [OUT, IN/2], sz bf16 [OUT, IN/gs, 2]) on w's device.
+    """
+    q = unpack_rowpack(w)  # [IN, OUT] uint8 0..15
+    IN, OUT = q.shape
+    if IN % 8:
+        raise ValueError(f"int4 weight with {IN} inputs: the layout needs a multiple of 8")
+    qt = q.t().reshape(OUT, IN // 8, 2, 4)
+    wg = (qt[:, :, 0, :] | (qt[:, :, 1, :] << 4)).reshape(OUT, IN // 2)
+    sz = torch.stack([_as_bf16(scales).t(), _as_bf16(zeros).t()], dim=-1)
+    return wg.contiguous(), sz.contiguous()
+
+
+def unpack_rowpack(w: torch.Tensor) -> torch.Tensor:
+    """Rowpack bytes [IN/2, OUT] (int8 signed-hi or legacy uint8) -> unsigned
+    nibble values [IN, OUT] uint8 in 0..15."""
+    if w.dtype == torch.uint8:  # legacy unsigned nibbles: flip the top bit
+        w = (w ^ 0x80).view(torch.int8)
+    p = w.to(torch.int16)
+    lo = p & _MASK
+    hi = (p >> 4) + 8  # arithmetic shift recovers the signed q - 8
+    return torch.cat([lo, hi], dim=0).to(torch.uint8)
+
+
+def _as_bf16(a: torch.Tensor) -> torch.Tensor:
+    b = a.to(torch.bfloat16)
+    if a.dtype != torch.bfloat16 and not torch.equal(b.to(a.dtype), a):
+        raise ValueError("int4 scales/zeros must be exactly representable in bf16")
+    return b
+
+
+def unpack_gemv(wg: torch.Tensor) -> torch.Tensor:
+    """Kernel-layout bytes [OUT, IN/2] -> unsigned nibbles [OUT, IN] uint8."""
+    OUT, IN2 = wg.shape
+    b = wg.reshape(OUT, IN2 // 4, 1, 4)
+    q = torch.cat([b & _MASK, b >> 4], dim=2)  # [OUT, IN/8, 2, 4]
+    return q.reshape(OUT, IN2 * 2)
+
+
+def dequantize_gemv(wg: torch.Tensor, sz: torch.Tensor, group_size: int,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense [IN, OUT] weight from the kernel layout: ``(q - 8) * s + z`` in
+    f32, cast once to ``dtype`` (ops/linear.py::dequantize_weight's math).
+    Returned as a transposed view of an [OUT, IN] tensor."""
+    OUT = wg.shape[0]
+    q = unpack_gemv(wg).float().reshape(OUT, -1, group_size)
+    s = sz[..., 0].float()[:, :, None]
+    z = sz[..., 1].float()[:, :, None]
+    return ((q - 8.0) * s + z).reshape(OUT, -1).to(dtype).t()
+
+
+def quantize_activations(x: torch.Tensor):
+    """Per-row int8 activation quantization (pallas_qmm.py::_quantize_rows):
+    returns (xq as f32 integers in [-127, 127], sx [L, 1] f32)."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    absmax = absmax.clamp_min(1e-8)
+    # A tensor divisor: CUDA turns division by a Python scalar into a
+    # multiplication by its reciprocal, which can differ in the last bit.
+    sx = absmax / torch.full_like(absmax, 127.0)
+    xq = torch.round(xf / sx).clamp(-127, 127)  # round half to even
+    return xq, sx
+
+
+def w4a8_gemv_plain(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
+                    group_size: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: x [L, IN] -> y [L, OUT] f32.
+
+    The per-group integer dots run as f32 matmuls: every operand is a small
+    integer (|xq| <= 127, |q - 8| <= 8) and every partial sum stays below
+    2**24, so they are exact in f32 (and in TF32)."""
+    L, IN = x.shape
+    OUT = wg.shape[0]
+    gs = group_size
+    ng = IN // gs
+    xq, sx = quantize_activations(x)
+    xg = xq.reshape(L, ng, gs).transpose(0, 1)  # [ng, L, gs]
+    xs = xq.reshape(L, ng, gs).sum(-1)  # [L, ng] exact
+    out = []
+    for j0 in range(0, OUT, PLAIN_COL_CHUNK):
+        j1 = min(OUT, j0 + PLAIN_COL_CHUNK)
+        q = unpack_gemv(wg[j0:j1]).float() - 8.0  # [n, IN]
+        qg = q.reshape(j1 - j0, ng, gs).permute(1, 2, 0)  # [ng, gs, n]
+        d = torch.bmm(xg, qg)  # [ng, L, n] exact integers
+        s = sz[j0:j1, :, 0].float().t()[:, None, :]  # [ng, 1, n]
+        z = sz[j0:j1, :, 1].float().t()[:, None, :]
+        terms = d * s + xs.t()[:, :, None] * z
+        out.append(terms.sum(0))
+    return torch.cat(out, dim=-1) * sx
+
+
+def _lib():
+    lib = _build.library("w4a8_gemv")
+    fn = lib.w4a8_gemv
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def w4a8_gemv(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
+              group_size: int, counter: str) -> torch.Tensor:
+    """x [L, IN] @ int4 weight in the kernel layout -> [L, OUT] f32.
+
+    ``counter`` is the key of ``LAUNCHES`` that a launch increments.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel; any
+    input it does not take raises."""
+    if x.device.type == "cpu":
+        return w4a8_gemv_plain(x, wg, sz, group_size)
+    L, IN = x.shape
+    OUT = wg.shape[0]
+    gs = group_size
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"w4a8_gemv takes bf16 activations, got {x.dtype}")
+    if wg.dtype != torch.uint8 or wg.shape != (OUT, IN // 2):
+        raise ValueError(f"bad weight {tuple(wg.shape)} {wg.dtype} for IN={IN}")
+    if sz.dtype != torch.bfloat16 or sz.shape != (OUT, IN // gs, 2):
+        raise ValueError(f"bad scales {tuple(sz.shape)} {sz.dtype}")
+    if IN % 32 or IN % gs or gs % 32 or gs > 1024 or (gs // 32) & (gs // 32 - 1):
+        raise ValueError(f"unsupported IN={IN} / group size {gs}")
+    if not (x.is_contiguous() and wg.is_contiguous() and sz.is_contiguous()):
+        raise ValueError("w4a8_gemv needs contiguous inputs")
+    if wg.data_ptr() % 16:
+        raise ValueError("weight bytes must be 16-byte aligned")
+    if not (x.device == wg.device == sz.device):
+        raise ValueError("inputs on different devices")
+    y = torch.empty((L, OUT), dtype=torch.float32, device=x.device)
+    status = _lib()(
+        x.data_ptr(), wg.data_ptr(), sz.data_ptr(), y.data_ptr(),
+        L, IN, OUT, gs, _build.stream_ptr(x.device),
+    )
+    _build.check(status, "w4a8_gemv")
+    LAUNCHES[counter] += 1
+    return y

@@ -1,0 +1,165 @@
+"""Engine utilities: per-layer cache specs, compatibility checks, and the
+weight carry-over from the JAX package's checkpoint format.
+
+Counterpart of ``cold_compress_tpu/runtime/engine.py``. Checkpoints are the
+flat ``.npz`` that ``cold_compress_tpu/runtime/engine.py::save_params``
+writes: ``a/b/c`` key paths, ``#bf16`` for bf16 arrays stored as uint16
+views, ``#none`` for absent leaves, and a quantized weight as the keys
+``w``, ``scales``, ``zeros`` and ``qmeta = [bits, group_size]`` under its
+path. ``params_from_flat`` reads that scheme into tensors and
+``build_model`` turns the tree into a ``Transformer``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..caches import CacheSpec, get_cache_strategy
+from ..caches.patterns import apply_pattern, normalize_cache_length
+from ..device import resolve_device
+from ..models.config import ModelConfig
+from ..models.transformer import Transformer, fuse_layer_params, make_rope_table
+
+
+def cache_compatibility(args: Dict[str, Any]) -> None:
+    """Startup validation of strategy / compressor / length combinations."""
+    for length, cache_strat, prompt_strat in zip(
+        args["max_cache_length"], args["cache_strategy"],
+        args["prompt_compression_strategy"],
+    ):
+        if cache_strat == "heavy_hitter" and prompt_strat != "heavy_hitter":
+            raise ValueError(
+                "Heavy Hitter cache strategy must be run with "
+                "--prompt_compression_strategy heavy_hitter to return attention."
+            )
+        if cache_strat in {"full", "hybrid"} and length != 1.0:
+            raise ValueError(
+                f"{cache_strat} cache strategy only supports max_cache_length=1.0."
+            )
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
+                      max_seq_length: int) -> Tuple[CacheSpec, ...]:
+    """Normalise lengths and strategies across layers and build one spec per
+    layer: fraction -> absolute lengths, tile/repeat patterns, per-layer
+    recent windows and the global-token budget check."""
+    kw = dict(cache_kwargs)
+    lengths = [
+        normalize_cache_length(length, max_seq_length)
+        for length in _as_list(kw.get("max_cache_length", [1.0]))
+    ]
+    lengths = apply_pattern(lengths, cfg.n_layer, kw.get("cache_length_pattern", "tile"))
+    strategy_pattern = kw.get("cache_strategy_pattern", "tile")
+    strategies = apply_pattern(
+        _as_list(kw.get("cache_strategy", ["full"])), cfg.n_layer, strategy_pattern
+    )
+    for s in set(strategies):
+        get_cache_strategy(s)  # fail fast on unknown names
+    prompt_strategies = apply_pattern(
+        _as_list(kw.get("prompt_compression_strategy", ["recent_global"])),
+        cfg.n_layer, strategy_pattern,
+    )
+    recent = kw.get("recent_window", 10)
+    if not isinstance(recent, (list, tuple)):
+        if recent <= 1:
+            recent = [max(1, int(recent * length)) for length in lengths]
+        else:
+            recent = [max(1, min(int(recent), length)) for length in lengths]
+    global_tokens = int(kw.get("global_tokens", 1))
+    if global_tokens > min(lengths):
+        raise ValueError("Global tokens must be less than max_cache_length.")
+    return tuple(
+        CacheSpec(
+            cache_strategy=strategies[i],
+            max_cache_length=int(lengths[i]),
+            max_seq_length=int(max_seq_length),
+            global_tokens=global_tokens,
+            recent_window=int(recent[i]),
+            cache_bits=kw.get("cache_bits"),
+            history_window_size=int(kw.get("history_window_size", 1)),
+            attn_thresholding=bool(kw.get("attn_thresholding", False)),
+            prompt_compression_strategy=prompt_strategies[i],
+        )
+        for i in range(cfg.n_layer)
+    )
+
+
+# --------------------------------------------------------------------------
+# Weight carry-over from the flat checkpoint scheme
+# --------------------------------------------------------------------------
+
+
+def _to_tensor(arr: np.ndarray, bf16: bool, device: torch.device) -> torch.Tensor:
+    arr = np.require(arr, requirements=["C", "W"])  # torch wants writable memory
+    if bf16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
+    """The parameter tree of the port's model from a flat checkpoint dict
+    (``np.load`` of a ``save_params`` file, or ``random_quantized_params``).
+
+    Dense leaves become tensors on ``device`` (bf16 from their uint16
+    views); a quantized leaf becomes a dict ``{"w", "scales", "zeros",
+    "group_size"}`` of int4 rowpack tensors, which the model repacks once
+    into the W4A8 kernel's layout (``ops/qmm.py``). Legacy unsigned-nibble
+    (uint8) packs are read as they are: ``ops/qmm.py::unpack_rowpack``
+    takes both. Layer lists are rebuilt from their numeric path parts."""
+    dev = resolve_device(device)
+    tree: Dict[str, Any] = {}
+    for key, arr in flat.items():
+        is_none = key.endswith("#none")
+        is_bf16 = key.endswith("#bf16")
+        base = key.rsplit("#", 1)[0] if (is_none or is_bf16) else key
+        parts = base.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        if is_none:
+            node[parts[-1]] = None
+        elif parts[-1] == "qmeta":
+            node["qmeta"] = [int(x) for x in np.asarray(arr)]
+        else:
+            node[parts[-1]] = _to_tensor(np.asarray(arr), is_bf16, dev)
+    return _listify(tree)
+
+
+def _listify(node):
+    if isinstance(node, dict):
+        if "qmeta" in node:
+            bits, group_size = node["qmeta"]
+            if bits != 4:
+                raise ValueError(f"int{bits} weights are not ported yet (int4 only)")
+            return {
+                "w": node["w"], "scales": node["scales"], "zeros": node["zeros"],
+                "group_size": group_size,
+            }
+        keys = list(node)
+        if keys and all(k.isdigit() for k in keys):
+            return [_listify(node[str(i)]) for i in range(len(keys))]
+        return {k: _listify(v) for k, v in node.items()}
+    return node
+
+
+def load_params(path: str, device=None) -> Dict[str, Any]:
+    """``params_from_flat`` over a ``save_params`` ``.npz`` file."""
+    with np.load(path, allow_pickle=False) as data:
+        return params_from_flat({k: data[k] for k in data.files}, device)
+
+
+def build_model(cfg: ModelConfig, params: Dict[str, Any], device=None,
+                max_positions: Optional[int] = None) -> Transformer:
+    """Fuse q/k/v and w1/w3, repack int4 leaves into the kernel layout and
+    build the ``Transformer`` with a rope table for ``max_positions``."""
+    dev = resolve_device(device)
+    rope = make_rope_table(cfg, max_positions, device=dev)
+    return Transformer(cfg, fuse_layer_params(params), rope).to(dev)
+

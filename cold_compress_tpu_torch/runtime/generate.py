@@ -1,0 +1,218 @@
+"""Generation runtime: prefill, then a greedy decode loop on the device.
+
+Counterpart of ``cold_compress_tpu/runtime/generate.py`` (single-prompt
+``generate`` and ``reset_caches``). The JAX package runs the decode loop as
+one jitted ``lax.while_loop``; here it is a Python loop over
+``decode_step`` whose tokens, probabilities and stop flags stay on the
+device: the host never waits on the card inside the loop and reads the
+results once at the end. Without that read the loop cannot stop early at a
+terminator, so it runs all ``max_new_tokens - 1`` steps and records nothing
+for a finished lane (``-1`` tokens, ``0`` probabilities), which is what
+the JAX loop returns.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..caches import reset_state
+from ..models.transformer import Transformer, decode_step, prefill
+
+
+def bucket_length(n: int, minimum: int = 16) -> int:
+    """Round up to a power of two (the prefill length bucket)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(
+    model: Transformer,
+    caches,
+    prompt: Sequence[int],
+    max_new_tokens: int,
+    *,
+    next_tokens: Optional[Sequence[int]] = None,
+    terminator_ids: Optional[Sequence[int]] = None,
+    prefill_bucket: Optional[int] = None,
+) -> Tuple[List[int], Dict[str, Any], Any]:
+    """Generate greedily from a prompt; returns ``(sequence, info, caches)``.
+
+    The caches (one ``CacheState`` per layer, on the model's device) are
+    updated in place. Edge cases follow the JAX package:
+
+    * ``next_tokens``: teacher forcing; every step emits the given token and
+      records its probability.
+    * a prompt exactly as long as the smallest cache feeds its last token
+      through decode, so eviction state exists before the cache overflows.
+    * ``terminator_ids``: a lane records nothing after emitting one.
+
+    ``info`` holds ``perf_stats`` (seconds and tokens per second, timed
+    with the device synchronised), ``emitted_probs`` (the probability of
+    each emitted or forced token) and ``final_probs`` (the last step's
+    distribution over the vocabulary).
+    """
+    device = model.device
+    cfg = model.cfg
+    prompt = [int(t) for t in prompt]
+    prompt_length = len(prompt)
+    terminator_ids = [int(t) for t in (terminator_ids or [])]
+    specs = [c.spec for c in caches]
+
+    min_cache_length = min(s.max_cache_length for s in specs)
+    prefix: List[int] = []
+    if prompt_length == min_cache_length:
+        prompt, prefix = prompt[:-1], prompt[-1:]
+        max_new_tokens += 1
+        prompt_length = len(prompt)
+
+    if next_tokens is not None:
+        next_tokens = [int(t) for t in next_tokens]
+        max_new_tokens = len(next_tokens)
+        forced_first: Optional[int] = next_tokens[0]
+        prefix = next_tokens[1:]
+    elif prefix:
+        forced_first, prefix = prefix[0], prefix[1:]
+    else:
+        forced_first = None
+
+    # ---- prefill ---------------------------------------------------------
+    # Direct-fill caches write all P padded slots, so the bucket must not
+    # exceed their length.
+    direct_fill = [
+        s.max_cache_length for s in specs if s.cache_strategy in ("full", "hybrid")
+    ]
+    P = prefill_bucket or bucket_length(prompt_length)
+    if direct_fill and P > min(direct_fill):
+        P = min(direct_fill)
+        if P < prompt_length:
+            raise ValueError(
+                f"Prompt ({prompt_length} tokens) exceeds the smallest "
+                f"direct-fill cache length ({P})."
+            )
+    tokens = torch.tensor(
+        [prompt + [0] * (P - prompt_length)], dtype=torch.long, device=device
+    )
+
+    _sync(device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = prefill(model, caches, tokens, prompt_length)
+        prefill_probs = torch.softmax(logits.float(), dim=-1)
+        greedy_tok = logits.argmax(dim=-1)
+    prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
+    t1 = time.perf_counter()
+
+    if forced_first is not None:
+        first_token = torch.tensor([forced_first], dtype=torch.long, device=device)
+        first_id = forced_first
+    else:
+        first_token = greedy_tok
+        first_id = int(greedy_tok[0])
+    first_prob = float(prefill_probs_np[0, first_id])
+
+    # ---- decode loop -----------------------------------------------------
+    max_steps = max(max_new_tokens - 1, 0)
+    if max_steps > 0:
+        tokens_buf, probs_buf, last_probs = _decode_loop(
+            model, caches, first_token, prompt_length, prefix, terminator_ids,
+            max_steps,
+        )
+        tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
+        t2 = time.perf_counter()
+        gen = [int(t) for t in tokens_np[:, 0] if int(t) != -1]
+        n_steps = len(gen) - 1
+        emitted_probs = [first_prob] + [
+            float(p) for p in probs_buf[:n_steps, 0].cpu().numpy()
+        ]
+        final_probs = last_probs[0].cpu().numpy()
+    else:
+        t2 = t1
+        gen = [first_id]
+        n_steps = 0
+        emitted_probs = [first_prob]
+        final_probs = prefill_probs_np[0]
+
+    seq = prompt + gen
+    prefill_seconds = t1 - t0
+    decode_seconds = max(t2 - t1, 1e-9)
+    decode_tokens = n_steps + 1
+    total_seconds = t2 - t0
+    perf_stats = {
+        "prefill_tokens": prompt_length,
+        "decode_tokens": decode_tokens,
+        "decode_steps": max_steps,
+        "prefill_toks_per_sec": prompt_length / max(prefill_seconds, 1e-9),
+        "decode_toks_per_sec": decode_tokens / decode_seconds,
+        "total_toks_per_sec": decode_tokens / max(total_seconds, 1e-9),
+        "total_seconds": total_seconds,
+        "prefill_seconds": prefill_seconds,
+        "decode_seconds": decode_seconds,
+        "decode_seconds_frac_of_total": decode_seconds / max(total_seconds, 1e-9),
+        "memory_used_gb": (
+            torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
+        ),
+    }
+    info = {
+        "perf_stats": perf_stats,
+        "emitted_probs": emitted_probs,
+        "final_probs": final_probs,
+        "prompt_length": prompt_length,
+        "num_generated": len(gen),
+        "vocab_size": cfg.vocab_size,
+    }
+    return seq, info, caches
+
+
+def _decode_loop(model: Transformer, caches, first_token: torch.Tensor, start_pos: int,
+                 prefix: Sequence[int], terminator_ids: Sequence[int], max_steps: int):
+    """Greedy decode with everything kept on the device.
+
+    Returns (tokens [max_steps + 1, B] with slot 0 the first token and -1
+    after a lane finished, emitted probabilities [max_steps, B], the last
+    distribution [B, vocab] of each lane while it was running)."""
+    device = first_token.device
+    B = first_token.shape[0]
+    V = model.cfg.vocab_size
+    forced = list(prefix[:max_steps]) + [-1] * max(0, max_steps - len(prefix))
+    forced_t = torch.tensor([max(t, 0) for t in forced], dtype=torch.long, device=device)
+    term = torch.tensor(terminator_ids or [-7], dtype=torch.long, device=device)
+    tokens_buf = torch.full((max_steps + 1, B), -1, dtype=torch.long, device=device)
+    tokens_buf[0] = first_token
+    probs_buf = torch.zeros((max_steps, B), dtype=torch.float32, device=device)
+    last_probs = torch.zeros((B, V), dtype=torch.float32, device=device)
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    cur = first_token
+    with torch.inference_mode():
+        for i in range(max_steps):
+            logits = decode_step(model, caches, cur, start_pos + i)
+            probs = torch.softmax(logits.float(), dim=-1)
+            if forced[i] >= 0:  # teacher forcing is known on the host
+                next_tok = forced_t[i].expand(B)
+                is_term = torch.zeros_like(done)
+            else:
+                next_tok = logits.argmax(dim=-1)
+                is_term = torch.isin(next_tok, term)
+            p_emit = probs.gather(1, next_tok[:, None])[:, 0]
+            tokens_buf[i + 1] = torch.where(done, -1, next_tok)
+            probs_buf[i] = torch.where(done, 0.0, p_emit)
+            last_probs = torch.where(done[:, None], last_probs, probs)
+            done = done | is_term
+            cur = next_tok
+    return tokens_buf, probs_buf, last_probs
+
+
+def reset_caches(caches):
+    """Fresh cache states for a new example, zeroed in place."""
+    for c in caches:
+        reset_state(c)
+    return caches

@@ -1,0 +1,115 @@
+"""The port's kv8 decode attention (kernel K3) against the JAX package.
+
+On CPU tensors the wrapper takes its plain version, which carries the
+kernel's arithmetic: K/V dequantized per slot and rounded to bf16, f32
+scores and softmax, probabilities rounded to bf16 before P.V, pooled
+probabilities averaged over the G query heads."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cold_compress_tpu.caches.base import CacheSpec as JaxSpec
+from cold_compress_tpu.caches.base import init_state as jax_init_state
+from cold_compress_tpu.caches.base import materialize_kv as jax_materialize
+from cold_compress_tpu.caches.base import quantize_rows as jax_quantize_rows
+from cold_compress_tpu.ops.attention import gqa_attention as jax_gqa
+from cold_compress_tpu.ops.pallas_decode_attn import quantized_decode_attention
+
+from cold_compress_tpu_torch.ops import decode_attn
+from cold_compress_tpu_torch.ops.attention import gqa_attention
+
+B, KVH, G, C, D = 2, 2, 4, 256, 128
+H = KVH * G
+
+
+def _inputs(seed=0):
+    """Same numpy draws for both sides: a kv8 cache with partly empty slots
+    (a different fill per lane and head) and a bf16 query."""
+    rng = np.random.RandomState(seed)
+    kv = rng.randn(2, B, KVH, C, D).astype(np.float32)
+    qk, ks, kz = jax_quantize_rows(jnp.asarray(kv[0]), 8)
+    qv, vs, vz = jax_quantize_rows(jnp.asarray(kv[1]), 8)
+    filled = rng.randint(C // 4, C, size=(B, KVH))
+    mask = np.arange(C)[None, None, :] < filled[:, :, None]
+    mask &= rng.rand(B, KVH, C) > 0.1  # evicted holes
+    q = (rng.randn(B, H, 1, D) / 8).astype(np.float32)
+    return dict(
+        q=q, kq=np.asarray(qk), vq=np.asarray(qv), ks=np.asarray(ks),
+        kz=np.asarray(kz), vs=np.asarray(vs), vz=np.asarray(vz), mask=mask,
+    )
+
+
+def _port(a):
+    t = {k: torch.from_numpy(np.array(v)) for k, v in a.items()}
+    return decode_attn.kv8_decode_attention(
+        t["q"].to(torch.bfloat16), t["kq"], t["vq"], t["ks"], t["kz"], t["vs"],
+        t["vz"], t["mask"],
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_matches_tpu_kernel(seed):
+    """Against the TPU one-shot kernel in interpret mode (bits=8,
+    need_attn=True, i8dot=False). Same roundings on both sides, so only f32
+    summation order differs: out within 1 bf16 ulp, pooled to f32 noise."""
+    a = _inputs(seed)
+    ref_out, ref_attn = quantized_decode_attention(
+        jnp.asarray(a["q"], jnp.bfloat16), jnp.asarray(a["kq"]), jnp.asarray(a["vq"]),
+        jnp.asarray(a["ks"]), jnp.asarray(a["kz"]), jnp.asarray(a["vs"]),
+        jnp.asarray(a["vz"]), jnp.asarray(a["mask"]),
+        bits=8, need_attn=True, chunked=False, i8dot=False, interpret=True,
+    )
+    out, pooled = _port(a)
+    assert out.shape == (B, H, 1, D) and out.dtype == torch.bfloat16
+    assert pooled.shape == (B, KVH, 1, C) and pooled.dtype == torch.float32
+    ref_out = np.asarray(ref_out, np.float32)
+    np.testing.assert_allclose(out.float().numpy(), ref_out, rtol=8e-3, atol=1e-3)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(ref_attn), rtol=1e-5, atol=1e-7)
+    assert np.all(pooled.numpy()[~a["mask"][:, :, None, :]] == 0.0)
+
+
+def test_plain_matches_xla_path():
+    """Against the JAX XLA path (materialize_kv + gqa_attention), which
+    keeps the probabilities in f32 for P.V: out differs by the bf16
+    rounding of the probabilities (2**-9 relative), pooled not at all
+    beyond f32 noise."""
+    a = _inputs(2)
+    spec = JaxSpec(cache_strategy="heavy_hitter", max_cache_length=C,
+                   max_seq_length=C, cache_bits=8)
+    st = jax_init_state(spec, B, KVH, D).replace(
+        k=jnp.asarray(a["kq"]), v=jnp.asarray(a["vq"]),
+        k_scales=jnp.asarray(a["ks"]), k_zeros=jnp.asarray(a["kz"]),
+        v_scales=jnp.asarray(a["vs"]), v_zeros=jnp.asarray(a["vz"]),
+        mask=jnp.asarray(a["mask"]),
+    )
+    k, v = jax_materialize(st)  # bf16, as the kernel rounds them
+    ref_out, ref_attn = jax_gqa(
+        jnp.asarray(a["q"], jnp.bfloat16), k, v,
+        mask=st.mask[:, :, None, None, :], return_attn=True,
+    )
+    out, pooled = _port(a)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref_out, np.float32),
+                               rtol=2e-2, atol=2e-3)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(ref_attn), rtol=1e-5, atol=1e-7)
+
+    # The port's own XLA-path counterpart agrees with JAX's to f32 noise.
+    out2, attn2 = gqa_attention(
+        torch.from_numpy(a["q"]).to(torch.bfloat16),
+        torch.from_numpy(np.asarray(k, np.float32)).to(torch.bfloat16),
+        torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16),
+        mask=torch.from_numpy(a["mask"])[:, :, None, None, :], return_attn=True,
+    )
+    np.testing.assert_allclose(out2.float().numpy(), np.asarray(ref_out, np.float32),
+                               rtol=8e-3, atol=1e-3)
+    np.testing.assert_allclose(attn2.numpy(), np.asarray(ref_attn), rtol=1e-5, atol=1e-7)
+
+
+def test_cpu_tensors_do_not_count_as_launches():
+    before = decode_attn.LAUNCHES["kv8_decode_attention"]
+    _port(_inputs(3))
+    assert decode_attn.LAUNCHES["kv8_decode_attention"] == before
+    assert decode_attn.decode_attn_supported((1, 32, 1, 128), 8)
+    assert not decode_attn.decode_attn_supported((1, 32, 1, 64), 8)
+    assert not decode_attn.decode_attn_supported((1, 32, 2, 128), 8)

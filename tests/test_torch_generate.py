@@ -1,0 +1,207 @@
+"""The whole slice: the port's ``generate()`` against the JAX package's, on
+weights handed over through the checkpoint key scheme
+(``runtime/engine.py::params_from_flat``)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cold_compress_tpu.models import transformer as JT
+from cold_compress_tpu.models.config import ModelConfig as JaxModelConfig
+from cold_compress_tpu.quantization.weight_quant import quantize_params
+from cold_compress_tpu.runtime.engine import _flatten
+from cold_compress_tpu.runtime.engine import build_cache_specs as jax_build_specs
+from cold_compress_tpu.runtime.generate import generate as jax_generate
+
+from cold_compress_tpu_torch.models import transformer as TT
+from cold_compress_tpu_torch.models.config import ModelConfig
+from cold_compress_tpu_torch.ops import kernel_launches
+from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
+from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
+
+HH_KW = {
+    "cache_strategy": ["heavy_hitter"],
+    "max_cache_length": [0.25],
+    "prompt_compression_strategy": ["heavy_hitter"],
+    "global_tokens": 4,
+    "recent_window": 10,
+}
+
+
+def _port_model(name, jax_params, max_seq):
+    cfg = ModelConfig.from_name(name)
+    tree = params_from_flat(_flatten(jax_params), "cpu")
+    return cfg, build_model(cfg, tree, "cpu", max_positions=max_seq)
+
+
+def _port_caches(cfg, kw, max_seq, dtype):
+    return TT.init_caches(cfg, build_cache_specs(cfg, kw, max_seq), 1, dtype, device="cpu")
+
+
+def _jax_caches(cfg, kw, max_seq, dtype):
+    return JT.init_caches(cfg, jax_build_specs(cfg, kw, max_seq), 1, dtype)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = JaxModelConfig.from_name("TestTiny")
+    params = JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    return cfg, params
+
+
+PROMPT_TINY = np.random.RandomState(5).randint(1, 500, size=90).tolist()
+
+
+def test_f32_tiny_prefill_logits_and_greedy_tokens(tiny):
+    """f32 dense TestTiny with a heavy-hitter cache at 25% of 128 (the
+    90-token prompt is compressed, then decode evicts): prefill logits
+    agree to f32 noise and 16 greedy tokens are identical."""
+    jcfg, jparams = tiny
+    cfg, model = _port_model("TestTiny", jparams, 128)
+    rope = JT.make_rope_table(jcfg)
+
+    tokens = PROMPT_TINY + [0] * (128 - len(PROMPT_TINY))
+    jlogits, _ = JT.prefill(jcfg, jparams, rope, _jax_caches(jcfg, HH_KW, 128, jnp.float32),
+                            jnp.asarray([tokens], jnp.int32), jnp.int32(len(PROMPT_TINY)))
+    with torch.inference_mode():
+        logits = TT.prefill(model, _port_caches(cfg, HH_KW, 128, torch.float32),
+                            torch.tensor([tokens]), len(PROMPT_TINY))
+    # f32 on both sides; the attention operands are rounded to bf16 on both
+    # sides, so only summation order differs.
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+
+    jseq, jinfo, _ = jax_generate(jcfg, jparams, rope,
+                                  _jax_caches(jcfg, HH_KW, 128, jnp.float32), PROMPT_TINY, 16)
+    caches = _port_caches(cfg, HH_KW, 128, torch.float32)
+    seq, info, caches = generate(model, caches, PROMPT_TINY, 16)
+    assert seq == jseq
+    assert len(seq) == len(PROMPT_TINY) + 16
+    np.testing.assert_allclose(info["emitted_probs"], jinfo["emitted_probs"], rtol=1e-3, atol=1e-5)
+    assert info["perf_stats"]["decode_steps"] == 15
+    assert int(caches[0].cache_ct.max()) == 32  # compressed to the budget
+
+    # A fresh run over the reset caches repeats itself exactly.
+    seq2, _, _ = generate(model, reset_caches(caches), PROMPT_TINY, 16)
+    assert seq2 == seq
+
+
+def test_f32_tiny_full_cache_terminator(tiny):
+    """Full cache, with the second greedy token declared a terminator: the
+    port records nothing after it, as the JAX loop does."""
+    jcfg, jparams = tiny
+    cfg, model = _port_model("TestTiny", jparams, 128)
+    kw = {"cache_strategy": ["full"], "max_cache_length": [1.0],
+          "prompt_compression_strategy": ["full"]}
+    prompt = PROMPT_TINY[:20]
+    seq, _, _ = generate(model, _port_caches(cfg, kw, 128, torch.float32), prompt, 8)
+    stop = seq[21]
+    rope = JT.make_rope_table(jcfg)
+    jseq, jinfo, _ = jax_generate(jcfg, jparams, rope, _jax_caches(jcfg, kw, 128, jnp.float32),
+                                  prompt, 8, terminator_ids=[stop])
+    seq2, info2, _ = generate(model, _port_caches(cfg, kw, 128, torch.float32), prompt, 8,
+                              terminator_ids=[stop])
+    assert seq2 == jseq == seq[:22]
+    assert info2["num_generated"] == jinfo["num_generated"] == 2
+    np.testing.assert_allclose(info2["emitted_probs"], jinfo["emitted_probs"], rtol=1e-4)
+    np.testing.assert_allclose(info2["final_probs"], jinfo["final_probs"], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# TestKernel: int4 weights and head, kv8 heavy-hitter cache (the main path's
+# options at the smallest shapes every kernel takes), teacher-forced.
+# ---------------------------------------------------------------------------
+
+PROMPT = np.random.RandomState(0).randint(2, 500, size=300).tolist()
+FORCED = np.random.RandomState(1).randint(2, 500, size=8).tolist()
+KV8_KW = dict(HH_KW, cache_bits=8)
+JAX_GATES = ("CCT_PALLAS_INTERPRET", "CCT_FUSED_EVICT", "CCT_TILED_HEAD",
+             "CCT_PREFILL_W4A8", "CCT_QMM_CPT", "CCT_QMM_INKQ", "CCT_ATTN_I8DOT",
+             "CCT_ATTN_V2", "CCT_ATTN_V2_OS_MB")
+
+
+@pytest.fixture(scope="module")
+def kernel_params():
+    cfg = JaxModelConfig.from_name("TestKernel")
+    params = JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16)
+    return cfg, quantize_params(params, mode="int4", group_size=128, output_mode="int4")
+
+
+def _jax_run(cfg, qp, env, monkeypatch):
+    """The JAX program as tests/test_gates_e2e.py runs it."""
+    for k in JAX_GATES:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jax.clear_caches()
+    p = JT.fuse_layer_params(JT.stack_layer_params(qp))
+    if env.get("CCT_PALLAS_INTERPRET") == "1":
+        p = JT.colpack_layer_params(p)
+        if env.get("CCT_TILED_HEAD") == "1":
+            p = JT.tile_output_head(p)
+    caches = _jax_caches(cfg, KV8_KW, 512, jnp.bfloat16)
+    _, info, _ = jax_generate(cfg, p, JT.make_rope_table(cfg), caches, PROMPT, 8,
+                              prefill_bucket=512, next_tokens=FORCED)
+    for k in JAX_GATES:
+        monkeypatch.delenv(k, raising=False)
+    jax.clear_caches()
+    return np.asarray(info["emitted_probs"]), np.asarray(info["final_probs"])
+
+
+@pytest.fixture(scope="module")
+def port_kernel_run(kernel_params):
+    _, qp = kernel_params
+    cfg, model = _port_model("TestKernel", qp, 512)
+    caches = _port_caches(cfg, KV8_KW, 512, torch.bfloat16)
+    before = kernel_launches()
+    seq, info, caches = generate(model, caches, PROMPT, 8, prefill_bucket=512,
+                                 next_tokens=FORCED)
+    assert kernel_launches() == before  # CPU tensors: plain versions only
+    assert seq == PROMPT + FORCED
+    assert caches[0].k.dtype == torch.uint8
+    assert int(caches[0].cache_ct.max()) == 128
+    return np.asarray(info["emitted_probs"]), np.asarray(info["final_probs"])
+
+
+# Tolerances, relative: the probabilities of this random model are ~2e-3, so
+# an absolute bound would say nothing. The prefill step's probability carries
+# no eviction yet and agrees to 5e-3 (1e-2 against the XLA path, whose
+# activations stay bf16). Later steps pass through int8 activation
+# quantization, where bf16 summation-order noise upstream flips single int8
+# units and moves a probability by up to ~1.5% (the JAX package's own
+# interpret and XLA paths differ by 1.0% here). The last step also follows a
+# heavy-hitter near-tie: in layer 1 two slots' histories are within 2e-4
+# relative of each other and the port keeps the other one, which moves
+# final_probs by up to 4% (0.04 in log-probability).
+LOGP_TOL = 8e-2
+
+
+def _check_probs(e, f, e_ref, f_ref, first_rtol, steps_rtol):
+    np.testing.assert_allclose(e[0], e_ref[0], rtol=first_rtol)
+    np.testing.assert_allclose(e, e_ref, rtol=steps_rtol)
+    assert np.all(f > 0) and abs(float(f.sum()) - 1.0) < 1e-3
+    assert float(np.abs(np.log(f) - np.log(f_ref)).max()) <= LOGP_TOL
+
+
+def test_int4_kv8_matches_tpu_program_in_interpret_mode(kernel_params, port_kernel_run,
+                                                        monkeypatch):
+    """Against the TPU program (Pallas kernels in interpret mode, tiled int4
+    head, i8dot off): both quantize activations to int8 and the cache to
+    uint8, and round at the same places but for K4's P.V (normalised vs
+    unnormalised probabilities to bf16) and the cpt sidecar's bf16 zero
+    term. Per-step probabilities within 3% relative."""
+    cfg, qp = kernel_params
+    e_ref, f_ref = _jax_run(cfg, qp, {"CCT_PALLAS_INTERPRET": "1", "CCT_TILED_HEAD": "1",
+                                      "CCT_ATTN_I8DOT": "0"}, monkeypatch)
+    e, f = port_kernel_run
+    _check_probs(e, f, e_ref, f_ref, first_rtol=5e-3, steps_rtol=3e-2)
+
+
+def test_int4_kv8_matches_jax_xla_path(kernel_params, port_kernel_run, monkeypatch):
+    """Against JAX's plain XLA path (bf16 activations into dequantized
+    weights): the 5e-2 of tests/test_gates_e2e.py, taken relative."""
+    cfg, qp = kernel_params
+    e_ref, f_ref = _jax_run(cfg, qp, {}, monkeypatch)
+    e, f = port_kernel_run
+    _check_probs(e, f, e_ref, f_ref, first_rtol=1e-2, steps_rtol=5e-2)

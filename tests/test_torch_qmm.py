@@ -1,0 +1,203 @@
+"""The port's W4A8 matmul (kernel K1/K2) and int4 weight handling against
+the JAX package.
+
+The port's kernel wrapper takes its plain version on CPU tensors, so these
+tests hold the plain version (the kernel's arithmetic) against the TPU
+kernels run in Pallas interpret mode."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cold_compress_tpu.models.config import ModelConfig as JaxModelConfig
+from cold_compress_tpu.ops import linear as JL
+from cold_compress_tpu.ops.pallas_qmm import qmm_w4a8_cp_stacked, qmm_w4a8_cpt
+from cold_compress_tpu.quantization import weight_quant as JW
+from cold_compress_tpu.runtime.engine import _flatten
+
+from cold_compress_tpu_torch.models.config import ModelConfig
+from cold_compress_tpu_torch.ops import linear as TL
+from cold_compress_tpu_torch.ops import qmm
+from cold_compress_tpu_torch.quantization import weight_quant as TW
+from cold_compress_tpu_torch.runtime.engine import params_from_flat
+
+
+def _leaf(rng, IN, OUT, gs=128):
+    """A JAX int4 rowpack leaf quantized from random normal weights (real
+    scales and zeros, unlike the constant ones of random_quantized_params)."""
+    return JW.quantize_weight_int4(
+        jnp.asarray(rng.randn(IN, OUT).astype(np.float32) * 0.05), group_size=gs
+    )
+
+
+def _torch_leaf(leaf):
+    """The port's kernel layout of a JAX rowpack leaf, carried over through
+    the checkpoint key scheme (numpy only)."""
+    flat = _flatten(leaf)
+    tree = params_from_flat(flat, "cpu")
+    return qmm.rowpack_to_gemv(tree["w"], tree["scales"], tree["zeros"])
+
+
+def _x(rng, L, IN):
+    return rng.randn(L, IN).astype(np.float32)
+
+
+def _bf16(a):
+    """numpy f32 -> the bf16 tensor both sides see."""
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+# Tolerance: both sides quantize the same bf16 activations to the same int8
+# values and form exact integer group dots; they differ only in f32
+# summation order and in the TPU sidecar's bf16 rounding of the pre-summed
+# zero term (z - 8 s), a relative error of at most 2**-9 on that term.
+QMM_RTOL = 4e-3
+
+
+@pytest.mark.parametrize("L", [1, 5])
+def test_w4a8_plain_matches_tpu_cpt_kernel(L):
+    """Layer projections: the port's W4A8 against ``qmm_w4a8_cpt``
+    (interpret mode) on a stacked leaf after to_cpt(to_colpack(...)),
+    layer index selected inside the kernel."""
+    rng = np.random.RandomState(L)
+    IN, OUT, NL = 512, 768, 2
+    leaves = [_leaf(rng, IN, OUT) for _ in range(NL)]
+    stacked = JL.QuantizedWeight(
+        w=jnp.stack([lf.w for lf in leaves]),
+        scales=jnp.stack([lf.scales for lf in leaves]),
+        zeros=jnp.stack([lf.zeros for lf in leaves]),
+        kind="int4", group_size=128,
+    )
+    cpt = JL.to_cpt(JL.to_colpack(stacked))
+    assert cpt.w.ndim == 4
+    x = _x(rng, L, IN)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    for i, leaf in enumerate(leaves):
+        ref = np.asarray(
+            qmm_w4a8_cpt(xb, cpt.w, cpt.scales, i, group_size=128,
+                         interpret=True, inkq=True)
+        )
+        wg, sz = _torch_leaf(leaf)
+        got = qmm.w4a8_gemv(_bf16(x), wg, sz, 128, counter="w4a8_gemv.wqkv").numpy()
+        assert got.shape == (L, OUT)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=QMM_RTOL * np.abs(ref).max())
+
+
+def test_w4a8_plain_matches_tpu_tiled_head_kernel():
+    """Vocab head: the tiled branch of ``qmm_w4a8_cp_stacked`` (the int4
+    head's kernel) with an OUT that is no multiple of any tile; the TPU
+    pads and slices, the port masks the ragged edge."""
+    rng = np.random.RandomState(7)
+    IN, OUT = 512, 1000
+    leaf = _leaf(rng, IN, OUT)
+    tiled = JL.to_colpack_tiled(leaf, tile_out=128)
+    assert tiled.w.shape[0] * tiled.w.shape[2] * 2 > OUT  # padded
+    x = _x(rng, 1, IN)
+    ref = np.asarray(
+        qmm_w4a8_cp_stacked(
+            jnp.asarray(x, jnp.bfloat16), tiled.w[None], tiled.scales[None],
+            tiled.zeros[None], 0, group_size=128, interpret=True,
+        )
+    )[:, :OUT]
+    wg, sz = _torch_leaf(leaf)
+    got = qmm.w4a8_gemv(_bf16(x), wg, sz, 128, counter="w4a8_gemv.head").numpy()
+    assert got.shape == (1, OUT)
+    # No pre-summed zero term in this layout: only summation order differs.
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def test_activation_quantization_matches_tpu():
+    """Per-row int8 activation quantization (round half to even, true
+    division by sx) is bit-identical to the TPU kernels' prologue."""
+    from cold_compress_tpu.ops.pallas_qmm import _quantize_rows
+
+    rng = np.random.RandomState(3)
+    x = _x(rng, 5, 512)
+    x[0, :4] = [0.5, 1.5, -2.5, 127.0]  # ties and the absmax itself
+    xq_ref, sx_ref = _quantize_rows(jnp.asarray(x, jnp.bfloat16))
+    xq, sx = qmm.quantize_activations(_bf16(x))
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(xq_ref, np.float32))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(sx_ref))
+
+
+@pytest.mark.parametrize("legacy_uint8", [False, True])
+def test_rowpack_dequant_matches_jax(legacy_uint8):
+    """Rowpack dequantization, and the kernel layout's dequantization used
+    by prefill, are exactly the JAX package's ``dequantize_weight``."""
+    rng = np.random.RandomState(4)
+    leaf = _leaf(rng, 256, 384, gs=64)
+    ref = np.asarray(JL.dequantize_weight(leaf, jnp.float32))
+    w = torch.from_numpy(np.array(leaf.w))
+    if legacy_uint8:  # unsigned-nibble checkpoints
+        w = (w.view(torch.uint8) ^ 0x80)
+    s = torch.from_numpy(np.array(leaf.scales.view(jnp.uint16)).view(np.int16)).view(torch.bfloat16)
+    z = torch.from_numpy(np.array(leaf.zeros.view(jnp.uint16)).view(np.int16)).view(torch.bfloat16)
+    got = TL.dequantize_weight(w, s, z, 64, dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(got, ref)
+    lin = TL.QuantizedLinear.from_rowpack(w, s, z, 64, counter="w4a8_gemv.wo")
+    np.testing.assert_array_equal(lin.dense(torch.float32).numpy(), ref)
+    assert (lin.in_features, lin.out_features) == (256, 384)
+
+
+def test_quantized_linear_routes_by_row_count():
+    """L <= 32 rows run the W4A8 kernel (counted); larger L dequantizes to
+    bf16 and matches the JAX package's XLA fallback."""
+    rng = np.random.RandomState(5)
+    leaf = _leaf(rng, 256, 256)
+    wg, sz = _torch_leaf(leaf)
+    lin = TL.QuantizedLinear(wg, sz, 128, counter="w4a8_gemv.wo")
+    x = _x(rng, 40, 256)
+    before = qmm.LAUNCHES["w4a8_gemv.wo"]
+    y = lin(_bf16(x))  # prefill-sized: dense bf16 path
+    jax_leaf = dict(leaf.__dict__)
+    ref = np.asarray(JL.linear(jnp.asarray(x, jnp.bfloat16), leaf), np.float32)
+    np.testing.assert_allclose(y.float().numpy(), ref, rtol=0,
+                               atol=1e-2 * np.abs(ref).max())
+    assert jax_leaf["kind"] == "int4"
+    # CPU tensors take the plain version and never count as a launch.
+    lin(_bf16(x[:1]))
+    assert qmm.LAUNCHES["w4a8_gemv.wo"] == before
+
+
+def test_random_quantized_params_byte_identical():
+    """The port's numpy ``random_quantized_params`` gives the JAX package's
+    bytes (int4 layers and int4 head) under the checkpoint key scheme."""
+    cfg_j = JaxModelConfig.from_name("TestKernel")
+    ref = _flatten(JW.random_quantized_params(cfg_j, seed=3, head_mode="int4"))
+    got = TW.random_quantized_params(ModelConfig.from_name("TestKernel"), seed=3)
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        a, b = np.asarray(got[key]), np.asarray(ref[key])
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        assert a.tobytes() == b.tobytes(), key
+
+
+def test_effective_group_size():
+    for in_dim, gs in [(4096, 128), (288, 128), (14336, 128), (100, 128)]:
+        assert TW.effective_group_size(in_dim, gs) == JW.effective_group_size(in_dim, gs)
+
+
+def test_checkpoint_file_round_trip(tmp_path):
+    """A params tree saved by the JAX package loads into the port."""
+    from cold_compress_tpu.runtime.engine import save_params
+
+    from cold_compress_tpu_torch.runtime.engine import load_params
+
+    cfg = JaxModelConfig.from_name("TestKernel")
+    params = JW.random_quantized_params(cfg, seed=1, head_mode="int4")
+    path = tmp_path / "model.npz"
+    save_params(params, str(path))
+    tree = load_params(str(path), "cpu")
+    assert len(tree["layers"]) == cfg.n_layer
+    wq = tree["layers"][1]["attn"]["wq"]
+    assert wq["group_size"] == 128
+    assert wq["w"].dtype == torch.int8
+    np.testing.assert_array_equal(wq["w"].numpy(), np.asarray(params["layers"][1]["attn"]["wq"].w))
+    emb = tree["tok_embeddings"]
+    assert emb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        emb.float().numpy(), np.asarray(params["tok_embeddings"], np.float32)
+    )
+    assert jax.devices()[0].platform == "cpu"
