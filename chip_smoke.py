@@ -11,15 +11,29 @@ Phases; any failure raises and the script exits non-zero:
 1. build the port's CUDA kernels from ``cold_compress_tpu_torch/csrc``
    (``nvcc``, sm_90a, one process per source, all at once);
 2. each kernel against its plain PyTorch version on the card at the shapes
-   of the Llama-3-8B main path, timed with CUDA events beside its bound;
+   of the Llama-3-8B paths, timed with CUDA events beside its bound: the
+   W4A8 projections and head (K1/K2), decode attention at every cache
+   precision with and without pooled probabilities at C = 2048 and, for
+   bf16/int8/int4 without, at C = 32768 (K3/K5), the fused heavy-hitter
+   eviction (K7), the W8A8 head (K9) and flash prefill (K4);
 3. small in-situ parity: the port on the card against the port on the CPU
-   (plain versions), TestKernel with int4 weights, kv8 heavy-hitter cache,
-   teacher-forced;
-4. end to end at Llama-3-8B (32 layers, random int4 weights and head from
-   seed 0, kv8 heavy_hitter cache at 25% of an 8192 context with the
-   heavy_hitter prompt compressor, a 7928-token prompt, 128 greedy
-   tokens), with the launch count of every kernel checked; with
-   ``--profile``, then the wall and device time of a few decode steps.
+   (plain versions), TestKernel with int4 weights, teacher-forced, over
+   several cache strategies and precisions (heavy_hitter at kv8, bf16, kv4
+   and kv2; random kv2; keep_it_odd kv4; recent_global kv8), each with an
+   exact launch witness;
+4. end to end through ``generate()``, each run with an exact launch witness
+   (every count set to 0 just before it and read just after):
+   - the main path, Llama-3-8B (32 layers, random int4 weights and head
+     from seed 0), kv8 heavy_hitter cache at 25% of an 8192 context with
+     the heavy_hitter prompt compressor, a 7928-token prompt, 128 greedy
+     tokens;
+   - l2 with a kv4 cache and an int8 vocab head, the same model and
+     budget, 64 tokens;
+   - full with a bf16 cache at a 32768 context on Meta-Llama-3.1-8B-Instruct
+     (the same widths and weights, its own rope table), a 32504-token
+     prompt, 64 tokens;
+   with ``--profile``, after each run, the wall and device time of a few
+   more decode steps.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing every kernel, and the result line.
@@ -30,7 +44,6 @@ from __future__ import annotations
 import functools
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -41,18 +54,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 L2_BYTES = 50 * 2**20
 REPO_TPU = "cold_compress_tpu"
+CSRC = "cold_compress_tpu_torch/csrc"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound(nbytes: float, nops: float, op_type: str):
@@ -130,6 +136,16 @@ def bf16_out_err(y: torch.Tensor, ref: torch.Tensor, row_share: float):
     return float(err.max()), float((err / tol.clamp_min(1e-30)).max()), text
 
 
+def record(records, name, counter, source, replaces, err, tol, ratio, ms, plain_ms,
+           b_ms, b_by, library_ms, **extra):
+    records.append(dict(
+        name=name, counter=counter, route="cuda", source=f"{CSRC}/{source}",
+        replaces=f"{REPO_TPU}/{replaces}", max_abs_err=err, tol=tol,
+        max_err_over_tol=ratio, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, **extra,
+    ))
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -141,11 +157,11 @@ def check_w4a8(dev, records):
     gs = 128
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = [  # (counter, IN, OUT, replaces)
-        ("w4a8_gemv.wqkv", 4096, 6144, f"{REPO_TPU}/ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.wo", 4096, 4096, f"{REPO_TPU}/ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.w13", 4096, 28672, f"{REPO_TPU}/ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.w2", 14336, 4096, f"{REPO_TPU}/ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.head", 4096, 128256, f"{REPO_TPU}/ops/pallas_qmm.py:407"),
+        ("w4a8_gemv.wqkv", 4096, 6144, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.wo", 4096, 4096, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.w13", 4096, 28672, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.w2", 14336, 4096, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.head", 4096, 128256, "ops/pallas_qmm.py:407"),
     ]
     for name, IN, OUT, replaces in shapes:
         ng = IN // gs
@@ -176,66 +192,190 @@ def check_w4a8(dev, records):
         b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
         log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
             f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none")
-        records[name] = dict(
-            name=name, route="cuda", source="cold_compress_tpu_torch/csrc/w4a8_gemv.cu",
-            replaces=replaces, max_abs_err=err, tol="1e-4*max|ref| + 1e-6",
-            max_err_over_tol=err / tol, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        )
+        record(records, name, name, "w4a8_gemv.cu", replaces, err, "1e-4*max|ref| + 1e-6",
+               err / tol, ms, plain_ms, b_ms, b_by, None)
         del ws, szs
 
 
-def check_kv8_decode(dev, records):
+def _decode_inputs(dev, gen, bits, B, KVH, C, D):
+    """One layer's cache at ``bits`` (16 = bf16), partly empty: a different
+    fill per head, plus evicted holes."""
     from cold_compress_tpu_torch.caches.base import quantize_rows
+
+    def rows():
+        x = torch.randn((B, KVH, C, D), device=dev, generator=gen)
+        if bits == 16:
+            return x.to(torch.bfloat16), None, None
+        return quantize_rows(x, bits)
+
+    kc, ks, kz = rows()
+    vc, vs, vz = rows()
+    fill = torch.randint(C // 2, C, (B, KVH, 1), device=dev, generator=gen)
+    mask = torch.arange(C, device=dev) < fill
+    mask &= torch.rand((B, KVH, C), device=dev, generator=gen) > 0.05
+    return (kc, vc, ks, kz, vs, vz, mask)
+
+
+def check_decode(dev, records, bits: int, need_attn: bool, C: int):
+    """K3 (C = 2048, the main path's budget) or K5 (C = 32768, a full
+    cache above the TPU's one-shot budget) at one (bits, need_attn)."""
     from cold_compress_tpu_torch.ops import decode_attn
 
-    B, H, KVH, C, D = 1, 32, 8, 2048, 128
-    gen = torch.Generator(device=dev).manual_seed(2)
-    nbytes = (2 * B * KVH * C * D + 4 * 4 * B * KVH * C + B * KVH * C
-              + 2 * B * H * D + 2 * B * H * D + 4 * B * KVH * C)
+    B, H, KVH, D = 1, 32, 8, 128
+    G = H // KVH
+    gen = torch.Generator(device=dev).manual_seed(2 + bits + C + int(need_attn))
+    counter = decode_attn.variant(bits, need_attn)
+    name = f"{counter}@C{C}"
+    row_bytes = decode_attn.packed_width(bits, D) * (2 if bits == 16 else 1)
+    side = 0 if bits == 16 else 4 * 4 * B * KVH * C  # f32 scales and zeros of K and V
+    nbytes = (2 * B * KVH * C * row_bytes + side + B * KVH * C  # K, V, their sides, mask
+              + 2 * B * H * D + 4 * B * H * D                   # q in, f32 out
+              + (4 * B * KVH * C if need_attn else 0))          # pooled out
     n = copies_for(nbytes)
-    layers = []
-    for _ in range(n):
-        kq, ks, kz = quantize_rows(torch.randn((B, KVH, C, D), device=dev, generator=gen), 8)
-        vq, vs, vz = quantize_rows(torch.randn((B, KVH, C, D), device=dev, generator=gen), 8)
-        # Partly empty: a different fill per head, plus evicted holes.
-        fill = torch.randint(C // 2, C, (B, KVH, 1), device=dev, generator=gen)
-        mask = torch.arange(C, device=dev) < fill
-        mask &= torch.rand((B, KVH, C), device=dev, generator=gen) > 0.05
-        layers.append((kq, vq, ks, kz, vs, vz, mask))
+    layers = [_decode_inputs(dev, gen, bits, B, KVH, C, D) for _ in range(n)]
     q = (torch.randn((B, H, 1, D), device=dev, generator=gen) / 4).to(torch.bfloat16)
 
+    def args(i):
+        kc, vc, ks, kz, vs, vz, mask = layers[i % n]
+        return (q, kc, vc, ks, kz, vs, vz, mask)
+
     def run(i):
-        kq, vq, ks, kz, vs, vz, mask = layers[i % n]
-        return decode_attn.kv8_decode_attention(q, kq, vq, ks, kz, vs, vz, mask)
+        return decode_attn.decode_attention(*args(i), bits=bits, need_attn=need_attn)
 
     out, pooled = run(0)
-    kq, vq, ks, kz, vs, vz, mask = layers[0]
-    ref_out, ref_pooled = decode_attn.kv8_decode_attention_plain(q, kq, vq, ks, kz, vs, vz, mask)
+    ref_out, ref_pooled = decode_attn.decode_attention_plain(*args(0), bits, need_attn)
     torch.cuda.synchronize()
     # Same roundings on both sides; only the order of the f32 sums differs
     # (the kernel sums 128-slot chunks).
     err, ratio, tol = bf16_out_err(out, ref_out, 2**-8)
-    err_p = max_err(pooled, ref_pooled)
-    tol_p = 1e-5 * float(ref_pooled.max()) + 1e-8
-    log(f"[check] kv8_decode_attention B={B} H={H} KVH={KVH} C={C}: out max_abs_err="
-        f"{err:.3e}, max err/tol {ratio:.3f} (tol {tol}); pooled "
-        f"max_abs_err={err_p:.3e} tol={tol_p:.3e}")
-    assert ratio <= 1 and err_p <= tol_p, "kv8_decode_attention disagrees with its plain version"
-    assert bool((pooled[~mask[:, :, None, :]] == 0).all()), "masked slots got probability"
+    text = f"out max_abs_err={err:.3e}, max err/tol {ratio:.3f} (tol {tol})"
+    ok = ratio <= 1 and bool(torch.isfinite(out).all())
+    if need_attn:
+        err_p = max_err(pooled, ref_pooled)
+        tol_p = 1e-5 * float(ref_pooled.max()) + 1e-8
+        text += f"; pooled max_abs_err={err_p:.3e} tol={tol_p:.3e}"
+        mask = layers[0][-1]
+        ok = ok and err_p <= tol_p and bool((pooled[~mask[:, :, None, :]] == 0).all())
+    else:
+        ok = ok and pooled is None
+    log(f"[check] {name} B={B} H={H} KVH={KVH}: {text}")
+    assert ok, f"{name} disagrees with its plain version"
+
+    iters = 200 if C <= 4096 else 50
+    ms = time_ms(run, iters)
+    plain_ms = time_ms(lambda i: decode_attn.decode_attention_plain(*args(i), bits, need_attn),
+                       10 if C <= 4096 else 3, 1)
+    b_ms, b_by = bound(nbytes, 4 * B * H * C * D, "bf16")
+    library_ms, lib_text = None, "none"
+    if bits == 16 and not need_attn:
+        # The same function in one PyTorch call: masked GQA attention over
+        # the bf16 cache, the mask repeated to the query heads beforehand.
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        masks = [layers[i][-1].repeat_interleave(G, dim=1)[:, :, None, :] for i in range(n)]
+        library_ms = time_ms(lambda i: sdpa(q, layers[i % n][0], layers[i % n][1],
+                                            attn_mask=masks[i % n], enable_gqa=True), iters)
+        lib_text = f"{library_ms:.4f} ms (scaled_dot_product_attention, enable_gqa)"
+    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+        f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: {lib_text}")
+    replaces = ("ops/pallas_decode_attn.py:899" if C <= 4096
+                else "ops/pallas_decode_attn.py:438")
+    record(records, name, counter, "decode_attn.cu", replaces, err, tol, ratio, ms, plain_ms,
+           b_ms, b_by, library_ms, C=C)
+
+
+def check_hh_evict(dev, records):
+    from cold_compress_tpu_torch.ops import evict
+
+    B, H, C, g_tok, recent = 1, 8, 2048, 4, 10
+    gen = torch.Generator(device=dev).manual_seed(4)
+    nbytes = 3 * 4 * B * H * C + 4 * B + 4 * B * H + 2 * 4 * B * H
+    n = copies_for(nbytes)
+    rows = []
+    for _ in range(n):
+        # Dyadic averages give exact ties (the first index must win), and
+        # the empty tail is evicted before anything else.
+        num = torch.randint(1, 64, (B, H, C), device=dev, generator=gen).float() / 4
+        denom = torch.randint(0, 9, (B, H, C), device=dev, generator=gen, dtype=torch.int32)
+        pos = torch.stack([torch.randperm(C, device=dev, generator=gen) for _ in range(B * H)])
+        pos = pos.reshape(B, H, C).to(torch.int32)
+        rows.append((num, denom, pos))
+    # Positions are a permutation of 0..C-1: the last few fall in the
+    # recent window, the first few are global tokens.
+    ipos = torch.full((B, 1, 1), C + 3, dtype=torch.int32, device=dev)
+
+    def run(i):
+        num, denom, pos = rows[i % n]
+        return evict.hh_evict(num, denom, pos, ipos, global_tokens=g_tok, recent_window=recent)
+
+    for empty in (False, True):
+        num, denom, pos = (t.clone() for t in rows[0])
+        if empty:
+            pos[:, :, -5:] = -1
+        n1, d1, n2, d2 = num.clone(), denom.clone(), num.clone(), denom.clone()
+        idx = evict.hh_evict(n1, d1, pos, ipos, global_tokens=g_tok, recent_window=recent)
+        ref = evict.hh_evict_plain(n2, d2, pos, ipos, g_tok, recent)
+        torch.cuda.synchronize()
+        same = (torch.equal(idx, ref) and torch.equal(n1.view(torch.int32), n2.view(torch.int32))
+                and torch.equal(d1, d2))
+        log(f"[check] hh_evict B={B} H={H} C={C} empty_slots={empty}: idx, num and denom "
+            f"bit-equal: {same}")
+        assert same, "hh_evict disagrees with its plain version"
+        if empty:
+            assert bool((idx >= C - 5).all()), "an empty slot must be evicted first"
 
     ms = time_ms(run, 200)
-    plain_ms = time_ms(lambda i: decode_attn.kv8_decode_attention_plain(q, *layers[i % n]), 10)
-    b_ms, b_by = bound(nbytes, 4 * B * H * C * D, "bf16")
-    log(f"[time] kv8_decode_attention: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
-        f"plain {plain_ms:.3f} ms, library: none")
-    records["kv8_decode_attention"] = dict(
-        name="kv8_decode_attention", route="cuda",
-        source="cold_compress_tpu_torch/csrc/kv8_decode_attn.cu",
-        replaces=f"{REPO_TPU}/ops/pallas_decode_attn.py:899", max_abs_err=err,
-        tol=tol, max_err_over_tol=ratio, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    plain_ms = time_ms(lambda i: evict.hh_evict_plain(*rows[i % n], ipos, g_tok, recent), 20)
+    b_ms, b_by = bound(nbytes, 4 * B * H * C, "bf16")
+    log(f"[time] hh_evict: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
+        f"{plain_ms:.4f} ms, library: none")
+    record(records, "hh_evict", "hh_evict", "hh_evict.cu", "ops/pallas_evict.py:57", 0.0,
+           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None)
+
+
+def check_w8a8(dev, records):
+    from cold_compress_tpu_torch.ops import qmm
+
+    IN, OUT = 4096, 128256
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randint(-127, 128, (IN, OUT), dtype=torch.int8, device=dev, generator=gen)
+    s = torch.rand((OUT,), device=dev, generator=gen) * 1e-4 + 1e-4
+    wt, st = qmm.int8_to_gemv(w, s)
+    del w
+    x = torch.randn((1, IN), device=dev, generator=gen).to(torch.bfloat16)
+    name = "w8a8_gemv.head"
+    y = qmm.w8a8_gemv(x, wt, st, counter=name)
+    ref = qmm.w8a8_gemv_plain(x, wt, st)
+    torch.cuda.synchronize()
+    err = max_err(y, ref)
+    # Exact int32 dots on both sides, the same f32 epilogue in the same
+    # order: the same bits.
+    same = torch.equal(y, ref)
+    log(f"[check] {name} IN={IN} OUT={OUT}: bit-equal {same}, max_abs_err={err:.3e}")
+    assert same and bool(torch.isfinite(y).all()), f"{name} disagrees with its plain version"
+
+    nbytes = IN * OUT + 4 * OUT + 2 * IN + 4 * OUT
+    ms = time_ms(lambda i: qmm.w8a8_gemv(x, wt, st, counter=name), 50)
+    plain_ms = time_ms(lambda i: qmm.w8a8_gemv_plain(x, wt, st), 3, 1)
+    b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
+    # The library's int8 GEMM: cuBLASLt takes at least 17 rows, so the
+    # activations are quantized and padded to 32 rows beforehand.
+    xq, sx = qmm.quantize_activations(x)
+    xq32 = torch.zeros((32, IN), dtype=torch.int8, device=dev)
+    xq32[:1] = xq.to(torch.int8)
+    sx32 = torch.ones((32, 1), device=dev)
+    sx32[:1] = sx
+    lib = lambda i: (torch._int_mm(xq32, wt.t()).float() * st) * sx32  # noqa: E731
+    try:
+        lib_same = torch.equal(lib(0)[:1], ref)
+        library_ms = time_ms(lib, 50)
+        lib_text = (f"{library_ms:.4f} ms (torch._int_mm on 32 padded rows plus scaling, "
+                    f"bit-equal to the plain version: {lib_same})")
+    except RuntimeError as e:  # the library call is a yardstick, not a check
+        library_ms, lib_text = None, f"none (torch._int_mm failed: {e})"
+    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+        f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library {lib_text}")
+    record(records, name, name, "w8a8_gemv.cu", "ops/pallas_qmm.py:1293", err, "bit-equal",
+           0.0, ms, plain_ms, b_ms, b_by, library_ms)
 
 
 def check_flash_prefill(dev, records):
@@ -277,85 +417,142 @@ def check_flash_prefill(dev, records):
     log(f"[time] flash_prefill_summary: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; "
         f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library: none "
         f"(scaled_dot_product_attention, causal y only, no summaries: {sdpa_ms:.3f} ms)")
-    records["flash_prefill_summary"] = dict(
-        name="flash_prefill_summary", route="cuda",
-        source="cold_compress_tpu_torch/csrc/flash_prefill.cu",
-        replaces=f"{REPO_TPU}/ops/pallas_prefill.py:167", max_abs_err=err,
-        tol=tol, max_err_over_tol=ratio, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    record(records, "flash_prefill_summary", "flash_prefill_summary", "flash_prefill.cu",
+           "ops/pallas_prefill.py:167", err, tol, ratio, ms, plain_ms, b_ms, b_by, None)
 
 
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: the main path through generate()
+# Phases 3 and 4: through generate()
 # ---------------------------------------------------------------------------
 
-CACHE_KW = {
-    "cache_strategy": ["heavy_hitter"],
-    "max_cache_length": [0.25],
-    "prompt_compression_strategy": ["heavy_hitter"],
-    "global_tokens": 4,
-    "recent_window": 10,
-    "cache_bits": 8,
-}
+
+def cache_kw(strategy: str, bits: int) -> dict:
+    """The port's ``bench`` cache options at its defaults (25% budget, 4
+    global tokens) for ``strategy`` at ``bits`` (16 = bf16)."""
+    from cold_compress_tpu_torch.bench import cache_kwargs
+
+    return cache_kwargs(strategy, 0.25, 4, None if bits == 16 else bits)
 
 
-def build(name: str, seed: int, device: str, context: int):
+def build_model(name: str, seed: int, device: str, context: int):
     from cold_compress_tpu_torch.models.config import ModelConfig
-    from cold_compress_tpu_torch.models.transformer import init_caches
     from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
-    from cold_compress_tpu_torch.runtime.engine import (
-        build_cache_specs, build_model, cache_compatibility, params_from_flat,
-    )
+    from cold_compress_tpu_torch.runtime.engine import build_model as build, params_from_flat
 
     cfg = ModelConfig.from_name(name)
-    cache_compatibility(CACHE_KW)
     flat = random_quantized_params(cfg, seed=seed, head_mode="int4")
     params = params_from_flat(flat, device)
     del flat
-    model = build_model(cfg, params, device, max_positions=context)
+    model = build(cfg, params, device, max_positions=context)
     del params
-    specs = build_cache_specs(cfg, CACHE_KW, context)
-    caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
-    return cfg, model, caches
+    return cfg, model
 
 
-def in_situ_parity(dev):
+def make_caches(cfg, kw: dict, context: int, device: str):
+    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs, cache_compatibility
+
+    cache_compatibility(kw)
+    return init_caches(cfg, build_cache_specs(cfg, kw, context), 1, torch.bfloat16,
+                       device=device)
+
+
+def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head") -> dict:
+    """Exact kernel launches of a run of ``steps`` decode steps (plus the
+    prefill) at head_dim 128: every projection and the head once per step
+    (the head once more for the prefill's last row), decode attention per
+    layer per step at the cache's precision, one flash prefill per layer,
+    and the fused eviction per layer per step for a one-slot heavy-hitter
+    history."""
+    from cold_compress_tpu_torch.caches import get_cache_strategy
+    from cold_compress_tpu_torch.ops import decode_attn
+
+    n = cfg.n_layer
+    strategy = kw["cache_strategy"][0]
+    bits = kw["cache_bits"] or 16
+    want = {f"w4a8_gemv.{p}": n * steps for p in ("wqkv", "wo", "w13", "w2")}
+    want[head] = steps + 1
+    want[decode_attn.variant(bits, get_cache_strategy(strategy).needs_attn)] = n * steps
+    want["flash_prefill_summary"] = n
+    if strategy == "heavy_hitter" and kw.get("history_window_size", 1) == 1:
+        want["hh_evict"] = n * steps
+    return want
+
+
+def witness(run_name: str, C: int, launches: dict, want: dict, runs: list) -> None:
+    got = {k: v for k, v in launches.items() if v}
+    assert got == want, f"{run_name} routing witness: got {got}, want {want}"
+    runs.append((run_name, C, got))
+
+
+IN_SITU = [  # (strategy, cache bits, kept positions must match exactly)
+    ("heavy_hitter", 8, False),
+    ("random", 2, True),
+    ("keep_it_odd", 4, True),
+    ("heavy_hitter", 16, False),
+    ("heavy_hitter", 4, False),
+    ("heavy_hitter", 2, False),
+    ("recent_global", 8, True),
+]
+
+
+def in_situ_parity(dev, runs: list):
     from cold_compress_tpu_torch.models.transformer import prefill
-    from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate
 
     prompt = np.random.RandomState(0).randint(2, 500, size=300).tolist()
     forced = np.random.RandomState(1).randint(2, 500, size=8).tolist()
     tokens = prompt + [0] * (512 - len(prompt))
-    runs = {}
-    for device in (dev, "cpu"):
-        _, model, caches = build("TestKernel", 0, device, 512)
-        with torch.inference_mode():
-            logits = prefill(model, caches, torch.tensor([tokens], device=device), len(prompt))
-        seq, info, caches = generate(model, reset_caches(caches), prompt, 8,
-                                     prefill_bucket=512, next_tokens=forced)
-        assert seq == prompt + forced
-        runs[device] = (logits[0].float().cpu().numpy(), np.asarray(info["emitted_probs"]),
-                        np.asarray(info["final_probs"]), caches[0].pos.cpu().numpy())
-    (l_g, e_g, f_g, pos_g), (l_c, e_c, f_c, pos_c) = runs[dev], runs["cpu"]
-    # Prefill logits come before any eviction: only summation order and the
-    # bf16 roundings that follow from it differ.
-    gap_l = float(np.abs(l_g - l_c).max())
-    tol_l = 2e-2 * float(l_c.max() - l_c.min())
-    # Decode probabilities also carry the heavy-hitter evictions, which
-    # follow near-ties of the history on random weights and so may pick
-    # other slots on the card than on the CPU.
-    gap = float(np.abs(e_g - e_c).max())
-    gap_f = float(np.abs(f_g - f_c).max())
-    tol = 5e-2 * float(e_c.max())
-    log(f"[parity] TestKernel cuda vs cpu: prefill logits max gap {gap_l:.3e} (tol {tol_l:.3e}); "
-        f"teacher-forced emitted_probs max gap {gap:.3e}, final_probs max gap {gap_f:.3e} "
-        f"(tol {tol:.3e}); layer-0 kept positions equal: {float((pos_g == pos_c).mean()):.4f}")
-    assert np.all(np.isfinite(l_g)) and gap_l <= tol_l
-    assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol
+    models = {device: build_model("TestKernel", 0, device, 512) for device in (dev, "cpu")}
+    cfg = models["cpu"][0]
+    for strategy, bits, exact_pos in IN_SITU:
+        kw = cache_kw(strategy, bits)
+        out = {}
+        for device in (dev, "cpu"):
+            model = models[device][1]
+            caches = make_caches(cfg, kw, 512, device)
+            with torch.inference_mode():
+                logits = prefill(model, caches, torch.tensor([tokens], device=device),
+                                 len(prompt))
+            caches = make_caches(cfg, kw, 512, device)
+            reset_kernel_launches()
+            seq, info, caches = generate(model, caches, prompt, 8, prefill_bucket=512,
+                                         next_tokens=forced)
+            launches = kernel_launches()
+            assert seq == prompt + forced
+            out[device] = (logits[0].float().cpu().numpy(), np.asarray(info["emitted_probs"]),
+                           np.asarray(info["final_probs"]),
+                           np.stack([c.pos.cpu().numpy() for c in caches]), launches)
+        (l_g, e_g, f_g, pos_g, launches), (l_c, e_c, f_c, pos_c, cpu_launches) = (
+            out[dev], out["cpu"])
+        run_name = f"in-situ TestKernel {strategy} kv{bits}"
+        assert not any(cpu_launches.values()), "CPU tensors must take the plain versions"
+        witness(run_name, caches[0].spec.max_cache_length, launches,
+                expected_launches(cfg, kw, 7), runs)
+        # Prefill logits come before any eviction: only summation order and
+        # the bf16 roundings that follow from it differ.
+        gap_l = float(np.abs(l_g - l_c).max())
+        tol_l = 2e-2 * float(l_c.max() - l_c.min())
+        # Decode probabilities also carry the evictions; the heavy-hitter
+        # ones follow near-ties of the history on random weights and so may
+        # pick other slots on the card than on the CPU. The others depend on
+        # positions (and the counter-based draws) only: the same slots.
+        gap = float(np.abs(e_g - e_c).max())
+        gap_f = float(np.abs(f_g - f_c).max())
+        tol = 5e-2 * float(e_c.max())
+        same_pos = float((pos_g == pos_c).mean())
+        log(f"[parity] {run_name} cuda vs cpu: prefill logits max gap {gap_l:.3e} "
+            f"(tol {tol_l:.3e}); teacher-forced emitted_probs max gap {gap:.3e}, final_probs "
+            f"max gap {gap_f:.3e} (tol {tol:.3e}); kept positions equal: {same_pos:.4f}"
+            + (" (must be 1)" if exact_pos else ""))
+        assert np.all(np.isfinite(l_g)) and gap_l <= tol_l, run_name
+        assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol, run_name
+        assert same_pos == 1.0 or not exact_pos, f"{run_name}: kept positions differ"
 
 
-def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: str):
+def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: str,
+                   run_name: str):
     """Where a decode step's time goes: wall time per step without the
     profiler, and device time per step by kernel from ``torch.profiler``."""
     from torch.autograd import DeviceType
@@ -385,7 +582,7 @@ def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: 
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     n_kernels = sum(e.count for e in rows) / steps
-    log(f"[profile] decode step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    log(f"[profile] {run_name}: decode step wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), {n_kernels:.0f} device launches "
         f"per step  [{card}]")
     for e in rows[:12]:
@@ -393,20 +590,17 @@ def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: 
             f"{e.count / steps:6.1f}/step  {e.key[:90]}")
 
 
-def end_to_end(dev, card, profile=False):
+def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head_counter,
+            profile=False):
+    """One ``generate()`` run at full width after a short warm-up, with its
+    launch witness and output checks; with ``profile``, then a profile of a
+    few more decode steps."""
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
 
-    context, new_tokens = 8192, 128
-    t0 = time.perf_counter()
-    cfg, model, caches = build("Meta-Llama-3-8B-Instruct", 0, dev, context)
-    torch.cuda.synchronize()
-    log(f"[e2e] Llama-3-8B built in {time.perf_counter() - t0:.1f} s: {cfg.n_layer} layers, "
-        f"C={caches[0].spec.max_cache_length}, load peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    caches = make_caches(cfg, kw, context, dev)
     prompt_len = context - 256 - 8  # bench.py's prompt length
     prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
-
     generate(model, caches, prompt, 8)  # warm-up: cuBLAS, allocator
     reset_caches(caches)
     torch.cuda.synchronize()
@@ -417,38 +611,72 @@ def end_to_end(dev, card, profile=False):
     perf = info["perf_stats"]
     steps = perf["decode_steps"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[e2e] launches: {json.dumps(launches)}")
-    log(f"[e2e] prefill {perf['prefill_seconds']:.4f} s for {prompt_len} tokens "
+    log(f"[e2e] {run_name}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"[e2e] {run_name}: C={caches[0].spec.max_cache_length}, prefill "
+        f"{perf['prefill_seconds']:.4f} s for {prompt_len} tokens "
         f"({perf['prefill_toks_per_sec']:.1f} tok/s); decode {perf['decode_toks_per_sec']:.3f} "
         f"tok/s over {steps} steps; peak memory {peak_gb:.3f} GB  [{card}]")
 
     gen_tokens = seq[prompt_len:]
-    assert steps == new_tokens - 1 and len(gen_tokens) == new_tokens
-    assert all(0 <= t < cfg.vocab_size for t in gen_tokens)
+    assert steps == new_tokens - 1 and len(gen_tokens) == new_tokens, run_name
+    assert all(0 <= t < cfg.vocab_size for t in gen_tokens), run_name
     final = np.asarray(info["final_probs"])
-    assert final.shape == (cfg.vocab_size,) and np.all(np.isfinite(final))
-    assert abs(float(final.sum()) - 1.0) < 1e-3
+    assert final.shape == (cfg.vocab_size,) and np.all(np.isfinite(final)), run_name
+    assert abs(float(final.sum()) - 1.0) < 1e-3, run_name
     emitted = np.asarray(info["emitted_probs"])
-    assert emitted.shape == (new_tokens,) and np.all((emitted > 0) & (emitted <= 1))
+    assert emitted.shape == (new_tokens,) and np.all((emitted > 0) & (emitted <= 1)), run_name
     for c in caches:
-        assert int(c.cache_ct.min()) == c.spec.max_cache_length
+        C = c.spec.max_cache_length
+        assert int(c.cache_ct.min()) == min(C, prompt_len + steps), run_name
         pos = c.pos[0].cpu().numpy()
-        assert all(len(set(row.tolist())) == len(row) for row in pos), "duplicate positions"
+        filled = [row[row >= 0] for row in pos]
+        assert all(len(set(r.tolist())) == len(r) for r in filled), "duplicate positions"
         assert int(pos.max()) == prompt_len + new_tokens - 2  # last decoded token's slot
-
-    want = {
-        "w4a8_gemv.wqkv": cfg.n_layer * steps,
-        "w4a8_gemv.wo": cfg.n_layer * steps,
-        "w4a8_gemv.w13": cfg.n_layer * steps,
-        "w4a8_gemv.w2": cfg.n_layer * steps,
-        "w4a8_gemv.head": steps + 1,
-        "kv8_decode_attention": cfg.n_layer * steps,
-        "flash_prefill_summary": cfg.n_layer,
-    }
-    assert launches == want, f"routing witness: got {launches}, want {want}"
+    witness(run_name, caches[0].spec.max_cache_length, launches,
+            expected_launches(cfg, kw, steps, head_counter), runs)
     if profile:
-        profile_decode(model, caches, seq[-1], prompt_len + new_tokens, 8, card)
-    return launches, perf, peak_gb
+        profile_decode(model, caches, seq[-1], len(seq), 8, card, run_name)
+
+
+def end_to_end(dev, card, runs, profile=False):
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import make_linear, make_rope_table
+
+    t0 = time.perf_counter()
+    cfg, model = build_model("Meta-Llama-3-8B-Instruct", 0, dev, 8192)
+    torch.cuda.synchronize()
+    log(f"[e2e] Llama-3-8B built in {time.perf_counter() - t0:.1f} s: {cfg.n_layer} layers, "
+        f"load peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # The main path: bench.py's default configuration.
+    e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model, cache_kw("heavy_hitter", 8),
+            8192, 128, dev, card, runs, "w4a8_gemv.head", profile)
+
+    # l2 over a kv4 cache with an int8 vocab head: the same layers, an int8
+    # head drawn as random_quantized_params(head_mode="int8") draws its
+    # values ((byte % 255) - 127, scales 0.02 / 127).
+    int4_head = model.output
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w8 = (torch.randint(0, 255, (cfg.dim, cfg.vocab_size), device=dev, generator=gen,
+                        dtype=torch.int16) - 127).to(torch.int8)
+    s8 = torch.full((cfg.vocab_size,), 0.02 / 127, device=dev)
+    model.output = make_linear({"kind": "int8", "w": w8, "scales": s8}, "head")
+    del w8
+    e2e_run("l2 kv4, int8 head", cfg, model, cache_kw("l2", 4), 8192, 64, dev, card, runs,
+            "w8a8_gemv.head", profile)
+    model.output = int4_head
+
+    # A full bf16 cache at 32k on Llama-3.1-8B: the same widths, so the
+    # same weights, with its own rope table (llama3 scaling).
+    cfg31 = ModelConfig.from_name("Meta-Llama-3.1-8B-Instruct")
+    assert (cfg31.dim, cfg31.n_layer, cfg31.n_head, cfg31.n_kv_head, cfg31.intermediate_size,
+            cfg31.vocab_size) == (cfg.dim, cfg.n_layer, cfg.n_head, cfg.n_kv_head,
+                                  cfg.intermediate_size, cfg.vocab_size)
+    model.cfg = cfg31
+    model.rope = make_rope_table(cfg31, 32768, device=dev)
+    torch.cuda.empty_cache()
+    e2e_run("full bf16, 32k, Llama-3.1-8B", cfg31, model, cache_kw("full", 16), 32768, 64, dev,
+            card, runs, "w4a8_gemv.head", profile)
 
 
 def main() -> int:
@@ -456,12 +684,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the end-to-end run, profile a few decode steps")
+                    help="after each end-to-end run, profile a few decode steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card.",
               file=sys.stderr)
         return 2
+    from cold_compress_tpu_torch.bench import card_line
     from cold_compress_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -469,30 +698,49 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     card = card_line()
+    assert card, "nvidia-smi did not give the card's name and power limit"
     log(f"[card] {card} | torch.cuda: {torch.cuda.get_device_name(0)} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"[build] {len(_build.SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_build.SOURCES)} kernel sources built in {time.perf_counter() - t0:.1f} s "
         f"into {_build.BUILD_INFO['dir']}")
     for name, text in _build.BUILD_INFO["logs"].items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
 
-    records = {}
+    records = []
     check_w4a8(dev, records)
-    check_kv8_decode(dev, records)
+    for bits in (16, 8, 4, 2):
+        for need_attn in (True, False):
+            check_decode(dev, records, bits, need_attn, 2048)
+    for bits in (16, 8, 4):
+        check_decode(dev, records, bits, False, 32768)
+    check_hh_evict(dev, records)
+    check_w8a8(dev, records)
     check_flash_prefill(dev, records)
     torch.cuda.empty_cache()
+    log(f"[phase2] done at {time.perf_counter() - t_start:.1f} s")
 
-    in_situ_parity(dev)
-    launches, perf, peak_gb = end_to_end(dev, card, profile=args.profile)
+    runs = []  # (run name, its cache length, its launches), phase 4 first
+    in_situ = []
+    in_situ_parity(dev, in_situ)
+    log(f"[phase3] done at {time.perf_counter() - t_start:.1f} s")
+    end_to_end(dev, card, runs, profile=args.profile)
+    runs += in_situ
 
+    # Each kernel's launches come from the first run that drives it: the
+    # full-width runs of phase 4, else the in-situ runs of phase 3. A
+    # record's C is where phase 2 checked it; path_C is the cache length of
+    # the run whose launches it reports.
     kernels = []
-    for name, rec in records.items():
-        kernels.append({**rec, "launches": launches[name]})
+    for rec in records:
+        path, path_C, n = next(((r, C, got[rec["counter"]]) for r, C, got in runs
+                                if rec["counter"] in got), (None, None, 0))
+        assert n > 0, f"{rec['name']} was launched by no run through generate()"
+        kernels.append({**rec, "launches": n, "path": path, "path_C": path_C})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

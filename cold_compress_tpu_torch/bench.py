@@ -1,0 +1,167 @@
+"""Decode throughput of the port with a compressed KV cache.
+
+Mirrors the JAX package's ``bench.py``: Llama-3-8B-class random int4
+weights, a ``heavy_hitter`` cache at 25% of an 8k context by default, a
+random prompt of ``context - decode_tokens - 8`` tokens from
+``RandomState(0)``, one warm-up run and one measured run of ``generate``.
+Prints ONE JSON line with ``bench.py``'s keys (without ``vs_baseline``,
+whose 70 tok/s is the reference's A100 figure) plus the card's name and
+power limit.
+
+    python -m cold_compress_tpu_torch.bench [--strategy l2 --cache_bits 4 ...]
+    python -m cold_compress_tpu_torch.bench --smoke     # TestTiny on the CPU
+
+Served: every ``--strategy`` but ``hybrid``, ``--cache_bits 16/8/4/2``,
+``--head_bits 4/8``, any ``--context`` up to the model's block size.
+``--weight_bits`` other than 4, ``--batch`` above 1 and ``hybrid`` are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+NOT_PORTED = "is not ported yet"
+
+
+def card_line() -> Optional[str]:
+    """The card's name and power limit as nvidia-smi prints them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0]
+
+
+def cache_kwargs(strategy: str, budget_frac: float, global_tokens: int,
+                 cache_bits: Optional[int]) -> dict:
+    """bench.py's cache options: ``full`` keeps the whole sequence, the
+    heavy-hitter cache compresses the prompt with SnapKV, the others with
+    ``recent_global``."""
+    budget = 1.0 if strategy == "full" else budget_frac
+    compressor = {"heavy_hitter": "heavy_hitter", "full": "full"}.get(strategy, "recent_global")
+    return {
+        "cache_strategy": [strategy],
+        "max_cache_length": [budget],
+        "prompt_compression_strategy": [compressor],
+        "global_tokens": global_tokens,
+        "recent_window": 10,
+        "cache_bits": cache_bits,
+    }
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="Meta-Llama-3-8B-Instruct")
+    ap.add_argument("--smoke", action="store_true", help="TestTiny on the CPU.")
+    ap.add_argument("--weight_bits", type=int, default=4, choices=[16, 8, 4])
+    ap.add_argument("--head_bits", type=int, default=4, choices=[8, 4])
+    ap.add_argument("--cache_bits", type=int, default=8, choices=[16, 8, 4, 2])
+    ap.add_argument("--strategy", default="heavy_hitter")
+    ap.add_argument("--context", type=int, default=8192)
+    ap.add_argument("--budget_frac", type=float, default=0.25)
+    ap.add_argument("--decode_tokens", type=int, default=256)
+    ap.add_argument("--global_tokens", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=1)
+    args = ap.parse_args(argv)
+    if args.weight_bits != 4:
+        raise ValueError(f"--weight_bits {args.weight_bits} {NOT_PORTED} (int4 only)")
+    if args.batch != 1:
+        raise ValueError(f"--batch {args.batch} {NOT_PORTED} (batch 1 only)")
+    if args.strategy == "hybrid" or args.strategy.startswith("debug_"):
+        raise ValueError(f"--strategy {args.strategy} {NOT_PORTED}")
+    if args.smoke:
+        args.model, args.context, args.decode_tokens = "TestTiny", 128, 16
+    return args
+
+
+def run(args: argparse.Namespace) -> dict:
+    from .caches import cache_memory_gb
+    from .models.config import ModelConfig
+    from .models.transformer import init_caches
+    from .quantization.weight_quant import random_quantized_params
+    from .runtime.engine import (
+        build_cache_specs, build_model, cache_compatibility, params_from_flat,
+    )
+    from .runtime.generate import bucket_length, generate, reset_caches
+
+    device = "cpu" if args.smoke else "cuda"
+    cfg = ModelConfig.from_name(args.model)
+    if cfg.block_size < args.context:
+        print(f"[bench] context {args.context} exceeds {args.model}'s block_size; clamped "
+              f"to {cfg.block_size} (use Meta-Llama-3.1-8B-Instruct for long contexts)",
+              file=sys.stderr)
+        args.context = cfg.block_size
+    cache_bits = None if args.cache_bits == 16 else args.cache_bits
+    kw = cache_kwargs(args.strategy, args.budget_frac, args.global_tokens, cache_bits)
+    cache_compatibility(kw)
+    flat = random_quantized_params(cfg, seed=0, head_mode=f"int{args.head_bits}")
+    model = build_model(cfg, params_from_flat(flat, device), device,
+                        max_positions=args.context)
+    del flat
+    specs = build_cache_specs(cfg, kw, args.context)
+    caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
+
+    prompt_len = args.context - args.decode_tokens - 8
+    prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
+    bucket = bucket_length(prompt_len)
+    generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)  # warm-up
+    reset_caches(caches)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _, info, caches = generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)
+    perf = info["perf_stats"]
+    model_bytes = sum(t.numel() * t.element_size() for t in model.buffers())
+    value = perf["decode_toks_per_sec"]
+    return {
+        "metric": "decode_toks_per_sec",
+        "value": round(value, 2),
+        "unit": "tok/s",
+        "config": {
+            "model": args.model,
+            "weight_bits": args.weight_bits,
+            "head_bits": args.head_bits,
+            "cache_bits": cache_bits,
+            "strategy": args.strategy,
+            "context": args.context,
+            "budget_frac": args.budget_frac,
+            "decode_tokens": args.decode_tokens,
+            "batch": args.batch,
+            "prefill_toks_per_sec": round(perf["prefill_toks_per_sec"], 1),
+            "model_gb": round(model_bytes / 1e9, 2),
+            "cache_memory_gb": round(sum(cache_memory_gb(c) for c in caches), 3),
+            "memory_used_gb": round(perf["memory_used_gb"], 2),
+            "weight_stream_gbps": round(model_bytes * value / 1e9, 1),
+            "backend": device,
+            "device": torch.cuda.get_device_name(0) if device == "cuda" else "cpu",
+            "card": card_line() if device == "cuda" else None,
+        },
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    if not args.smoke and not torch.cuda.is_available():
+        print("bench: no CUDA device; pass --smoke to run TestTiny on the CPU",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    result = run(args)
+    print(f"[bench] done in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,6 +24,10 @@ from typing import Dict, Optional
 
 import torch
 
+NEG_INF = float("-inf")
+POS_INF = float("inf")
+
+
 @dataclass(frozen=True)
 class CacheSpec:
     """Static configuration of one layer's cache (field names follow the
@@ -255,13 +259,26 @@ def input_pos_b11(input_pos, B: int, device) -> torch.Tensor:
     return p.expand(B)[:, None, None]
 
 
+def protect_and_prefer_empty(scores: torch.Tensor, state: CacheState) -> torch.Tensor:
+    """Shared eviction score shaping: the global-token slots (the lowest
+    ones) can never be evicted, empty slots are evicted first."""
+    C = scores.shape[-1]
+    slot = torch.arange(C, device=scores.device)
+    scores = torch.where(slot < state.spec.global_tokens, POS_INF, scores)
+    return torch.where(state.pos == -1, NEG_INF, scores)
+
+
 # --------------------------------------------------------------------------
 # Strategy base class
 # --------------------------------------------------------------------------
 
 
 class CacheStrategy:
-    """A cache strategy is a namespace of functions over ``CacheState``."""
+    """A cache strategy is a namespace of functions over ``CacheState``.
+
+    Subclasses override ``token_importances`` (score-based eviction: the
+    lowest score is evicted) or ``eviction_idx`` itself, plus optional
+    fill and state hooks."""
 
     name: str = "abstract"
     needs_attn: bool = False
@@ -279,11 +296,28 @@ class CacheStrategy:
     def init_extra(spec, B, H, D, device=None) -> Dict[str, torch.Tensor]:
         return {}
 
+    @staticmethod
+    def token_importances(spec: CacheSpec, state: CacheState, input_pos) -> torch.Tensor:
+        """Eviction scores broadcastable to [B, KVH, C] (lowest = evicted)."""
+        raise NotImplementedError
+
     @classmethod
     def eviction_idx(cls, spec: CacheSpec, state: CacheState, input_pos) -> torch.Tensor:
-        """[B, KVH] slot indices the new token goes to; may update the
-        state in place."""
-        raise NotImplementedError
+        """[B, KVH] int32 slot indices the new token goes to; may update the
+        state in place. ``input_pos`` is [B, 1, 1] int32."""
+        scores = cls.token_importances(spec, state, input_pos)
+        scores = protect_and_prefer_empty(scores.expand(state.pos.shape), state)
+        return scores.argmin(dim=-1).to(torch.int32)  # first minimum, like jnp
+
+    @classmethod
+    def on_decode_fill(cls, spec, state: CacheState, idx, input_pos, k_row, v_row) -> CacheState:
+        """Hook after a decode insert at slot ``idx`` [B, KVH]."""
+        return state
+
+    @classmethod
+    def on_prefill_fill(cls, spec, state: CacheState, input_pos, k, v, valid) -> CacheState:
+        """Hook after the prefill fill of slots [0, P)."""
+        return state
 
     @classmethod
     def update_state(cls, spec, state, input_pos, attn, is_prefill, prompt_len=None):
@@ -302,11 +336,12 @@ class CacheStrategy:
         ipos = input_pos_b11(input_pos, B, state.pos.device)
         idx = cls.eviction_idx(spec, state, ipos)
         inserted = (gather_scalar(state.pos, idx) == -1).to(torch.int32)
-        store_kv_rows(state, idx, k[:, :, 0], v[:, :, 0])
+        k_row, v_row = k[:, :, 0], v[:, :, 0]
+        store_kv_rows(state, idx, k_row, v_row)
         scatter_scalar(state.pos, idx, ipos[:, :, 0].expand(B, H))
         scatter_scalar(state.mask, idx, True)
         state.cache_ct += inserted
-        return state
+        return cls.on_decode_fill(spec, state, idx, input_pos, k_row, v_row)
 
 
 # --------------------------------------------------------------------------
@@ -337,8 +372,19 @@ def prefill_update(strategy, state: CacheState, input_pos, k, v, valid) -> Cache
     state.pos[:, :, :P] = torch.where(valid, input_pos, -1)
     state.mask[:, :, :P] = valid
     state.cache_ct += valid.sum(dim=-1).to(torch.int32)
-    return state
+    return strategy.on_prefill_fill(state.spec, state, input_pos, k, v, valid)
 
 
 def cache_memory_gb(state: CacheState) -> float:
     return sum(t.numel() * t.element_size() for t in state.tensors()) / (1024 ** 3)
+
+
+def compression_ratio(state: CacheState, seq_len) -> torch.Tensor:
+    """Quantization-aware compression ratio: the mean over (batch, head) of
+    ``(n - size) / n`` with n = seq_len - 1 (at least 1) and size the
+    filled slots, scaled by cache_bits / 16 for a quantized cache."""
+    n = max(int(seq_len) - 1, 1)
+    size = state.cache_ct.float()
+    if state.spec.cache_bits is not None:
+        size = size * (state.spec.cache_bits / 16.0)
+    return ((n - size) / n).mean()

@@ -1,8 +1,11 @@
 """Heavy-hitter (ScissorHands / H2O-style) cache strategy.
 
-Port of ``cold_compress_tpu/caches/heavy_hitter.py`` (its XLA eviction path;
-the fused Pallas evict kernel is opt-in there and not ported yet). Evicts
-the slot with the lowest windowed average attention. The history lives in
+Port of ``cold_compress_tpu/caches/heavy_hitter.py``. Evicts the slot with
+the lowest windowed average attention. With a one-slot history the eviction
+is the fused step of ``ops/evict.py`` (kernel K7 on the card, opt-in in the
+JAX package only for want of validation on the TPU); thresholding changes
+only the observations, not the eviction. A ring of W > 1 observations takes
+the eager code below. The history lives in
 ``extra``: a numerator of attention mass per slot and a count of
 observations, both updated in place after every attention call and zeroed
 at the evicted slot.
@@ -12,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from .base import CacheStrategy, scatter_scalar
+from ..ops.evict import hh_evict
+from .base import CacheStrategy
 
 
 class HeavyHitterCache(CacheStrategy):
@@ -37,23 +41,21 @@ class HeavyHitterCache(CacheStrategy):
         W = spec.history_window_size
         num_buf = state.extra["attn_num"]
         denom_buf = state.extra["attn_denom"]
-        num = num_buf if W == 1 else num_buf.sum(dim=-1)
-        denom = denom_buf.clamp_min(1) if W == 1 else denom_buf.clamp(1, W)
-        avg = num / denom.float()
+        if W == 1:
+            return hh_evict(num_buf, denom_buf, state.pos, input_pos,
+                            global_tokens=spec.global_tokens,
+                            recent_window=spec.recent_window)
+        avg = num_buf.sum(dim=-1) / denom_buf.clamp(1, W).float()
         protected = (state.pos < spec.global_tokens) | (
             state.pos >= input_pos - spec.recent_window
         )
         avg = torch.where(protected, 1.0, avg)
         avg = torch.where(state.pos == -1, 0.0, avg)
-        idx = avg.argmin(dim=-1).to(torch.int32)  # first minimum, like jnp
+        idx = avg.argmin(dim=-1)  # first minimum, like jnp
         # Zero the attention history of the newly claimed slot.
-        if W == 1:
-            scatter_scalar(num_buf, idx, 0.0)
-        else:
-            index = idx.long()[..., None, None].expand(idx.shape + (1, W))
-            num_buf.scatter_(2, index, 0.0)
-        scatter_scalar(denom_buf, idx, 0)
-        return idx
+        num_buf.scatter_(2, idx[..., None, None].expand(idx.shape + (1, W)), 0.0)
+        denom_buf.scatter_(2, idx[..., None], 0)
+        return idx.to(torch.int32)
 
     @classmethod
     def update_state(cls, spec, state, input_pos, attn, is_prefill, prompt_len=None):

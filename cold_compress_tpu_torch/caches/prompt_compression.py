@@ -1,8 +1,8 @@
 """Prompt compression: prefill-time eviction when |prompt| > cache budget.
 
-Port of ``cold_compress_tpu/caches/prompt_compression.py`` for the ``full``
-and ``heavy_hitter`` (SnapKV) compressors; the others are later work.
-Priorities are computed per head over the padded prompt, padded tokens get
+Port of ``cold_compress_tpu/caches/prompt_compression.py``: the ``full``
+(pass-through), ``random``, ``recent_global``, ``l2``, ``keep_it_odd`` and
+``heavy_hitter`` (SnapKV) compressors. Priorities are computed per head over the padded prompt, padded tokens get
 the lowest priority, and the top ``C`` tokens are kept in their original
 order.
 """
@@ -10,6 +10,8 @@ order.
 from __future__ import annotations
 
 import torch
+
+from ..utils import prng
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 BIG = 1e9
@@ -30,10 +32,73 @@ def _plen_b(prompt_len, device) -> torch.Tensor:
     return torch.as_tensor(prompt_len, dtype=torch.int32, device=device).reshape(-1, 1, 1)
 
 
+def _recent_global_save_mask(spec, input_pos, prompt_len) -> torch.Tensor:
+    """Tokens never dropped: the global prefix and the recent window, per
+    lane. Returns bool [B or 1, 1, P]."""
+    plen = _plen_b(prompt_len, input_pos.device)
+    ip = input_pos[None, None, :]
+    return (ip < spec.global_tokens) | (ip >= plen - spec.recent_window)
+
+
 class PromptCompressorFull(PromptCompressorBase):
     """Pass-through."""
 
     name = "full"
+
+
+class PromptCompressorRandom(PromptCompressorBase):
+    """Keeps the global prefix and the recent window, and a random selection
+    elsewhere: ``uniform(fold_in(PRNGKey(1234), sum(prompt_len)), (P,))``,
+    the reference's draws bit for bit."""
+
+    name = "random"
+
+    @staticmethod
+    def token_importances(spec, input_pos, k, v, prompt_len, summary=None):
+        P = input_pos.shape[-1]
+        dev = input_pos.device
+        total = torch.as_tensor(prompt_len, dtype=torch.int64, device=dev).sum()
+        noise = prng.uniform(prng.fold_in(prng.prng_key(1234, device=dev), total), (P,))
+        save = _recent_global_save_mask(spec, input_pos, prompt_len)
+        return torch.where(save, BIG, noise[None, None, :])
+
+
+class PromptCompressorRecentGlobal(PromptCompressorBase):
+    """Keeps the most recent tokens plus the global prefix."""
+
+    name = "recent_global"
+
+    @staticmethod
+    def token_importances(spec, input_pos, k, v, prompt_len, summary=None):
+        priority = torch.where(input_pos < spec.global_tokens, BIG, input_pos.float())
+        return priority[None, None, :]
+
+
+class PromptCompressorL2(PromptCompressorBase):
+    """Keeps low-L2-norm keys, the global prefix and the recent window."""
+
+    name = "l2"
+
+    @staticmethod
+    def token_importances(spec, input_pos, k, v, prompt_len, summary=None):
+        priority = -torch.linalg.vector_norm(k.float(), dim=-1)
+        save = _recent_global_save_mask(spec, input_pos, prompt_len)
+        return torch.where(save, BIG, priority)
+
+
+class PromptCompressorKeepItOdd(PromptCompressorBase):
+    """Toy: prefers odd positions, keeps the global prefix and the recent
+    window."""
+
+    name = "keep_it_odd"
+
+    @staticmethod
+    def token_importances(spec, input_pos, k, v, prompt_len, summary=None):
+        P = input_pos.shape[-1]
+        priority = input_pos.float()
+        priority = torch.where(input_pos % 2 == 0, priority - 2.0 * P, priority)
+        save = _recent_global_save_mask(spec, input_pos, prompt_len)
+        return torch.where(save, BIG, priority[None, None, :])
 
 
 class PromptCompressorHeavyHitter(PromptCompressorBase):
@@ -71,7 +136,17 @@ def _avg_pool_1d(x: torch.Tensor, kernel: int) -> torch.Tensor:
     return window_sum / counts.to(x.dtype)
 
 
-PROMPT_COMPRESSORS = {c.name: c for c in [PromptCompressorFull, PromptCompressorHeavyHitter]}
+PROMPT_COMPRESSORS = {
+    c.name: c
+    for c in [
+        PromptCompressorFull,
+        PromptCompressorRandom,
+        PromptCompressorRecentGlobal,
+        PromptCompressorL2,
+        PromptCompressorKeepItOdd,
+        PromptCompressorHeavyHitter,
+    ]
+}
 
 
 def get_prompt_compressor(strategy: str):

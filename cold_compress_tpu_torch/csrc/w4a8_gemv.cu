@@ -4,8 +4,9 @@
 // (layer projections) and the tiled branch of qmm_w4a8_cp_stacked (vocab
 // head): the same function on the port's own byte layout.
 //
-//   x is quantized per row to int8: sx = max(absmax, 1e-8) / 127,
-//   xq = clip(rint(x / sx), -127, 127) (round half to even, true division).
+//   x is quantized per row to int8 (act_quant.cuh): sx = max(absmax, 1e-8)
+//   * f32(1/127), xq = clip(rint(x / sx), -127, 127) (round half to even,
+//   true division).
 //   Per group g of gs inputs: d_g = sum xq * (q - 8) and xs_g = sum xq, both
 //   exact in int32; y = sx * sum_g (s_g * d_g + z_g * xs_g) in f32.
 //
@@ -29,24 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCols = 4;  // output columns per warp
 constexpr int kRows = 4;  // activation rows per block
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int i = 1; i < kWarps; ++i) m = fmaxf(m, red[i]);
-  return m;
-}
 
 __global__ void __launch_bounds__(kThreads)
 w4a8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
@@ -65,21 +56,7 @@ w4a8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   const int nrows = min(kRows, L - l0);
 
   // ---- prologue: per-row int8 quantization of x ----
-  for (int r = 0; r < nrows; ++r) {
-    const __nv_bfloat16* xr = x + (size_t)(l0 + r) * IN;
-    float amax = 0.f;
-    for (int i = tid; i < IN; i += kThreads)
-      amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
-    amax = block_max(amax, red);
-    const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
-    for (int i = tid; i < IN; i += kThreads) {
-      float q = rintf(__fdiv_rn(__bfloat162float(xr[i]), s));
-      q = fminf(fmaxf(q, -127.f), 127.f);
-      xq[r * IN + i] = (int8_t)q;
-    }
-    if (tid == 0) sx[r] = s;
-  }
-  __syncthreads();
+  quantize_rows_int8<kWarps>(x, IN, l0, nrows, xq, sx, red);
   // Per-group activation sums xs_g (exact int).
   for (int t = warp; t < nrows * ng; t += kWarps) {
     const int r = t / ng, g = t % ng;

@@ -30,8 +30,8 @@ from ..caches import (
 )
 from ..device import resolve_device
 from ..ops.attention import gqa_attention, prefill_attention
-from ..ops.decode_attn import decode_attn_supported, kv8_decode_attention
-from ..ops.linear import DenseLinear, QuantizedLinear
+from ..ops.decode_attn import decode_attention, decode_attn_supported
+from ..ops.linear import DenseLinear, Int8Linear, QuantizedLinear
 from .config import ModelConfig
 from .rope import apply_rotary_emb, precompute_freqs_cis
 
@@ -43,14 +43,18 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------------
 
 
-def make_linear(leaf, counter: str, bias: Optional[torch.Tensor] = None) -> nn.Module:
-    """Module for one weight leaf: a dense [in, out] tensor, or an int4
-    rowpack dict ``{"w", "scales", "zeros", "group_size"}`` (repacked once
-    into the W4A8 kernel's layout)."""
+def make_linear(leaf, name: str, bias: Optional[torch.Tensor] = None) -> nn.Module:
+    """Module for one weight leaf: a dense [in, out] tensor, an int4 rowpack
+    dict ``{"w", "scales", "zeros", "group_size"}`` or an int8 dict
+    ``{"kind": "int8", "w", "scales"}``, each quantized kind repacked once
+    into its kernel's layout. ``name`` (``wqkv``, ``wo``, ``w13``, ``w2``,
+    ``head``) names the kernel's launch counter."""
+    if isinstance(leaf, dict) and leaf.get("kind") == "int8":
+        return Int8Linear(leaf["w"], leaf["scales"], bias, counter=f"w8a8_gemv.{name}")
     if isinstance(leaf, dict):
         return QuantizedLinear.from_rowpack(
             leaf["w"], leaf["scales"], leaf["zeros"], leaf["group_size"],
-            bias=bias, counter=counter,
+            bias=bias, counter=f"w4a8_gemv.{name}",
         )
     return DenseLinear(leaf, bias)
 
@@ -58,15 +62,15 @@ def make_linear(leaf, counter: str, bias: Optional[torch.Tensor] = None) -> nn.M
 class Attention(nn.Module):
     def __init__(self, p: Params):
         super().__init__()
-        self.wqkv = make_linear(p["wqkv"], "w4a8_gemv.wqkv", p.get("bqkv"))
-        self.wo = make_linear(p["wo"], "w4a8_gemv.wo")
+        self.wqkv = make_linear(p["wqkv"], "wqkv", p.get("bqkv"))
+        self.wo = make_linear(p["wo"], "wo")
 
 
 class FeedForward(nn.Module):
     def __init__(self, p: Params):
         super().__init__()
-        self.w13 = make_linear(p["w13"], "w4a8_gemv.w13")
-        self.w2 = make_linear(p["w2"], "w4a8_gemv.w2")
+        self.w13 = make_linear(p["w13"], "w13")
+        self.w2 = make_linear(p["w2"], "w2")
 
 
 class Block(nn.Module):
@@ -90,7 +94,7 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(lp) for lp in params["layers"])
         self.register_buffer("norm", params["norm"])
         out = params["output"]
-        self.output = None if out is None else make_linear(out, "w4a8_gemv.head")
+        self.output = None if out is None else make_linear(out, "head")
         self.register_buffer("rope", rope)
 
     @property
@@ -190,27 +194,33 @@ def fill_from_kv(strategy, compressor, cache: CacheState, k, v, summary, input_p
     return cache
 
 
-def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freqs):
+def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freqs,
+                     attn_top_k: float = 1.0):
     """Single-token decode attention over the fixed-budget cache; the new
-    token is inserted BEFORE attention so it attends to itself."""
+    token is inserted BEFORE attention so it attends to itself.
+
+    Every cache precision (bf16, int8, int4, int2) goes to the decode
+    kernel (K3/K5), which dequantizes inside the kernel, never in device
+    memory. Only what the JAX package also leaves to XLA takes the plain
+    math over ``materialize_kv`` (models/transformer.py:311 there):
+    ``attn_top_k < 1``, head_dim other than 128, more than 8 query heads
+    per KV head."""
     spec = cache.spec
     strategy = get_cache_strategy(spec.cache_strategy)
     B = x.shape[0]
     q, k, v = _qkv(cfg, attn, x, freqs)
     decode_update(strategy, cache, input_pos, k, v)
     need_attn = strategy_needs_attn(strategy, spec)
-    if spec.cache_bits == 8 and decode_attn_supported(q.shape, cfg.n_kv_head):
-        # K3: the int8 cache is dequantized inside the kernel, never in
-        # device memory.
-        y, pooled = kv8_decode_attention(
+    if attn_top_k >= 1.0 and decode_attn_supported(q.shape, cfg.n_kv_head):
+        y, pooled = decode_attention(
             q, cache.k, cache.v, cache.k_scales, cache.k_zeros, cache.v_scales,
-            cache.v_zeros, cache.mask,
+            cache.v_zeros, cache.mask, bits=spec.cache_bits or 16, need_attn=need_attn,
         )
     else:
         k_cache, v_cache = materialize_kv(cache, dtype=k.dtype)
         y, pooled = gqa_attention(
             q, k_cache, v_cache, mask=cache.mask[:, :, None, None, :],
-            return_attn=need_attn,
+            return_attn=need_attn, attn_top_k=attn_top_k,
         )
     if need_attn:
         strategy.update_state(spec, cache, input_pos, pooled[:, :, 0], is_prefill=False)
@@ -234,7 +244,7 @@ def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, model.norm, cfg.norm_eps)
     if model.output is None:  # tied embeddings
         return torch.matmul(x.float(), model.tok_embeddings.float().t())
-    if isinstance(model.output, QuantizedLinear):
+    if isinstance(model.output, (QuantizedLinear, Int8Linear)):
         return model.output(x).float()
     return torch.matmul(x.float(), model.output.weight.float())
 
@@ -267,9 +277,11 @@ def prefill(model: Transformer, caches: Sequence[CacheState], tokens: torch.Tens
 
 
 def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.Tensor,
-                input_pos):
+                input_pos, attn_top_k: float = 1.0):
     """One decode step for token [B] at position ``input_pos`` (an int, or a
-    0-d/[B] tensor). Returns logits [B, vocab] f32; caches update in place."""
+    0-d/[B] tensor). Returns logits [B, vocab] f32; caches update in place.
+    ``attn_top_k < 1`` keeps only that share of the top-scored cache slots
+    in the value sum (ops/attention.py::gqa_attention)."""
     cfg = model.cfg
     if isinstance(input_pos, int):
         freqs = model.rope[input_pos : input_pos + 1][None]  # [1, 1, hd/2, 2]
@@ -280,7 +292,7 @@ def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.T
     for layer, cache in zip(model.layers, caches):
         attn_out = attention_decode(
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
-            cache, input_pos, freqs,
+            cache, input_pos, freqs, attn_top_k,
         )
         x = _block(cfg, layer, x, attn_out)
     return _logits(model, x)[:, 0]
@@ -311,6 +323,8 @@ def _concat_leaves(leaves):
     or int4 rowpack dicts (bytes, scales and zeros all end in the output
     axis), so the fused projection computes exactly the unfused ones."""
     if isinstance(leaves[0], dict):
+        if any(l.get("kind") == "int8" for l in leaves):
+            raise ValueError("int8 layer weights are not ported yet (only an int8 vocab head)")
         gs = leaves[0]["group_size"]
         if not all(isinstance(l, dict) and l["group_size"] == gs for l in leaves):
             raise ValueError("fused projections must share quantization settings")

@@ -7,15 +7,17 @@ built at its first launch (``_build.py``).
 
 from typing import Dict
 
-from . import decode_attn, prefill_attn, qmm
+from . import decode_attn, evict, prefill_attn, qmm
+
+_COUNTS = (qmm.LAUNCHES, decode_attn.LAUNCHES, evict.LAUNCHES, prefill_attn.LAUNCHES)
 
 
 def kernel_launches() -> Dict[str, int]:
     """Launch counts of every CUDA kernel wrapper, by name."""
-    return {**qmm.LAUNCHES, **decode_attn.LAUNCHES, **prefill_attn.LAUNCHES}
+    return {key: n for counts in _COUNTS for key, n in counts.items()}
 
 
 def reset_kernel_launches() -> None:
-    for counts in (qmm.LAUNCHES, decode_attn.LAUNCHES, prefill_attn.LAUNCHES):
+    for counts in _COUNTS:
         for key in counts:
             counts[key] = 0

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. All sources
+shared library with a plain C interface, loaded with ``ctypes`` (shared device
+code sits in ``csrc/*.cuh`` headers). All sources
 are compiled at once (one ``nvcc`` process each, started together) at the
 first launch of any kernel, into ``build/kernels/<hash>/`` at the repository
 root, keyed by a hash of the sources and flags. Nothing is built at import
@@ -21,7 +22,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("w4a8_gemv", "kv8_decode_attn", "flash_prefill")
+SOURCES = ("w4a8_gemv", "w8a8_gemv", "decode_attn", "hh_evict", "flash_prefill")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +49,8 @@ def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -31,12 +31,17 @@ def gqa_attention(
     mask: Optional[torch.Tensor] = None,  # bool, broadcastable to [B, KVH, G, L, S]
     scale: Optional[float] = None,
     return_attn: bool = False,
+    attn_top_k: float = 1.0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Masked softmax attention with grouped queries.
 
     Returns ``(out [B, H, L, D], attn [B, KVH, L, S] | None)`` with ``attn``
     averaged over the G query heads of each KV head. Scores and softmax in
-    f32 (operands promoted to f32, as XLA's f32-accumulated einsum)."""
+    f32 (operands promoted to f32, as XLA's f32-accumulated einsum).
+
+    ``attn_top_k < 1`` (decode only) keeps the scores of the top
+    ``round(attn_top_k * S)`` slots and masks the rest before the softmax;
+    slots tying the k-th score are all kept (JAX ops/attention.py:61-71)."""
     B, H, L, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     G = H // KVH
@@ -45,6 +50,10 @@ def gqa_attention(
     scores = torch.einsum("bkgld,bksd->bkgls", qg, k.float()) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
+    top_k = S if L > 1 else int(round(attn_top_k * S))
+    if top_k < S:
+        kth = torch.topk(scores, top_k, dim=-1).values[..., -1:]
+        scores = torch.where(scores >= kth, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgls,bksd->bkgld", probs, v.float())
     out = out.reshape(B, H, L, D).to(q.dtype)

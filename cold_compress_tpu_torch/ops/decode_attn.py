@@ -1,30 +1,35 @@
-"""Decode attention over the int8 KV cache (kernel K3): wrapper and plain
-version.
+"""Decode attention over the KV cache at every precision (kernels K3 and
+K5): wrapper and plain version.
 
 Counterpart of ``cold_compress_tpu/ops/pallas_decode_attn.py``. The CUDA
-kernel (``csrc/kv8_decode_attn.cu``) replaces the one-shot ``_kernel`` of
-``quantized_decode_attention`` (pallas_decode_attn.py:899) at bits=8 with
-need_attn=True, in its ``i8dot=False`` branch: the cache is dequantized
-(``u8 * s + (z - 128 s)``, rounded to bf16) inside the kernel, scores and
-softmax are f32, the probabilities are cast to bf16 before P.V, and the
-probabilities averaged over the G query heads are returned for the
-heavy-hitter history. The TPU's default for int8 caches, ``i8dot`` (int8
-query and probabilities on the MXU), is a TPU-specific trick and stays a
-later option.
+kernel (``csrc/decode_attn.cu``) replaces ``quantized_decode_attention``
+(pallas_decode_attn.py:899): its one-shot ``_kernel`` (K3) at bits 16/8/4/2
+with and without pooled probabilities, and its chunked, manual and v2
+variants (K5), which serve caches above the TPU's one-shot budget. One
+split-C kernel serves every cache length and follows the one-shot numerics
+at all of them (the ``i8dot=False`` branch): K and V are dequantized
+(``u * s + (z - 2^(bits-1) s)``, rounded to bf16; a bf16 cache is read as
+it is), scores and softmax are f32, the probabilities are cast to bf16
+before P.V, and, when asked for, the probabilities averaged over the G
+query heads are returned for the heavy-hitter history. The TPU's chunked
+kernel rounds the unnormalised ``e`` instead (pallas_decode_attn.py:330),
+which moves ``out`` by up to about two bf16 units (tests bound it). The
+TPU's ``i8dot`` (int8 query and probabilities on the MXU) is a TPU-specific
+trick and stays a later option.
 
-Bound on the H100: bytes (K and V of every KV head, 2*C*D bytes each, plus
-the per-slot scale/zero/mask). Design: the cache is split over C into
-128-slot chunks, one block each, so that batch 1 still fills the card;
-three launches per call (scores and per-chunk softmax statistics; the
-final (m, l), exact pooled probabilities and partial P.V; the sum of the
-partials over the chunks), all sums in a fixed order.
+Bound on the H100: bytes (K and V of every KV head, 2*C*D*bits/8 bytes
+each, plus the per-slot scale/zero/mask). Design: the cache is split over C
+into 128-slot chunks, one block each, so that batch 1 still fills the card;
+three launches per call (scores and per-chunk softmax statistics; the final
+(m, l), pooled probabilities and partial P.V; the sum of the partials over
+the chunks), all sums in a fixed order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,11 +37,20 @@ from . import _build
 
 NEG_INF = -1e30
 
-#: Launch count of the CUDA kernel (incremented only where it launches).
-LAUNCHES = {"kv8_decode_attention": 0}
-
 HEAD_DIM = 128
 MAX_GROUP = 8
+BITS = (16, 8, 4, 2)
+
+
+def variant(bits: int, need_attn: bool) -> str:
+    """Launch-counter name of one (bits, need_attn) variant."""
+    fmt = "bf16" if bits == 16 else f"kv{bits}"
+    return f"decode_attention.{fmt}" + ("" if need_attn else ".noattn")
+
+
+#: Launch count of the CUDA kernel per variant (incremented only where it
+#: launches).
+LAUNCHES = {variant(b, a): 0 for b in BITS for a in (True, False)}
 
 
 def decode_attn_supported(q_shape, n_kv_head: int) -> bool:
@@ -45,39 +59,61 @@ def decode_attn_supported(q_shape, n_kv_head: int) -> bool:
     return L == 1 and D == HEAD_DIM and H // n_kv_head <= MAX_GROUP
 
 
-def kv8_decode_attention_plain(q, kq, vq, k_scales, k_zeros, v_scales, v_zeros,
-                               mask) -> Tuple[torch.Tensor, torch.Tensor]:
+def packed_width(bits: int, head_dim: int = HEAD_DIM) -> int:
+    """Last-axis width of one cached row: D values (bf16, int8) or D*bits/8
+    packed bytes."""
+    return head_dim if bits in (16, 8) else head_dim * bits // 8
+
+
+def dequantize_bf16(u: torch.Tensor, scales, zeros, bits: int) -> torch.Tensor:
+    """Cached rows as the kernel reads them: f32 values rounded to bf16.
+
+    bits 4/2 unpack the segment packing (byte j, bit range s holds column
+    j + s*D/per); the affine map is a separate f32 multiply and add,
+    ``u * s + (z - 2^(bits-1) * s)``."""
+    if bits == 16:
+        return u.to(torch.bfloat16).float()
+    per = 8 // bits
+    if per > 1:
+        p = u.to(torch.int32)
+        m = (1 << bits) - 1
+        u = torch.cat([(p >> (bits * s)) & m for s in range(per)], dim=-1)
+    zp = zeros - float(2 ** (bits - 1)) * scales
+    x = u.float() * scales[..., None] + zp[..., None]
+    return x.to(torch.bfloat16).float()
+
+
+def decode_attention_plain(q, k, v, k_scales, k_zeros, v_scales, v_zeros, mask,
+                           bits: int, need_attn: bool
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version: returns (out [B, H, 1, D] in q's dtype,
-    pooled [B, KVH, 1, C] f32)."""
+    pooled [B, KVH, 1, C] f32 or None)."""
     B, H, _, D = q.shape
-    KVH, C = kq.shape[1], kq.shape[2]
+    KVH, C = k.shape[1], k.shape[2]
     G = H // KVH
     scale = 1.0 / math.sqrt(D)
     qb = q.reshape(B, KVH, G, D).to(torch.bfloat16).float()
-
-    def deq(u, s, z):
-        zp = z - 128.0 * s
-        return (u.float() * s[..., None] + zp[..., None]).to(torch.bfloat16).float()
-
-    k = deq(kq, k_scales, k_zeros)
-    v = deq(vq, v_scales, v_zeros)
-    s = torch.einsum("bkgd,bkcd->bkgc", qb, k) * scale
+    kf = dequantize_bf16(k, k_scales, k_zeros, bits)
+    vf = dequantize_bf16(v, v_scales, v_zeros, bits)
+    s = torch.einsum("bkgd,bkcd->bkgc", qb, kf) * scale
     s = s.masked_fill(~mask[:, :, None, :], NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     probs = e / e.sum(dim=-1, keepdim=True)
-    pooled = probs.sum(dim=2) * (1.0 / G)
-    o = torch.einsum("bkgc,bkcd->bkgd", probs.to(torch.bfloat16).float(), v)
+    o = torch.einsum("bkgc,bkcd->bkgd", probs.to(torch.bfloat16).float(), vf)
     out = o.reshape(B, H, 1, D).to(q.dtype)
+    if not need_attn:
+        return out, None
+    pooled = probs.sum(dim=2) * (1.0 / G)
     return out, pooled[:, :, None, :]
 
 
 def _lib():
-    lib = _build.library("kv8_decode_attn")
-    fn, ws = lib.kv8_decode_attention, lib.kv8_decode_attention_workspace
+    lib = _build.library("decode_attn")
+    fn, ws = lib.decode_attention, lib.decode_attention_workspace
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         ws.argtypes = [ctypes.c_int] * 4
@@ -85,47 +121,63 @@ def _lib():
     return fn, ws
 
 
-def kv8_decode_attention(q, kq, vq, k_scales, k_zeros, v_scales, v_zeros, mask):
-    """Returns (out [B, H, 1, D], pooled attn [B, KVH, 1, C]), the contract
-    of gqa_attention's decode path with ``return_attn``.
+def decode_attention(q, k, v, k_scales, k_zeros, v_scales, v_zeros, mask, *,
+                     bits: int, need_attn: bool):
+    """Returns (out [B, H, 1, D], pooled attn [B, KVH, 1, C] or None), the
+    contract of gqa_attention's decode path. ``bits`` is the cache's
+    precision (16 for a bf16 cache, whose scale/zero arguments are None).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
     any input it does not take raises."""
     if q.device.type == "cpu":
-        return kv8_decode_attention_plain(
-            q, kq, vq, k_scales, k_zeros, v_scales, v_zeros, mask
+        return decode_attention_plain(
+            q, k, v, k_scales, k_zeros, v_scales, v_zeros, mask, bits, need_attn
         )
+    name = "decode_attention"
     B, H, L, D = q.shape
-    KVH, C = kq.shape[1], kq.shape[2]
+    KVH, C = k.shape[1], k.shape[2]
+    if bits not in BITS:
+        raise ValueError(f"{name}: cache bits {bits} (takes {BITS})")
+    if L != 1 or D != HEAD_DIM or H % KVH or H // KVH > MAX_GROUP:
+        raise ValueError(f"{name}: unsupported q {tuple(q.shape)} for {KVH} KV heads")
     G = H // KVH
-    if L != 1 or D != HEAD_DIM or G > MAX_GROUP or H % KVH:
-        raise ValueError(f"kv8_decode_attention: unsupported q {tuple(q.shape)}")
-    for name, t, dt, shape in (
-        ("kq", kq, torch.uint8, (B, KVH, C, D)),
-        ("vq", vq, torch.uint8, (B, KVH, C, D)),
-        ("k_scales", k_scales, torch.float32, (B, KVH, C)),
-        ("k_zeros", k_zeros, torch.float32, (B, KVH, C)),
-        ("v_scales", v_scales, torch.float32, (B, KVH, C)),
-        ("v_zeros", v_zeros, torch.float32, (B, KVH, C)),
-        ("mask", mask, torch.bool, (B, KVH, C)),
-    ):
-        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"kv8_decode_attention: bad {name} {tuple(t.shape)} {t.dtype}")
+    row = (B, KVH, C, packed_width(bits))
+    checks = [("mask", mask, torch.bool, (B, KVH, C))]
+    if bits == 16:
+        checks += [("k", k, torch.bfloat16, row), ("v", v, torch.bfloat16, row)]
+    else:
+        checks += [("k", k, torch.uint8, row), ("v", v, torch.uint8, row)] + [
+            (n, t, torch.float32, (B, KVH, C))
+            for n, t in (("k_scales", k_scales), ("k_zeros", k_zeros),
+                         ("v_scales", v_scales), ("v_zeros", v_zeros))
+        ]
+    for n, t, dt, shape in checks:
+        if t is None or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            got = None if t is None else (tuple(t.shape), t.dtype)
+            raise ValueError(f"{name}: bad {n} {got}, want {shape} {dt}")
         if t.device != q.device:
-            raise ValueError(f"kv8_decode_attention: {name} on another device")
+            raise ValueError(f"{name}: {n} on another device")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: cache rows must be 16-byte aligned")
     qb = q.to(torch.bfloat16).contiguous()  # the TPU kernel casts q too
     launch, workspace_floats = _lib()
     out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
-    pooled = torch.empty((B, KVH, 1, C), dtype=torch.float32, device=q.device)
-    # Scores, per-chunk statistics and partial outputs between the launches.
+    pooled = (torch.empty((B, KVH, 1, C), dtype=torch.float32, device=q.device)
+              if need_attn else None)
+    # Scores, per-chunk statistics and partial outputs between the launches,
+    # sized for this call's C.
     workspace = torch.empty(workspace_floats(B, KVH, C, G), dtype=torch.float32,
                             device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     status = launch(
-        qb.data_ptr(), kq.data_ptr(), vq.data_ptr(), k_scales.data_ptr(),
-        k_zeros.data_ptr(), v_scales.data_ptr(), v_zeros.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), pooled.data_ptr(), workspace.data_ptr(),
-        B, KVH, C, G, 1.0 / math.sqrt(D), _build.stream_ptr(q.device),
+        qb.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scales), ptr(k_zeros),
+        ptr(v_scales), ptr(v_zeros), mask.data_ptr(), out.data_ptr(), ptr(pooled),
+        workspace.data_ptr(), B, KVH, C, G, bits, int(need_attn), 1.0 / math.sqrt(D),
+        _build.stream_ptr(q.device),
     )
-    _build.check(status, "kv8_decode_attention")
-    LAUNCHES["kv8_decode_attention"] += 1
+    _build.check(status, name)
+    LAUNCHES[variant(bits, need_attn)] += 1
     return out.to(q.dtype), pooled

@@ -1,4 +1,4 @@
-"""Linear projections over dense or int4 group-wise weights.
+"""Linear projections over dense, int4 group-wise or int8 weights.
 
 Counterpart of ``cold_compress_tpu/ops/linear.py``. Dense weights are
 ``[in, out]`` tensors, as in the JAX package. An int4 weight arrives in the
@@ -11,6 +11,11 @@ is repacked once into the W4A8 kernel's layout (``ops/qmm.py``).
 ``linear`` does on the TPU: L <= 32 goes to the W4A8 kernel (K1/K2); larger L
 (prefill) dequantizes one layer to bf16 and calls ``torch.matmul``
 (pallas_qmm.py:1154 leaves the prefill W4A8 kernel opt-in).
+
+An int8 weight (``{"kind": "int8", "w": int8 [in, out], "scales": f32
+[out]}``, the ``--head_bits 8`` vocab head) becomes an ``Int8Linear``: L <=
+32 goes to the W8A8 kernel (K9); larger L dequantizes to bf16 for
+``torch.matmul``, as the JAX package's XLA int8 path does outside Pallas.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from torch import nn
 
 from . import qmm
 
-#: Row count up to which an int4 projection runs the W4A8 kernel.
+#: Row count up to which a quantized projection runs its decode kernel.
 KERNEL_MAX_ROWS = 32
 
 
@@ -91,6 +96,34 @@ class QuantizedLinear(nn.Module):
         if x2.shape[0] <= KERNEL_MAX_ROWS:
             y = qmm.w4a8_gemv(x2.contiguous(), self.w, self.sz, self.group_size,
                               counter=self.counter).to(x.dtype)
+        else:
+            y = torch.matmul(x2, self.dense(x.dtype))
+        return _add_bias(y.reshape(*lead, y.shape[-1]), self.bias)
+
+
+class Int8Linear(nn.Module):
+    """int8 weight with per-column scales, held in the W8A8 kernel's layout:
+    ``w`` int8 [out, in] and ``s`` f32 [out]. ``counter`` names the launch
+    counter (``qmm.LAUNCHES``) the kernel increments."""
+
+    def __init__(self, w: torch.Tensor, scales: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *, counter: str):
+        super().__init__()
+        wt, s = qmm.int8_to_gemv(w, scales)
+        self.register_buffer("w", wt)
+        self.register_buffer("s", s)
+        self.register_buffer("bias", bias)
+        self.counter = counter
+
+    def dense(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return qmm.dequantize_int8(self.w, self.s, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.shape[0] <= KERNEL_MAX_ROWS:
+            y = qmm.w8a8_gemv(x2.contiguous(), self.w, self.s, counter=self.counter)
+            y = y.to(x.dtype)
         else:
             y = torch.matmul(x2, self.dense(x.dtype))
         return _add_bias(y.reshape(*lead, y.shape[-1]), self.bias)

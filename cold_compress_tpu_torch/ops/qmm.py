@@ -1,4 +1,5 @@
-"""W4A8 decode matmul (kernel K1/K2): wrapper, plain version and layout.
+"""Decode matmuls over quantized weights: W4A8 (kernels K1/K2) and W8A8
+(kernel K9), wrappers, plain versions and layouts.
 
 Counterpart of ``cold_compress_tpu/ops/pallas_qmm.py``. The CUDA kernel
 (``csrc/w4a8_gemv.cu``) replaces ``qmm_w4a8_cpt`` (pallas_qmm.py:712, the
@@ -6,7 +7,7 @@ layer projections) and the tiled branch of ``qmm_w4a8_cp_stacked``
 (pallas_qmm.py:407, the int4 vocab head): both compute the same W4A8
 function, and one kernel serves both.
 
-Function: x is quantized per row to int8 (``sx = max(absmax, 1e-8) / 127``,
+Function: x is quantized per row to int8 (``sx = max(absmax, 1e-8) * (1/127)``,
 round half to even, clip to +-127); per group g, ``d_g = sum xq * (q - 8)``
 and ``xs_g = sum xq`` are exact integers; ``y = sx * sum_g (s_g * d_g +
 z_g * xs_g)`` in f32. This is W4A8, as on the TPU, not W4A16.
@@ -16,6 +17,13 @@ port's own ("gemv", see the kernel source): each output column's nibbles
 contiguous, repacked once from the checkpoint's rowpack. The prefill path
 (``dequantize_gemv``) reads the same stored bytes, so the weights are held
 once.
+
+K9 (``csrc/w8a8_gemv.cu``) replaces ``qmm_w8a8_tiled`` (pallas_qmm.py:1293),
+the ``--head_bits 8`` vocab head: int8 weights with one f32 scale per
+output column, the activations quantized as above, an exact int32 dot
+``d`` and ``y = (d * s_col) * sx`` in f32, in that order. Its layout is the
+checkpoint's ``[IN, OUT]`` transposed once to ``[OUT, IN]`` rows. Bound:
+bytes (IN*OUT weight bytes at batch 1).
 """
 
 from __future__ import annotations
@@ -30,13 +38,19 @@ from . import _build
 #: (K1) and the vocab head (K2). Incremented only where the kernel launches.
 LAUNCHES = {
     "w4a8_gemv.wqkv": 0, "w4a8_gemv.wo": 0, "w4a8_gemv.w13": 0,
-    "w4a8_gemv.w2": 0, "w4a8_gemv.head": 0,
+    "w4a8_gemv.w2": 0, "w4a8_gemv.head": 0, "w8a8_gemv.head": 0,
 }
 
 _MASK = 0x0F
 
+#: The f32 reciprocal of 127 (exactly representable as a Python float).
+INV_127 = 0.007874015718698502
+
 #: Output columns the plain version unpacks at a time (bounds its memory).
 PLAIN_COL_CHUNK = 16384
+#: Inputs per f32 partial dot in the W8A8 plain version: 1024 * 127 * 127 <
+#: 2**24, so every partial sum of integer products is exact in f32.
+W8A8_EXACT_DEPTH = 1024
 
 
 def rowpack_to_gemv(w: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor):
@@ -99,10 +113,9 @@ def quantize_activations(x: torch.Tensor):
     returns (xq as f32 integers in [-127, 127], sx [L, 1] f32)."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1, keepdim=True)
-    absmax = absmax.clamp_min(1e-8)
-    # A tensor divisor: CUDA turns division by a Python scalar into a
-    # multiplication by its reciprocal, which can differ in the last bit.
-    sx = absmax / torch.full_like(absmax, 127.0)
+    # XLA folds ``/ 127.0`` into a multiplication by the f32 reciprocal,
+    # which differs from a true division in the last bit for some rows.
+    sx = absmax.clamp_min(1e-8) * INV_127
     xq = torch.round(xf / sx).clamp(-127, 127)  # round half to even
     return xq, sx
 
@@ -176,5 +189,88 @@ def w4a8_gemv(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
         L, IN, OUT, gs, _build.stream_ptr(x.device),
     )
     _build.check(status, "w4a8_gemv")
+    LAUNCHES[counter] += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# W8A8 (K9)
+# --------------------------------------------------------------------------
+
+
+def int8_to_gemv(w: torch.Tensor, scales: torch.Tensor):
+    """Repack one int8 weight [IN, OUT] with scales [OUT] into the kernel's
+    layout: (wt int8 [OUT, IN], s f32 [OUT]) on w's device."""
+    if w.dtype != torch.int8 or w.dim() != 2 or scales.shape != (w.shape[1],):
+        raise ValueError(f"bad int8 weight {tuple(w.shape)} {w.dtype} / scales "
+                         f"{tuple(scales.shape)}")
+    return w.t().contiguous(), scales.float().contiguous()
+
+
+def dequantize_int8(wt: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense [IN, OUT] from the kernel layout: ``w * s`` in f32, cast once to
+    ``dtype`` (ops/linear.py::dequantize_weight's int8 math), returned as a
+    transposed view of an [OUT, IN] tensor."""
+    return (wt.float() * s[:, None]).to(dtype).t()
+
+
+def w8a8_gemv_plain(x: torch.Tensor, wt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K9: x [L, IN] -> y [L, OUT] f32.
+
+    The integer dot runs as f32 matmuls over ``W8A8_EXACT_DEPTH`` inputs at
+    a time (exact, see there) summed in f64, so ``d`` is the exact integer;
+    ``float(d)`` rounds to nearest as the kernel's conversion does."""
+    OUT, IN = wt.shape
+    xq, sx = quantize_activations(x)
+    out = []
+    for j0 in range(0, OUT, PLAIN_COL_CHUNK):
+        j1 = min(OUT, j0 + PLAIN_COL_CHUNK)
+        wf = wt[j0:j1].float()
+        d = None
+        for i0 in range(0, IN, W8A8_EXACT_DEPTH):
+            i1 = min(IN, i0 + W8A8_EXACT_DEPTH)
+            part = torch.matmul(xq[:, i0:i1], wf[:, i0:i1].t()).double()
+            d = part if d is None else d + part
+        out.append((d.float() * s[j0:j1]) * sx)
+    return torch.cat(out, dim=-1)
+
+
+def _lib8():
+    fn = _build.library("w8a8_gemv").w8a8_gemv
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def w8a8_gemv(x: torch.Tensor, wt: torch.Tensor, s: torch.Tensor, counter: str) -> torch.Tensor:
+    """x [L, IN] @ int8 weight in the kernel layout -> [L, OUT] f32.
+
+    ``counter`` is the key of ``LAUNCHES`` that a launch increments.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel; any
+    input it does not take raises."""
+    if x.device.type == "cpu":
+        return w8a8_gemv_plain(x, wt, s)
+    L, IN = x.shape
+    OUT = wt.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"w8a8_gemv takes bf16 activations, got {x.dtype}")
+    if wt.dtype != torch.int8 or wt.shape != (OUT, IN) or IN % 16:
+        raise ValueError(f"bad weight {tuple(wt.shape)} {wt.dtype} for IN={IN}")
+    if s.dtype != torch.float32 or s.shape != (OUT,):
+        raise ValueError(f"bad scales {tuple(s.shape)} {s.dtype}")
+    if not (x.is_contiguous() and wt.is_contiguous() and s.is_contiguous()):
+        raise ValueError("w8a8_gemv needs contiguous inputs")
+    if wt.data_ptr() % 16:
+        raise ValueError("weight bytes must be 16-byte aligned")
+    if not (x.device == wt.device == s.device):
+        raise ValueError("inputs on different devices")
+    y = torch.empty((L, OUT), dtype=torch.float32, device=x.device)
+    status = _lib8()(
+        x.data_ptr(), wt.data_ptr(), s.data_ptr(), y.data_ptr(), L, IN, OUT,
+        _build.stream_ptr(x.device),
+    )
+    _build.check(status, "w8a8_gemv")
     LAUNCHES[counter] += 1
     return y

@@ -1,7 +1,7 @@
 """Random int4 group-wise weights, drawn with numpy alone.
 
 Port of ``cold_compress_tpu/quantization/weight_quant.py::
-random_quantized_params`` (int4 layers, int4 vocab head): the same
+random_quantized_params`` (int4 layers; an int4 or int8 vocab head): the same
 ``np.random.RandomState(seed)`` draws in the same order give byte-identical
 packed weights and scales. The result is returned in the flat key scheme
 that ``cold_compress_tpu/runtime/engine.py::save_params`` writes (``a/b/c``
@@ -41,9 +41,10 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0, mode: str = "int4",
                             group_size: int = 128,
                             head_mode: str = "int4") -> Dict[str, np.ndarray]:
     """Random int4 weights in the flat checkpoint key scheme (see module
-    docstring). Only ``mode="int4"`` and ``head_mode="int4"`` are ported."""
-    if mode != "int4" or head_mode != "int4":
-        raise ValueError("the port supports int4 layers and an int4 vocab head only")
+    docstring). Only ``mode="int4"`` is ported; ``head_mode`` is ``"int4"``
+    or ``"int8"`` (values ``(byte % 255) - 127``, scales ``0.02 / 127``)."""
+    if mode != "int4" or head_mode not in ("int4", "int8"):
+        raise ValueError("the port supports int4 layers and an int4 or int8 vocab head only")
     rng = np.random.RandomState(seed)
     D, H, KVH, hd, I = cfg.dim, cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.intermediate_size
     scale_bits = bf16_bits(0.02 / 8)
@@ -84,6 +85,11 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0, mode: str = "int4",
     flat["norm#bf16"] = np.full((D,), one_bits, np.uint16)
     if cfg.tie_word_embeddings:
         flat["output#none"] = np.zeros((0,))
-    else:
+    elif head_mode == "int4":
         rand_q("output/", D, cfg.vocab_size)
+    else:
+        # int8 wraps in numpy exactly as in the JAX package: (v % 255) - 127.
+        flat["output/w"] = (rand_bytes((D, cfg.vocab_size)) % 255).astype(np.int8) - 127
+        flat["output/scales"] = np.full((cfg.vocab_size,), 0.02 / 127, np.float32)
+        flat["output/qmeta"] = np.array([8, group_size])
     return flat

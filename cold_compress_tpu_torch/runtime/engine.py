@@ -6,7 +6,9 @@ flat ``.npz`` that ``cold_compress_tpu/runtime/engine.py::save_params``
 writes: ``a/b/c`` key paths, ``#bf16`` for bf16 arrays stored as uint16
 views, ``#none`` for absent leaves, and a quantized weight as the keys
 ``w``, ``scales``, ``zeros`` and ``qmeta = [bits, group_size]`` under its
-path. ``params_from_flat`` reads that scheme into tensors and
+path (int4 weights also ``zeros``; ``qmeta`` bits 8 marks an int8 weight
+with f32 per-column scales). ``params_from_flat`` reads that scheme into
+tensors and
 ``build_model`` turns the tree into a ``Transformer``.
 """
 
@@ -55,7 +57,8 @@ def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
         normalize_cache_length(length, max_seq_length)
         for length in _as_list(kw.get("max_cache_length", [1.0]))
     ]
-    lengths = apply_pattern(lengths, cfg.n_layer, kw.get("cache_length_pattern", "tile"))
+    lengths = apply_pattern(lengths, cfg.n_layer, kw.get("cache_length_pattern", "tile"),
+                            max_seq_length=max_seq_length)
     strategy_pattern = kw.get("cache_strategy_pattern", "tile")
     strategies = apply_pattern(
         _as_list(kw.get("cache_strategy", ["full"])), cfg.n_layer, strategy_pattern
@@ -110,7 +113,8 @@ def params_from_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]
     Dense leaves become tensors on ``device`` (bf16 from their uint16
     views); a quantized leaf becomes a dict ``{"w", "scales", "zeros",
     "group_size"}`` of int4 rowpack tensors, which the model repacks once
-    into the W4A8 kernel's layout (``ops/qmm.py``). Legacy unsigned-nibble
+    into the W4A8 kernel's layout (``ops/qmm.py``); an int8 leaf becomes
+    ``{"kind": "int8", "w", "scales"}``. Legacy unsigned-nibble
     (uint8) packs are read as they are: ``ops/qmm.py::unpack_rowpack``
     takes both. Layer lists are rebuilt from their numeric path parts."""
     dev = resolve_device(device)
@@ -136,8 +140,10 @@ def _listify(node):
     if isinstance(node, dict):
         if "qmeta" in node:
             bits, group_size = node["qmeta"]
+            if bits == 8:
+                return {"kind": "int8", "w": node["w"], "scales": node["scales"]}
             if bits != 4:
-                raise ValueError(f"int{bits} weights are not ported yet (int4 only)")
+                raise ValueError(f"int{bits} weights are not ported (int4 and int8 only)")
             return {
                 "w": node["w"], "scales": node["scales"], "zeros": node["zeros"],
                 "group_size": group_size,

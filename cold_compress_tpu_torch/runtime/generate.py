@@ -44,6 +44,7 @@ def generate(
     next_tokens: Optional[Sequence[int]] = None,
     terminator_ids: Optional[Sequence[int]] = None,
     prefill_bucket: Optional[int] = None,
+    attn_top_k: float = 1.0,
 ) -> Tuple[List[int], Dict[str, Any], Any]:
     """Generate greedily from a prompt; returns ``(sequence, info, caches)``.
 
@@ -55,6 +56,8 @@ def generate(
     * a prompt exactly as long as the smallest cache feeds its last token
       through decode, so eviction state exists before the cache overflows.
     * ``terminator_ids``: a lane records nothing after emitting one.
+    * ``attn_top_k < 1``: decode attention sums values over only that share
+      of the top-scored cache slots (``decode_step``).
 
     ``info`` holds ``perf_stats`` (seconds and tokens per second, timed
     with the device synchronised), ``emitted_probs`` (the probability of
@@ -125,7 +128,7 @@ def generate(
     if max_steps > 0:
         tokens_buf, probs_buf, last_probs = _decode_loop(
             model, caches, first_token, prompt_length, prefix, terminator_ids,
-            max_steps,
+            max_steps, attn_top_k,
         )
         tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
         t2 = time.perf_counter()
@@ -174,7 +177,8 @@ def generate(
 
 
 def _decode_loop(model: Transformer, caches, first_token: torch.Tensor, start_pos: int,
-                 prefix: Sequence[int], terminator_ids: Sequence[int], max_steps: int):
+                 prefix: Sequence[int], terminator_ids: Sequence[int], max_steps: int,
+                 attn_top_k: float = 1.0):
     """Greedy decode with everything kept on the device.
 
     Returns (tokens [max_steps + 1, B] with slot 0 the first token and -1
@@ -194,7 +198,7 @@ def _decode_loop(model: Transformer, caches, first_token: torch.Tensor, start_po
     cur = first_token
     with torch.inference_mode():
         for i in range(max_steps):
-            logits = decode_step(model, caches, cur, start_pos + i)
+            logits = decode_step(model, caches, cur, start_pos + i, attn_top_k)
             probs = torch.softmax(logits.float(), dim=-1)
             if forced[i] >= 0:  # teacher forcing is known on the host
                 next_tok = forced_t[i].expand(B)

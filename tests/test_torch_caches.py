@@ -1,6 +1,6 @@
 """The port's KV-cache machinery against the JAX package: quantized row
-storage, heavy-hitter eviction over a run of decode steps, and SnapKV
-prompt compression. The JAX states are functional; the port's are updated
+storage, heavy-hitter eviction over a run of decode steps (and its fused
+step, K7), and SnapKV prompt compression. The JAX states are functional; the port's are updated
 in place, so each step compares the port's state with the JAX result."""
 
 import jax.numpy as jnp
@@ -179,3 +179,36 @@ def test_reset_state_and_memory():
     assert float(st.k_scales.min()) == 1e-6 or np.isclose(float(st.k_scales.min()), 1e-6)
     jst = jax_strategy("heavy_hitter").init(JB.CacheSpec(**SPEC_KW), 1, 8, 128)
     assert cache_memory_gb(st) == pytest.approx(JB.cache_memory_gb(jst))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_evict_plain_matches_tpu_kernel_bit_for_bit(seed):
+    """K7's plain version against fused_hh_evict in interpret mode: the same
+    slot per head and the same zeroed history, bit for bit. Seed 1 has
+    dyadic averages (exact ties: the first index wins), seed 2 per-lane
+    positions and empty slots."""
+    from cold_compress_tpu.ops.pallas_evict import fused_hh_evict
+
+    from cold_compress_tpu_torch.ops import evict
+
+    rng = np.random.RandomState(seed)
+    B, H, C = 2, 3, 256
+    num = rng.rand(B, H, C).astype(np.float32)
+    if seed == 1:
+        num = np.floor(num * 8) / 4
+    denom = rng.randint(0, 6, size=(B, H, C)).astype(np.int32)
+    pos = np.stack([rng.permutation(C) for _ in range(B * H)]).reshape(B, H, C).astype(np.int32)
+    if seed == 2:
+        pos[0, :, -9:] = -1
+    ipos = np.array([C + 2, C - 40], np.int32)
+    idx_j, num_j, den_j = fused_hh_evict(
+        jnp.asarray(num), jnp.asarray(denom), jnp.asarray(pos), jnp.asarray(ipos),
+        global_tokens=4, recent_window=10, interpret=True,
+    )
+    tn, td = _t(num), _t(denom)
+    idx = evict.hh_evict(tn, td, _t(pos), _t(ipos)[:, None, None], global_tokens=4,
+                         recent_window=10)
+    assert idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    assert tn.numpy().tobytes() == np.asarray(num_j).tobytes()
+    np.testing.assert_array_equal(td.numpy(), np.asarray(den_j))

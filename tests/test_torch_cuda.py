@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from cold_compress_tpu_torch.caches.base import quantize_rows
-from cold_compress_tpu_torch.ops import decode_attn, prefill_attn, qmm
+from cold_compress_tpu_torch.ops import decode_attn, evict, prefill_attn, qmm
 
 pytestmark = pytest.mark.cuda
 
@@ -68,10 +68,9 @@ def test_w4a8_gemv_matches_plain(dev, L, IN, OUT, gs):
 
 def test_activation_quantization_matches_cpu(dev):
     """The plain version's int8 activations are the same bits on the card
-    as on the CPU, where division is IEEE, as the kernel's ``__fdiv_rn`` is.
-    CUDA turns a division by a Python scalar into a multiplication by its
-    reciprocal; a plain version that divided by the scalar 127 moved some
-    activations by one int8 unit and disagreed with the kernel."""
+    as on the CPU: ``sx`` is a multiplication by the f32 reciprocal of 127
+    (as XLA computes ``/ 127.0``) and ``x / sx`` an IEEE division on both,
+    as in the kernels' prologue (``csrc/act_quant.cuh``)."""
     x = torch.randn((32, 1024), device=dev, generator=_gen(dev, 9)).to(torch.bfloat16)
     xq, sx = qmm.quantize_activations(x)
     xq_c, sx_c = qmm.quantize_activations(x.cpu())
@@ -98,11 +97,142 @@ def test_kv8_decode_attention_matches_plain(dev, C, G):
     mask[1, 1] = False  # a head with no valid slot: uniform, as the TPU kernel
     mask[0, 0, 128:256] = False  # one whole 128-slot chunk of the kernel's split
     q = (torch.randn((B, KVH * G, 1, D), device=dev, generator=g) / 4).to(torch.bfloat16)
-    out, pooled = decode_attn.kv8_decode_attention(q, kq, vq, ks, kz, vs, vz, mask)
-    ref_out, ref_pooled = decode_attn.kv8_decode_attention_plain(q, kq, vq, ks, kz, vs, vz, mask)
+    args = (q, kq, vq, ks, kz, vs, vz, mask)
+    out, pooled = decode_attn.decode_attention(*args, bits=8, need_attn=True)
+    ref_out, ref_pooled = decode_attn.decode_attention_plain(*args, 8, True)
     # Same roundings on both sides; only the order of the f32 sums differs.
     _assert_bf16_out_close(out, ref_out, 2**-8)
     torch.testing.assert_close(pooled, ref_pooled, rtol=1e-5, atol=1e-7)
+
+
+def _cache(dev, g, bits, B, KVH, C, D=128):
+    """Random K or V rows at one precision: (rows, scales, zeros)."""
+    x = torch.randn((B, KVH, C, D), device=dev, generator=g)
+    if bits == 16:
+        return x.to(torch.bfloat16), None, None
+    return quantize_rows(x, bits)
+
+
+@pytest.mark.parametrize("need_attn", [True, False])
+@pytest.mark.parametrize("bits", [16, 8, 4, 2])
+@pytest.mark.parametrize("C,G", [(2048, 4), (300, 8), (4096, 1)])
+def test_decode_attention_matches_plain(dev, bits, need_attn, C, G):
+    """Every cache precision, with and without pooled probabilities; a
+    ragged last chunk (C = 300), a masked whole chunk and a head with no
+    valid slot."""
+    B, KVH, D = 2, 2, 128
+    g = _gen(dev, bits * 1000 + C + G)
+    kc, ks, kz = _cache(dev, g, bits, B, KVH, C)
+    vc, vs, vz = _cache(dev, g, bits, B, KVH, C)
+    mask = torch.rand((B, KVH, C), device=dev, generator=g) > 0.3
+    mask[1, 1] = False
+    mask[0, 0, 128:256] = False
+    q = (torch.randn((B, KVH * G, 1, D), device=dev, generator=g) / 4).to(torch.bfloat16)
+    args = (q, kc, vc, ks, kz, vs, vz, mask)
+    name = decode_attn.variant(bits, need_attn)
+    before = decode_attn.LAUNCHES[name]
+    out, pooled = decode_attn.decode_attention(*args, bits=bits, need_attn=need_attn)
+    assert decode_attn.LAUNCHES[name] == before + 1
+    ref_out, ref_pooled = decode_attn.decode_attention_plain(*args, bits, need_attn)
+    # Same roundings on both sides; only the order of the f32 sums differs.
+    _assert_bf16_out_close(out, ref_out, 2**-8)
+    if need_attn:
+        torch.testing.assert_close(pooled, ref_pooled, rtol=1e-5, atol=1e-7)
+    else:
+        assert pooled is None and ref_pooled is None
+
+
+def test_decode_attention_rejects_what_it_does_not_take(dev):
+    B, KVH, C = 1, 2, 256
+    g = _gen(dev, 5)
+    kc, ks, kz = _cache(dev, g, 4, B, KVH, C)
+    mask = torch.ones((B, KVH, C), dtype=torch.bool, device=dev)
+    q = torch.zeros((B, 4, 1, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # packed int4 rows read as int8
+        decode_attn.decode_attention(q, kc, kc, ks, kz, ks, kz, mask, bits=8, need_attn=True)
+    with pytest.raises(ValueError):  # head_dim 64
+        decode_attn.decode_attention(q[..., :64], kc, kc, ks, kz, ks, kz, mask, bits=4,
+                                     need_attn=True)
+    with pytest.raises(ValueError):  # missing scales
+        decode_attn.decode_attention(q, kc, kc, None, kz, ks, kz, mask, bits=4, need_attn=True)
+
+
+@pytest.mark.parametrize("B,H,C", [(1, 8, 2048), (2, 3, 300), (1, 2, 4096)])
+def test_hh_evict_matches_plain_bit_for_bit(dev, B, H, C):
+    """Same slot, same zeroed history: ties (dyadic averages, protected and
+    empty slots) included."""
+    g = _gen(dev, B * C + H)
+    num = (torch.randint(0, 8, (B, H, C), device=dev, generator=g) / 4.0).float()
+    denom = torch.randint(0, 5, (B, H, C), device=dev, generator=g, dtype=torch.int32)
+    pos = torch.randperm(C, device=dev, generator=g).to(torch.int32).expand(B, H, C).clone()
+    if C == 300:  # empty slots are evicted first
+        pos[:, :, -7:] = -1
+    ipos = torch.full((B, 1, 1), C + 3, dtype=torch.int32, device=dev)
+    n1, d1 = num.clone(), denom.clone()
+    n2, d2 = num.cpu(), denom.cpu()
+    idx = evict.hh_evict(n1, d1, pos, ipos, global_tokens=4, recent_window=10)
+    ref = evict.hh_evict_plain(n2, d2, pos.cpu(), ipos.cpu(), 4, 10)
+    assert torch.equal(idx.cpu(), ref)
+    assert torch.equal(n1.cpu(), n2) and torch.equal(d1.cpu(), d2)
+
+
+@pytest.mark.parametrize("thresholding", [False, True])
+def test_heavy_hitter_one_slot_history_evicts_through_kernel(dev, thresholding):
+    """A one-slot heavy-hitter history evicts through K7, thresholded or
+    not, and keeps the same slots and history as on the CPU."""
+    from cold_compress_tpu_torch.caches import base, get_cache_strategy
+
+    B, KVH, D, P, steps = 1, 2, 128, 10, 20
+    spec = base.CacheSpec(cache_strategy="heavy_hitter", max_cache_length=16,
+                          max_seq_length=64, global_tokens=2, recent_window=3, cache_bits=8,
+                          attn_thresholding=thresholding)
+    strat = get_cache_strategy("heavy_hitter")
+    rng = np.random.RandomState(int(thresholding))
+    k, v = (torch.from_numpy(rng.randn(B, KVH, P + steps, D).astype(np.float32))
+            for _ in range(2))
+    attn = torch.from_numpy(rng.rand(steps + 1, B, KVH, 16).astype(np.float32))
+    pos = torch.arange(P, dtype=torch.int32).expand(B, KVH, P)
+    valid = torch.ones((B, KVH, P), dtype=torch.bool)
+    states = {}
+    for d in (dev, torch.device("cpu")):
+        s = strat.init(spec, B, KVH, D, device=d)
+        base.prefill_update(strat, s, pos.to(d), k[:, :, :P].to(d), v[:, :, :P].to(d),
+                            valid.to(d))
+        strat.update_state(spec, s, None, attn[0, ..., :P].to(d), is_prefill=True)
+        states[d.type] = s
+    before = evict.LAUNCHES["hh_evict"]
+    for step in range(steps):
+        ipos = P + step
+        for d, s in states.items():
+            kr, vr = (t[:, :, ipos:ipos + 1].to(d) for t in (k, v))
+            base.decode_update(strat, s, ipos, kr, vr)
+            strat.update_state(spec, s, ipos, attn[step + 1].to(d) * s.mask, is_prefill=False)
+    # One launch per step: the slot is chosen by K7 whether the cache is
+    # full or still has empty slots (taken first).
+    assert evict.LAUNCHES["hh_evict"] == before + steps
+    g, c = states["cuda"], states["cpu"]
+    assert torch.equal(g.pos.cpu(), c.pos)
+    assert torch.equal(g.extra["attn_num"].cpu(), c.extra["attn_num"])
+    assert torch.equal(g.extra["attn_denom"].cpu(), c.extra["attn_denom"])
+
+
+@pytest.mark.parametrize("L", [1, 7, 32])
+@pytest.mark.parametrize("IN,OUT", [(4096, 1000), (256, 512), (1040, 333)])
+def test_w8a8_gemv_matches_plain_bit_for_bit(dev, L, IN, OUT):
+    """Exact int32 dots on both sides and the same f32 epilogue order: the
+    outputs are the same bits. Ragged OUT is masked."""
+    g = _gen(dev, L + IN + OUT)
+    w = torch.randint(-127, 128, (IN, OUT), dtype=torch.int8, device=dev, generator=g)
+    s = torch.rand((OUT,), device=dev, generator=g) * 1e-3
+    wt, st = qmm.int8_to_gemv(w, s)
+    x = torch.randn((L, IN), device=dev, generator=g).to(torch.bfloat16)
+    before = qmm.LAUNCHES["w8a8_gemv.head"]
+    y = qmm.w8a8_gemv(x, wt, st, counter="w8a8_gemv.head")
+    assert qmm.LAUNCHES["w8a8_gemv.head"] == before + 1
+    ref = qmm.w8a8_gemv_plain(x, wt, st)
+    assert torch.equal(y, ref), float((y - ref).abs().max())
+    with pytest.raises(ValueError):
+        qmm.w8a8_gemv(x.float(), wt, st, counter="w8a8_gemv.head")
 
 
 @pytest.mark.parametrize("P,plen,G", [(256, 200, 4), (512, 512, 2), (1024, 77, 8)])
@@ -154,5 +284,6 @@ def test_generate_on_card_matches_cpu(dev):
     e_c, _ = out["cpu"]
     np.testing.assert_allclose(e_g, e_c, rtol=2e-2)
     assert launches["flash_prefill_summary"] == cfg.n_layer
-    assert launches["kv8_decode_attention"] == cfg.n_layer * 7
+    assert launches["decode_attention.kv8"] == cfg.n_layer * 7
+    assert launches["hh_evict"] == cfg.n_layer * 7
     assert launches["w4a8_gemv.head"] == 8

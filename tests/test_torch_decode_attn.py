@@ -43,9 +43,9 @@ def _inputs(seed=0):
 
 def _port(a):
     t = {k: torch.from_numpy(np.array(v)) for k, v in a.items()}
-    return decode_attn.kv8_decode_attention(
+    return decode_attn.decode_attention(
         t["q"].to(torch.bfloat16), t["kq"], t["vq"], t["ks"], t["kz"], t["vs"],
-        t["vz"], t["mask"],
+        t["vz"], t["mask"], bits=8, need_attn=True,
     )
 
 
@@ -107,9 +107,122 @@ def test_plain_matches_xla_path():
 
 
 def test_cpu_tensors_do_not_count_as_launches():
-    before = decode_attn.LAUNCHES["kv8_decode_attention"]
+    before = dict(decode_attn.LAUNCHES)
     _port(_inputs(3))
-    assert decode_attn.LAUNCHES["kv8_decode_attention"] == before
+    assert decode_attn.LAUNCHES == before
     assert decode_attn.decode_attn_supported((1, 32, 1, 128), 8)
     assert not decode_attn.decode_attn_supported((1, 32, 1, 64), 8)
     assert not decode_attn.decode_attn_supported((1, 32, 2, 128), 8)
+
+
+# ---------------------------------------------------------------------------
+# Every cache precision (K3's other branches and K5)
+# ---------------------------------------------------------------------------
+
+
+def _cache_inputs(bits, C, seed):
+    """A cache at ``bits`` (16 = bf16 values) with partly empty slots and a
+    bf16 query, the same numpy draws for both sides."""
+    rng = np.random.RandomState(seed)
+    kv = rng.randn(2, B, KVH, C, D).astype(np.float32)
+    filled = rng.randint(C // 4, C, size=(B, KVH))
+    mask = np.arange(C)[None, None, :] < filled[:, :, None]
+    mask &= rng.rand(B, KVH, C) > 0.1
+    q = (rng.randn(B, H, 1, D) / 8).astype(np.float32)
+    if bits == 16:
+        k = np.asarray(jnp.asarray(kv[0], jnp.bfloat16))
+        v = np.asarray(jnp.asarray(kv[1], jnp.bfloat16))
+        side = [None] * 4
+    else:
+        k, ks, kz = (np.asarray(a) for a in jax_quantize_rows(jnp.asarray(kv[0]), bits))
+        v, vs, vz = (np.asarray(a) for a in jax_quantize_rows(jnp.asarray(kv[1]), bits))
+        side = [ks, kz, vs, vz]
+    return q, k, v, side, mask
+
+
+def _jax_decode(q, k, v, side, mask, bits, need_attn, chunked):
+    j = [None if a is None else jnp.asarray(a) for a in side]
+    return quantized_decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k), jnp.asarray(v), *j, jnp.asarray(mask),
+        bits=bits, need_attn=need_attn, chunked=chunked, i8dot=False, interpret=True,
+    )
+
+
+def _port_decode(q, k, v, side, mask, bits, need_attn):
+    def t(a):
+        if a is None:
+            return None
+        if a.dtype == jnp.bfloat16:
+            return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(a))
+    return decode_attn.decode_attention(
+        t(q).to(torch.bfloat16), t(k), t(v), *[t(a) for a in side], t(mask),
+        bits=bits, need_attn=need_attn,
+    )
+
+
+@pytest.mark.parametrize("need_attn", [True, False])
+@pytest.mark.parametrize("bits", [16, 4, 2])
+def test_every_precision_matches_tpu_one_shot_kernel(bits, need_attn):
+    """Against the TPU one-shot kernel in interpret mode: the same
+    dequantization (segment unpack for 4/2 bits), the same roundings, so
+    only f32 summation order differs: out within 1 bf16 unit (rtol 8e-3,
+    atol 1e-3), pooled to f32 noise (rtol 1e-5)."""
+    a = _cache_inputs(bits, C, 10 + bits)
+    ref_out, ref_attn = _jax_decode(*a, bits, need_attn, chunked=False)
+    out, pooled = _port_decode(*a, bits, need_attn)
+    assert out.shape == (B, H, 1, D) and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref_out, np.float32),
+                               rtol=8e-3, atol=1e-3)
+    if need_attn:
+        np.testing.assert_allclose(pooled.numpy(), np.asarray(ref_attn), rtol=1e-5, atol=1e-7)
+    else:
+        assert pooled is None and ref_attn is None
+
+
+# The TPU's chunked kernel (K5) rounds the unnormalised e = exp(s - m_run)
+# to bf16 before P.V and divides by l at the end; the port follows the
+# one-shot kernel at every C and rounds the normalised p. Each probability
+# then moves by up to 2**-9 of itself on each side, so |out - ref| stays
+# below 2 bf16 units of the output's scale: 2 * 2**-8 * max|ref| per head.
+CHUNKED_OUT_UNITS = 2
+
+
+@pytest.mark.parametrize("need_attn", [True, False])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_long_cache_matches_tpu_chunked_kernel(bits, need_attn):
+    """Against the TPU chunked kernel in interpret mode (C = 1024, two
+    512-slot chunks): out within the bound above, pooled probabilities to
+    f32 noise (the TPU corrects each chunk's e-block with the final (m, l),
+    which is what the port computes)."""
+    Cl = 1024
+    a = _cache_inputs(bits, Cl, 20 + bits)
+    ref_out, ref_attn = _jax_decode(*a, bits, need_attn, chunked=True)
+    out, pooled = _port_decode(*a, bits, need_attn)
+    ref = np.asarray(ref_out, np.float32)
+    scale = np.abs(ref).max(axis=-1, keepdims=True)
+    err = np.abs(out.float().numpy() - ref)
+    assert np.all(err <= CHUNKED_OUT_UNITS * 2.0**-8 * scale), float((err / scale).max())
+    if need_attn:
+        np.testing.assert_allclose(pooled.numpy(), np.asarray(ref_attn), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("Cb", [300, 1024])
+def test_bf16_cache_matches_xla_path(Cb):
+    """A bf16 cache above the TPU's one-shot budget, and any C that is not
+    a multiple of 128, goes to the XLA einsum in the JAX package
+    (materialize_kv + gqa_attention, f32 probabilities in P.V); the port
+    keeps its kernel, which rounds the probabilities to bf16. out then
+    stays within the same two units as against the chunked kernel, and the
+    pooled probabilities agree to f32 noise."""
+    q, k, v, side, mask = _cache_inputs(16, Cb, 31)
+    ref_out, ref_attn = jax_gqa(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k), jnp.asarray(v),
+        mask=jnp.asarray(mask)[:, :, None, None, :], return_attn=True,
+    )
+    out, pooled = _port_decode(q, k, v, side, mask, 16, True)
+    ref = np.asarray(ref_out, np.float32)
+    scale = np.abs(ref).max(axis=-1, keepdims=True)
+    err = np.abs(out.float().numpy() - ref)
+    assert np.all(err <= CHUNKED_OUT_UNITS * 2.0**-8 * scale), float((err / scale).max())
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(ref_attn), rtol=1e-5, atol=1e-7)

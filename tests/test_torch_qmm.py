@@ -201,3 +201,71 @@ def test_checkpoint_file_round_trip(tmp_path):
         emb.float().numpy(), np.asarray(params["tok_embeddings"], np.float32)
     )
     assert jax.devices()[0].platform == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# W8A8 vocab head (K9)
+# ---------------------------------------------------------------------------
+
+
+def _int8_head(rng, IN, OUT):
+    """A JAX int8 leaf as random_quantized_params(head_mode="int8") draws
+    it, with per-column scales that are not all equal."""
+    w = ((rng.randint(0, 256, size=(IN, OUT)).astype(np.uint8) % 255).astype(np.int8) - 127)
+    s = (rng.rand(OUT).astype(np.float32) + 0.5) * (0.02 / 127)
+    return JL.QuantizedWeight(w=jnp.asarray(w), scales=jnp.asarray(s), kind="int8")
+
+
+@pytest.mark.parametrize("L", [1, 7, 32])
+def test_w8a8_plain_matches_tpu_tiled_kernel_bit_for_bit(L):
+    """Against qmm_w8a8_tiled in interpret mode on the tiled layout (OUT
+    padded there, sliced here): the same int8 activations, an exact int32
+    dot and the same f32 epilogue order (d * s) * sx give the same bits."""
+    from cold_compress_tpu.ops.pallas_qmm import qmm_w8a8_tiled
+
+    rng = np.random.RandomState(L)
+    IN, OUT = 512, 1000
+    leaf = _int8_head(rng, IN, OUT)
+    x = _x(rng, L, IN)
+    tiled = JL.to_tiled_int8(leaf, tile_out=128)
+    ref = qmm_w8a8_tiled(jnp.asarray(x, jnp.bfloat16), tiled.w, tiled.scales, interpret=True)
+    ref = np.asarray(ref)[:, :OUT]
+    tree = params_from_flat(_flatten(leaf), "cpu")
+    assert tree["kind"] == "int8" and tree["w"].dtype == torch.int8
+    wt, s = qmm.int8_to_gemv(tree["w"], tree["scales"])
+    y = qmm.w8a8_gemv(_bf16(x), wt, s, counter="w8a8_gemv.head")
+    assert y.dtype == torch.float32 and y.numpy().tobytes() == ref.tobytes()
+
+
+def test_int8_linear_routes_by_rows_and_matches_jax_linear():
+    """Int8Linear: L <= 32 takes K9's plain version; L = 40 dequantizes to
+    bf16 and calls matmul, as JAX's linear does outside Pallas (the same
+    bf16 weights, f32-accumulated products, bf16 result)."""
+    rng = np.random.RandomState(3)
+    IN, OUT = 256, 384
+    leaf = _int8_head(rng, IN, OUT)
+    tree = params_from_flat(_flatten(leaf), "cpu")
+    lin = TL.Int8Linear(tree["w"], tree["scales"], counter="w8a8_gemv.head")
+    x = _x(rng, 40, IN)
+    ref = np.asarray(JL.linear(jnp.asarray(x, jnp.bfloat16), leaf), np.float32)
+    got = lin(_bf16(x)).float().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-2, atol=1e-3)
+    np.testing.assert_array_equal(
+        lin.dense(torch.float32).numpy(),
+        np.asarray(JL.dequantize_weight(leaf, jnp.float32)),
+    )
+    small = lin(_bf16(x[:3])).float().numpy()
+    k9 = qmm.w8a8_gemv_plain(_bf16(x[:3]), lin.w, lin.s).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(small, k9)
+
+
+def test_random_int8_head_keys_match_jax():
+    """random_quantized_params(head_mode="int8"): the same numpy draws, so
+    the flat key scheme holds the same bytes as the JAX package's."""
+    ref = _flatten(JW.random_quantized_params(JaxModelConfig.from_name("TestKernel"),
+                                              head_mode="int8"))
+    got = TW.random_quantized_params(ModelConfig.from_name("TestKernel"), head_mode="int8")
+    assert set(ref) == set(got)
+    for key in ("output/w", "output/scales", "output/qmeta", "layers/1/ffn/w2/w"):
+        a, b = np.asarray(ref[key]), np.asarray(got[key])
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), key
