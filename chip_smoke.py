@@ -15,11 +15,15 @@ Phases; any failure raises and the script exits non-zero:
    W4A8 projections and head (K1/K2), decode attention at every cache
    precision with and without pooled probabilities at C = 2048 and, for
    bf16/int8/int4 without, at C = 32768 (K3/K5), the fused heavy-hitter
-   eviction (K7), the W8A8 head (K9) and flash prefill (K4);
+   eviction (K7), the W8A8 head (K9), flash prefill (K4), flash prefill
+   with the FastGen profile (K6) at one and two windows, and the W4A8
+   prefill matmul (K8) at L = 8192 for the four layer projections;
 3. small in-situ parity: the port on the card against the port on the CPU
    (plain versions), TestKernel with int4 weights, teacher-forced, over
    several cache strategies and precisions (heavy_hitter at kv8, bf16, kv4
-   and kv2; random kv2; keep_it_odd kv4; recent_global kv8), each with an
+   and kv2; random kv2; keep_it_odd kv4; recent_global kv8; hybrid kv8 with
+   bench.py's menu, one layer's attention sharpened so that the heads pick
+   different policies; debug_heavy_hitter with a kv8 shadow), each with an
    exact launch witness;
 4. end to end through ``generate()``, each run with an exact launch witness
    (every count set to 0 just before it and read just after):
@@ -27,6 +31,10 @@ Phases; any failure raises and the script exits non-zero:
      from seed 0), kv8 heavy_hitter cache at 25% of an 8192 context with
      the heavy_hitter prompt compressor, a 7928-token prompt, 128 greedy
      tokens;
+   - hybrid at bench.py's defaults (its FastGen menu and token classes,
+     kv8, C = 8192), the same model and prompt, 64 tokens;
+   - the main path's prefill with ``prefill_w4a8`` (K8): its logits against
+     the default path's, then 8 tokens;
    - l2 with a kv4 cache and an int8 vocab head, the same model and
      budget, 64 tokens;
    - full with a bf16 cache at a 32768 context on Meta-Llama-3.1-8B-Instruct
@@ -41,6 +49,7 @@ limit, one JSON object describing every kernel, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -421,6 +430,95 @@ def check_flash_prefill(dev, records):
            "ops/pallas_prefill.py:167", err, tol, ratio, ms, plain_ms, b_ms, b_by, None)
 
 
+def check_flash_profile(dev, records, windows):
+    """K6 at the hybrid prefill's shapes: the bench menu's one window
+    (2457 = int(0.3 * 8192)) and a two-window menu."""
+    from cold_compress_tpu_torch.ops import prefill_attn
+
+    B, H, KVH, P, D, plen = 1, 32, 8, 8192, 128, 7928
+    gen = torch.Generator(device=dev).manual_seed(7 + len(windows))
+    q = torch.randn((B, H, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
+
+    y, cum, wcols = prefill_attn.flash_profile(q, k, v, plen, window_lens=windows)
+    ref_y, ref_cum, ref_w = prefill_attn.flash_profile_plain(q, k, v, plen, windows)
+    torch.cuda.synchronize()
+    # y: as K4's check. cum and wcols: f32 sums of the same f32
+    # probabilities on both sides, in another order.
+    err, ratio, tol = bf16_out_err(y, ref_y, 2**-7)
+    errs = {"cum": max_err(cum, ref_cum), "wcols": max_err(wcols, ref_w)}
+    tols = {"cum": 1e-4 * float(ref_cum.abs().max()), "wcols": 1e-4 * float(ref_w.abs().max())}
+    name = f"flash_profile.w{len(windows)}"
+    log(f"[check] {name} P={P} prompt_len={plen} windows={windows}: y max_abs_err={err:.3e}, "
+        f"max err/tol {ratio:.3f} (tol {tol}); "
+        + "; ".join(f"{key} max_abs_err={e:.3e} tol={tols[key]:.3e}" for key, e in errs.items()))
+    assert ratio <= 1 and all(errs[key] <= tols[key] for key in errs), \
+        f"{name} disagrees with its plain version"
+    assert float(cum[..., plen:].abs().max()) == 0.0 and wcols.shape == (len(windows), B, KVH, P)
+    del ref_y, ref_cum, ref_w
+
+    ms = time_ms(lambda i: prefill_attn.flash_profile(q, k, v, plen, window_lens=windows), 5, 1)
+    plain_ms = time_ms(lambda i: prefill_attn.flash_profile_plain(q, k, v, plen, windows), 1, 1)
+    nbytes = 2 * (2 * B * H * P * D + 2 * B * KVH * P * D) + 4 * (1 + len(windows)) * B * KVH * P
+    pairs = B * H * P * (P + 1) // 2  # causal (query, key) pairs
+    # QK^T and PV over the causal pairs, as K4's bound; pass 2's recompute
+    # of QK^T is the kernel's own choice and is not counted.
+    b_ms, b_by = bound(nbytes, 4 * D * pairs, "bf16")
+    kr = k.repeat_interleave(H // KVH, dim=1)
+    vr = v.repeat_interleave(H // KVH, dim=1)
+    sdpa_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), 5, 1)
+    log(f"[time] {name}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; "
+        f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library: none "
+        f"(scaled_dot_product_attention, causal y only, no profile: {sdpa_ms:.3f} ms)")
+    record(records, name, "flash_profile", "flash_prefill.cu", "ops/pallas_prefill.py:281",
+           err, tol, ratio, ms, plain_ms, b_ms, b_by, None, windows=list(windows))
+
+
+def check_w4a8_gemm(dev, records):
+    """K8 at L = 8192 for the four 8B layer projections."""
+    from cold_compress_tpu_torch.ops import qmm
+
+    gs, L = 128, 8192
+    gen = torch.Generator(device=dev).manual_seed(8)
+    shapes = [("w4a8_gemm.wqkv", 4096, 6144), ("w4a8_gemm.wo", 4096, 4096),
+              ("w4a8_gemm.w13", 4096, 28672), ("w4a8_gemm.w2", 14336, 4096)]
+    for name, IN, OUT in shapes:
+        ng = IN // gs
+        wg = torch.randint(0, 256, (OUT, IN // 2), dtype=torch.uint8, device=dev, generator=gen)
+        s = torch.rand((OUT, ng), device=dev, generator=gen) * 3e-3 + 1e-3
+        z = (torch.rand((OUT, ng), device=dev, generator=gen) - 0.5) * 2e-2
+        sz = torch.stack([s, z], -1).to(torch.bfloat16).contiguous()
+        x = torch.randn((L, IN), device=dev, generator=gen).to(torch.bfloat16)
+
+        y = qmm.w4a8_gemm(x, wg, sz, gs, counter=name)
+        ref = qmm.w4a8_gemv_plain(x, wg, sz, gs)
+        torch.cuda.synchronize()
+        assert y.shape == (L, OUT) and bool(torch.isfinite(y).all()), name
+        err = max_err(y, ref)
+        # K1's tolerance: exact integer group dots, only f32 order differs.
+        tol = 1e-4 * float(ref.abs().max()) + 1e-6
+        log(f"[check] {name} L={L} IN={IN} OUT={OUT}: max_abs_err={err:.3e} tol={tol:.3e}")
+        assert err <= tol, f"{name}: kernel disagrees with its plain version"
+        del ref
+
+        ms = time_ms(lambda i: qmm.w4a8_gemm(x, wg, sz, gs, counter=name), 5, 1)
+        plain_ms = time_ms(lambda i: qmm.w4a8_gemv_plain(x, wg, sz, gs), 1, 1)
+        dense_ms = time_ms(lambda i: torch.matmul(x, qmm.dequantize_gemv(wg, sz, gs)), 5, 1)
+        nbytes = IN * OUT // 2 + OUT * ng * 4 + 2 * L * IN + 4 * L * OUT
+        nops = 2 * L * IN * OUT
+        b_ms, b_by = bound(nbytes, nops, "int8")
+        log(f"[time] {name}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; "
+            f"{nops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} ms, library: none (no PyTorch "
+            f"call computes W4A8; the default path's dequantize + torch.matmul in bf16: "
+            f"{dense_ms:.3f} ms)")
+        record(records, name, name, "w4a8_gemm.cu", "ops/pallas_qmm.py:1177", err,
+               "1e-4*max|ref| + 1e-6", err / tol, ms, plain_ms, b_ms, b_by, None,
+               dense_matmul_ms=dense_ms, also_replaces=f"{REPO_TPU}/ops/pallas_qmm.py:1100")
+        del wg, sz, x, y
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: through generate()
 # ---------------------------------------------------------------------------
@@ -457,24 +555,37 @@ def make_caches(cfg, kw: dict, context: int, device: str):
                        device=device)
 
 
-def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head") -> dict:
+def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head",
+                      prefill_w4a8: bool = False) -> dict:
     """Exact kernel launches of a run of ``steps`` decode steps (plus the
     prefill) at head_dim 128: every projection and the head once per step
     (the head once more for the prefill's last row), decode attention per
-    layer per step at the cache's precision, one flash prefill per layer,
-    and the fused eviction per layer per step for a one-slot heavy-hitter
-    history."""
+    layer per step at the cache's precision, one flash prefill per layer
+    (the profiling one, K6, for hybrid), and the fused eviction per layer
+    per step for a one-slot heavy-hitter history (a debug_heavy_hitter
+    shadow's too). A debug_* cache attends over its full bf16 outer cache
+    with pooled probabilities. With ``prefill_w4a8`` each layer projection
+    also runs K8 once, at prefill."""
     from cold_compress_tpu_torch.caches import get_cache_strategy
     from cold_compress_tpu_torch.ops import decode_attn
 
     n = cfg.n_layer
     strategy = kw["cache_strategy"][0]
     bits = kw["cache_bits"] or 16
-    want = {f"w4a8_gemv.{p}": n * steps for p in ("wqkv", "wo", "w13", "w2")}
+    needs_attn = get_cache_strategy(strategy).needs_attn
+    evicting = strategy
+    if strategy == "hybrid":
+        needs_attn = any("heavy_hitter" in e["strategy"] for e in kw["hybrid_strategies"])
+    elif strategy.startswith("debug_"):
+        bits, evicting = 16, strategy[len("debug_"):]
+    projections = ("wqkv", "wo", "w13", "w2")
+    want = {f"w4a8_gemv.{p}": n * steps for p in projections}
+    if prefill_w4a8:
+        want.update({f"w4a8_gemm.{p}": n for p in projections})
     want[head] = steps + 1
-    want[decode_attn.variant(bits, get_cache_strategy(strategy).needs_attn)] = n * steps
-    want["flash_prefill_summary"] = n
-    if strategy == "heavy_hitter" and kw.get("history_window_size", 1) == 1:
+    want[decode_attn.variant(bits, needs_attn)] = n * steps
+    want["flash_profile" if strategy == "hybrid" else "flash_prefill_summary"] = n
+    if evicting == "heavy_hitter" and kw.get("history_window_size", 1) == 1:
         want["hh_evict"] = n * steps
     return want
 
@@ -493,62 +604,143 @@ IN_SITU = [  # (strategy, cache bits, kept positions must match exactly)
     ("heavy_hitter", 4, False),
     ("heavy_hitter", 2, False),
     ("recent_global", 8, True),
+    ("hybrid", 8, False),
+    ("debug_heavy_hitter", 8, False),
 ]
+#: The in-situ hybrid run's threshold: with layer 1's attention sharpened
+#: (see ``sharpened_layer``), bench.py's menu sends layer 0's head to
+#: special_punc_heavy_hitter (its heavy hitters recover ~0.901 of the
+#: prompt attention) and layer 1's to special_punc_heavy_hitter_window
+#: (heavy hitters alone ~0.869).
+HYBRID_IN_SITU_RECOVERY = 0.885
+
+
+def sharpened_layer(tree, factor: float = 8.0):
+    """Scale layer 1's query and key int4 scales and zeros by a power of two
+    (exact in bf16): its scores grow by factor**2 and its attention peaks.
+    Random weights otherwise give every head the same near-uniform
+    attention, so every hybrid head would pick the same policy."""
+    for name in ("wq", "wk"):
+        leaf = tree["layers"][1]["attn"][name]
+        for key in ("scales", "zeros"):
+            leaf[key] = leaf[key] * factor  # a new tensor: CPU leaves share the flat arrays
+    return tree
+
+
+@contextlib.contextmanager
+def recorded_profile_scores():
+    """Keep each hybrid prefill's menu scores [S, B, KVH], layer by layer,
+    in the list this yields (the caller clears it before a run)."""
+    from cold_compress_tpu_torch.caches import hybrid
+
+    scores = []
+    finalize = hybrid._profile_finalize
+
+    def recording(*args, **kw):
+        cum_attn, s = finalize(*args, **kw)
+        scores.append(s.cpu())
+        return cum_attn, s
+
+    hybrid._profile_finalize = recording
+    try:
+        yield scores
+    finally:
+        hybrid._profile_finalize = finalize
 
 
 def in_situ_parity(dev, runs: list):
     from cold_compress_tpu_torch.models.transformer import prefill
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+    from cold_compress_tpu_torch.runtime.engine import build_model as build, params_from_flat
     from cold_compress_tpu_torch.runtime.generate import generate
 
     prompt = np.random.RandomState(0).randint(2, 500, size=300).tolist()
     forced = np.random.RandomState(1).randint(2, 500, size=8).tolist()
+    forced_punc = forced[:2] + [20] + forced[3:5] + [33] + forced[6:]  # bench's punctuation
     tokens = prompt + [0] * (512 - len(prompt))
     models = {device: build_model("TestKernel", 0, device, 512) for device in (dev, "cpu")}
     cfg = models["cpu"][0]
-    for strategy, bits, exact_pos in IN_SITU:
-        kw = cache_kw(strategy, bits)
-        out = {}
-        for device in (dev, "cpu"):
-            model = models[device][1]
-            caches = make_caches(cfg, kw, 512, device)
-            with torch.inference_mode():
-                logits = prefill(model, caches, torch.tensor([tokens], device=device),
-                                 len(prompt))
-            caches = make_caches(cfg, kw, 512, device)
-            reset_kernel_launches()
-            seq, info, caches = generate(model, caches, prompt, 8, prefill_bucket=512,
-                                         next_tokens=forced)
-            launches = kernel_launches()
-            assert seq == prompt + forced
-            out[device] = (logits[0].float().cpu().numpy(), np.asarray(info["emitted_probs"]),
-                           np.asarray(info["final_probs"]),
-                           np.stack([c.pos.cpu().numpy() for c in caches]), launches)
-        (l_g, e_g, f_g, pos_g, launches), (l_c, e_c, f_c, pos_c, cpu_launches) = (
-            out[dev], out["cpu"])
-        run_name = f"in-situ TestKernel {strategy} kv{bits}"
-        assert not any(cpu_launches.values()), "CPU tensors must take the plain versions"
-        witness(run_name, caches[0].spec.max_cache_length, launches,
-                expected_launches(cfg, kw, 7), runs)
-        # Prefill logits come before any eviction: only summation order and
-        # the bf16 roundings that follow from it differ.
-        gap_l = float(np.abs(l_g - l_c).max())
-        tol_l = 2e-2 * float(l_c.max() - l_c.min())
-        # Decode probabilities also carry the evictions; the heavy-hitter
-        # ones follow near-ties of the history on random weights and so may
-        # pick other slots on the card than on the CPU. The others depend on
-        # positions (and the counter-based draws) only: the same slots.
-        gap = float(np.abs(e_g - e_c).max())
-        gap_f = float(np.abs(f_g - f_c).max())
-        tol = 5e-2 * float(e_c.max())
-        same_pos = float((pos_g == pos_c).mean())
-        log(f"[parity] {run_name} cuda vs cpu: prefill logits max gap {gap_l:.3e} "
-            f"(tol {tol_l:.3e}); teacher-forced emitted_probs max gap {gap:.3e}, final_probs "
-            f"max gap {gap_f:.3e} (tol {tol:.3e}); kept positions equal: {same_pos:.4f}"
-            + (" (must be 1)" if exact_pos else ""))
-        assert np.all(np.isfinite(l_g)) and gap_l <= tol_l, run_name
-        assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol, run_name
-        assert same_pos == 1.0 or not exact_pos, f"{run_name}: kept positions differ"
+    flat = random_quantized_params(cfg, seed=0, head_mode="int4")
+    sharp = {device: build(cfg, sharpened_layer(params_from_flat(flat, device)), device,
+                           max_positions=512) for device in (dev, "cpu")}
+    with recorded_profile_scores() as scores:
+        for strategy, bits, exact_pos in IN_SITU:
+            kw = cache_kw(strategy, bits)
+            forced_s = forced
+            if strategy == "hybrid":
+                kw["min_recovery_frac"] = HYBRID_IN_SITU_RECOVERY
+                forced_s = forced_punc
+            out = {}
+            for device in (dev, "cpu"):
+                model = sharp[device] if strategy == "hybrid" else models[device][1]
+                caches = make_caches(cfg, kw, 512, device)
+                with torch.inference_mode():
+                    logits = prefill(model, caches, torch.tensor([tokens], device=device),
+                                     len(prompt))
+                caches = make_caches(cfg, kw, 512, device)
+                scores.clear()
+                reset_kernel_launches()
+                seq, info, caches = generate(model, caches, prompt, 8, prefill_bucket=512,
+                                             next_tokens=forced_s)
+                launches = kernel_launches()
+                assert seq == prompt + forced_s
+                extra = {key: np.stack([c.extra[key].cpu().numpy() for c in caches])
+                         for key in ("strategy_idx", "attention_losses") if key in caches[0].extra}
+                extra["scores"] = [s.numpy() for s in scores]
+                out[device] = (logits[0].float().cpu().numpy(), np.asarray(info["emitted_probs"]),
+                               np.asarray(info["final_probs"]),
+                               np.stack([c.pos.cpu().numpy() for c in caches]), launches, extra)
+            (l_g, e_g, f_g, pos_g, launches, x_g), (l_c, e_c, f_c, pos_c, cpu_launches, x_c) = (
+                out[dev], out["cpu"])
+            run_name = f"in-situ TestKernel {strategy} kv{bits}"
+            assert not any(cpu_launches.values()), "CPU tensors must take the plain versions"
+            witness(run_name, caches[0].spec.max_cache_length, launches,
+                    expected_launches(cfg, kw, 7), runs)
+            if strategy == "hybrid":
+                check_hybrid_policies(run_name, x_g, x_c, kw["min_recovery_frac"])
+            if "attention_losses" in x_c:
+                gap_loss = float(np.abs(x_g["attention_losses"] - x_c["attention_losses"]).max())
+                log(f"[parity] {run_name}: attention_losses per layer (cpu) "
+                    f"{x_c['attention_losses'][:, :7].mean(-1).round(5).tolist()}, max gap "
+                    f"{gap_loss:.3e} (tol 2e-2)")
+                assert np.all(x_c["attention_losses"][:, 7:] == -1.0), run_name
+                assert gap_loss <= 2e-2, run_name
+            # Prefill logits come before any eviction: only summation order and
+            # the bf16 roundings that follow from it differ.
+            gap_l = float(np.abs(l_g - l_c).max())
+            tol_l = 2e-2 * float(l_c.max() - l_c.min())
+            # Decode probabilities also carry the evictions; the heavy-hitter
+            # ones follow near-ties of the history on random weights and so may
+            # pick other slots on the card than on the CPU. The others depend on
+            # positions (and the counter-based draws) only: the same slots.
+            gap = float(np.abs(e_g - e_c).max())
+            gap_f = float(np.abs(f_g - f_c).max())
+            tol = 5e-2 * float(e_c.max())
+            same_pos = float((pos_g == pos_c).mean())
+            log(f"[parity] {run_name} cuda vs cpu: prefill logits max gap {gap_l:.3e} "
+                f"(tol {tol_l:.3e}); teacher-forced emitted_probs max gap {gap:.3e}, final_probs "
+                f"max gap {gap_f:.3e} (tol {tol:.3e}); kept positions equal: {same_pos:.4f}"
+                + (" (must be 1)" if exact_pos else ""))
+            assert np.all(np.isfinite(l_g)) and gap_l <= tol_l, run_name
+            assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol, run_name
+            assert same_pos == 1.0 or not exact_pos, f"{run_name}: kept positions differ"
+
+
+def check_hybrid_policies(run_name, on_card, on_cpu, min_recovery: float):
+    """The policy of every head, on the card against the CPU: equal, but
+    for heads whose recovery score lies within 1e-3 of the threshold (their
+    share is printed); and at least two distinct policies."""
+    sidx_g, sidx_c = on_card["strategy_idx"], on_cpu["strategy_idx"]
+    scores = np.stack(on_cpu["scores"])  # [layers, S, B, KVH]
+    near = (np.abs(scores - min_recovery) < 1e-3).any(axis=1)  # [layers, B, KVH]
+    chosen = sorted(set(sidx_c.flatten().tolist()))
+    log(f"[parity] {run_name}: policies (cpu) {sidx_c.reshape(len(sidx_c), -1).tolist()}, "
+        f"card equal: {bool((sidx_g == sidx_c).all())}, heads within 1e-3 of "
+        f"min_recovery_frac {min_recovery}: {float(near.mean()):.3f}; scores per layer "
+        f"{[s[:, 0, 0].round(4).tolist() for s in scores]}")
+    assert len(chosen) >= 2, f"{run_name}: one policy for every head: {chosen}"
+    assert bool(((sidx_g == sidx_c) | near).all()), f"{run_name}: policies differ"
 
 
 def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: str,
@@ -625,17 +817,78 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
     assert abs(float(final.sum()) - 1.0) < 1e-3, run_name
     emitted = np.asarray(info["emitted_probs"])
     assert emitted.shape == (new_tokens,) and np.all((emitted > 0) & (emitted <= 1)), run_name
+    hybrid = kw["cache_strategy"][0] == "hybrid"
     for c in caches:
         C = c.spec.max_cache_length
-        assert int(c.cache_ct.min()) == min(C, prompt_len + steps), run_name
         pos = c.pos[0].cpu().numpy()
         filled = [row[row >= 0] for row in pos]
         assert all(len(set(r.tolist())) == len(r) for r in filled), "duplicate positions"
-        assert int(pos.max()) == prompt_len + new_tokens - 2  # last decoded token's slot
+        if hybrid:  # per-head budgets: each head keeps what its policy allows
+            assert int(c.cache_ct.max()) <= C, run_name
+            assert torch.equal(c.cache_ct, c.mask.sum(-1).to(torch.int32)), run_name
+        else:
+            assert int(c.cache_ct.min()) == min(C, prompt_len + steps), run_name
+            assert int(pos.max()) == prompt_len + new_tokens - 2  # last decoded token's slot
+    if hybrid:
+        from cold_compress_tpu_torch.caches.hybrid import HybridCache
+
+        spec = caches[0].spec
+        hist = sum(HybridCache.strategy_histogram(spec, c) for c in caches) / len(caches)
+        kept = torch.stack([c.cache_ct.float() for c in caches])
+        log(f"[e2e] {run_name}: policy histogram over {len(caches)} layers x "
+            f"{caches[0].cache_ct.numel()} heads: "
+            + ", ".join(f"{e.strategy} {h:.4f}" for e, h in zip(spec.hybrid_strategies,
+                                                                 hist.tolist()))
+            + f"; kept slots per head min {int(kept.min())}, mean {float(kept.mean()):.1f}, "
+              f"max {int(kept.max())} of C={spec.max_cache_length}")
     witness(run_name, caches[0].spec.max_cache_length, launches,
             expected_launches(cfg, kw, steps, head_counter), runs)
     if profile:
         profile_decode(model, caches, seq[-1], len(seq), 8, card, run_name)
+
+
+def prefill_w4a8_run(cfg, model, dev, card, runs):
+    """The main path with ``prefill_w4a8``: prefill logits against the
+    default (bf16 dequantization) path's on the same prompt, then an
+    8-token ``generate()`` with its launch witness."""
+    from cold_compress_tpu_torch.models.transformer import prefill, set_prefill_w4a8
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
+
+    run_name = "main path, prefill_w4a8"
+    kw = cache_kw("heavy_hitter", 8)
+    caches = make_caches(cfg, kw, 8192, dev)
+    prompt_len = 8192 - 256 - 8
+    prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
+    tokens = torch.tensor([prompt + [0] * (8192 - prompt_len)], device=dev)
+    logits = {}
+    try:
+        for on in (False, True):
+            set_prefill_w4a8(model, on)
+            reset_caches(caches)
+            with torch.inference_mode():
+                logits[on] = prefill(model, caches, tokens, prompt_len)[0].float()
+        reset_caches(caches)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        seq, info, caches = generate(model, caches, prompt, 8)
+        launches = kernel_launches()
+    finally:
+        set_prefill_w4a8(model, False)
+    ref, got = logits[False], logits[True]
+    cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=0))
+    gap = max_err(got, ref)
+    same_top = int(got.argmax()) == int(ref.argmax())
+    log(f"[e2e] {run_name}: prefill logits against the bf16-dequant path: cosine {cos:.6f} "
+        f"(bound 0.99), max gap {gap:.4e} (logit range {float(ref.max() - ref.min()):.3f}), "
+        f"same argmax {same_top}; prefill {info['perf_stats']['prefill_seconds']:.4f} s, "
+        f"run {time.perf_counter() - t0:.2f} s  [{card}]")
+    log(f"[e2e] {run_name}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    assert bool(torch.isfinite(got).all()) and cos >= 0.99, run_name
+    assert len(seq) == prompt_len + 8, run_name
+    witness(run_name, caches[0].spec.max_cache_length, launches,
+            expected_launches(cfg, kw, 7, prefill_w4a8=True), runs)
 
 
 def end_to_end(dev, card, runs, profile=False):
@@ -651,6 +904,13 @@ def end_to_end(dev, card, runs, profile=False):
     # The main path: bench.py's default configuration.
     e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model, cache_kw("heavy_hitter", 8),
             8192, 128, dev, card, runs, "w4a8_gemv.head", profile)
+
+    # FastGen hybrid at bench.py's defaults (its menu and token classes).
+    e2e_run("hybrid kv8 (bench's FastGen menu)", cfg, model, cache_kw("hybrid", 8), 8192, 64,
+            dev, card, runs, "w4a8_gemv.head", profile)
+
+    # The main path's prefill through the W4A8 prefill kernel (K8).
+    prefill_w4a8_run(cfg, model, dev, card, runs)
 
     # l2 over a kv4 cache with an int8 vocab head: the same layers, an int8
     # head drawn as random_quantized_params(head_mode="int8") draws its
@@ -721,6 +981,9 @@ def main() -> int:
     check_hh_evict(dev, records)
     check_w8a8(dev, records)
     check_flash_prefill(dev, records)
+    for windows in ((2457,), (819, 2457)):
+        check_flash_profile(dev, records, windows)
+    check_w4a8_gemm(dev, records)
     torch.cuda.empty_cache()
     log(f"[phase2] done at {time.perf_counter() - t_start:.1f} s")
 

@@ -11,10 +11,13 @@ power limit.
     python -m cold_compress_tpu_torch.bench [--strategy l2 --cache_bits 4 ...]
     python -m cold_compress_tpu_torch.bench --smoke     # TestTiny on the CPU
 
-Served: every ``--strategy`` but ``hybrid``, ``--cache_bits 16/8/4/2``,
-``--head_bits 4/8``, any ``--context`` up to the model's block size.
-``--weight_bits`` other than 4, ``--batch`` above 1 and ``hybrid`` are not
-ported yet and raise.
+Served: every ``--strategy`` (``hybrid`` with ``bench.py``'s FastGen menu,
+and ``debug_<strategy>``, the attention-loss analysis of ``<strategy>``),
+``--cache_bits 16/8/4/2``, ``--head_bits 4/8``, any ``--context`` up to the
+model's block size, and ``--prefill_w4a8`` (the W4A8 prefill kernel, the
+explicit counterpart of the JAX package's ``CCT_PREFILL_W4A8=1``; off by
+default there too). ``--weight_bits`` other than 4 and ``--batch`` above 1
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -44,14 +47,32 @@ def card_line() -> Optional[str]:
     return out.stdout.strip().splitlines()[0]
 
 
+#: bench.py's FastGen menu for ``--strategy hybrid``
+#: (``cache_configs/fastgen.yaml``) and its synthetic token classes: the
+#: bench prompt is random ids, so a few ids stand for the special and
+#: punctuation tokens.
+HYBRID_MENU = [
+    {"strategy": "special"},
+    {"strategy": "special_punc"},
+    {"strategy": "special_punc_heavy_hitter", "heavy_hitter_frac": 0.3},
+    {"strategy": "special_punc_heavy_hitter_window", "recent_window": 0.3,
+     "heavy_hitter_frac": 0.3},
+    {"strategy": "full"},
+]
+HYBRID_TOKEN_IDS = {"special": [[1], [2]], "punctuation": list(range(16, 48))}
+
+
 def cache_kwargs(strategy: str, budget_frac: float, global_tokens: int,
                  cache_bits: Optional[int]) -> dict:
-    """bench.py's cache options: ``full`` keeps the whole sequence, the
-    heavy-hitter cache compresses the prompt with SnapKV, the others with
-    ``recent_global``."""
-    budget = 1.0 if strategy == "full" else budget_frac
-    compressor = {"heavy_hitter": "heavy_hitter", "full": "full"}.get(strategy, "recent_global")
-    return {
+    """bench.py's cache options: ``full`` and ``hybrid`` keep the whole
+    sequence (hybrid compresses by its per-head policies, with the FastGen
+    menu and token classes above), the heavy-hitter cache compresses the
+    prompt with SnapKV, the others (``debug_*`` included, whose shadow
+    takes these options) with ``recent_global``."""
+    budget = 1.0 if strategy in ("full", "hybrid") else budget_frac
+    compressor = {"heavy_hitter": "heavy_hitter", "full": "full", "hybrid": "full"}.get(
+        strategy, "recent_global")
+    kw = {
         "cache_strategy": [strategy],
         "max_cache_length": [budget],
         "prompt_compression_strategy": [compressor],
@@ -59,6 +80,10 @@ def cache_kwargs(strategy: str, budget_frac: float, global_tokens: int,
         "recent_window": 10,
         "cache_bits": cache_bits,
     }
+    if strategy == "hybrid":
+        kw["hybrid_strategies"] = HYBRID_MENU
+        kw["token_ids"] = HYBRID_TOKEN_IDS
+    return kw
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -74,13 +99,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--decode_tokens", type=int, default=256)
     ap.add_argument("--global_tokens", type=int, default=4)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--prefill_w4a8", action="store_true",
+                    help="Prefill the int4 layer projections with the W4A8 kernel (int8 "
+                         "activations) instead of bf16 dequantization.")
     args = ap.parse_args(argv)
     if args.weight_bits != 4:
         raise ValueError(f"--weight_bits {args.weight_bits} {NOT_PORTED} (int4 only)")
     if args.batch != 1:
         raise ValueError(f"--batch {args.batch} {NOT_PORTED} (batch 1 only)")
-    if args.strategy == "hybrid" or args.strategy.startswith("debug_"):
-        raise ValueError(f"--strategy {args.strategy} {NOT_PORTED}")
     if args.smoke:
         args.model, args.context, args.decode_tokens = "TestTiny", 128, 16
     return args
@@ -108,7 +134,7 @@ def run(args: argparse.Namespace) -> dict:
     cache_compatibility(kw)
     flat = random_quantized_params(cfg, seed=0, head_mode=f"int{args.head_bits}")
     model = build_model(cfg, params_from_flat(flat, device), device,
-                        max_positions=args.context)
+                        max_positions=args.context, prefill_w4a8=args.prefill_w4a8)
     del flat
     specs = build_cache_specs(cfg, kw, args.context)
     caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
@@ -138,6 +164,7 @@ def run(args: argparse.Namespace) -> dict:
             "budget_frac": args.budget_frac,
             "decode_tokens": args.decode_tokens,
             "batch": args.batch,
+            "prefill_w4a8": args.prefill_w4a8,
             "prefill_toks_per_sec": round(perf["prefill_toks_per_sec"], 1),
             "model_gb": round(model_bytes / 1e9, 2),
             "cache_memory_gb": round(sum(cache_memory_gb(c) for c in caches), 3),

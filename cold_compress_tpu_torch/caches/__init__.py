@@ -1,5 +1,6 @@
 """Cache strategy registry of the port: ``full``, ``random``,
-``recent_global``, ``l2``, ``keep_it_odd`` and ``heavy_hitter``."""
+``recent_global``, ``l2``, ``keep_it_odd``, ``heavy_hitter``, the FastGen
+``hybrid`` and the ``debug_<name>`` attention-loss analysis wrappers."""
 
 from .base import (
     CacheSpec,
@@ -32,10 +33,16 @@ def register_strategy(cls):
 
 
 def get_cache_strategy(name: str):
-    """Resolve a strategy class by name. The JAX package's ``debug_<name>``
-    analysis wrapper and ``hybrid`` (FastGen) are not ported yet."""
-    if name.startswith("debug_") or name == "hybrid":
-        raise ValueError(f"Cache strategy {name!r} is not ported yet")
+    """Resolve a strategy class by name; ``debug_<name>`` resolves to the
+    attention-loss analysis wrapper of ``<name>``."""
+    if name.startswith("debug_"):
+        from .analysis import make_analysis_strategy
+
+        return make_analysis_strategy(name[len("debug_"):])
+    if name == "hybrid":
+        from .hybrid import HybridCache
+
+        return HybridCache
     if name not in CACHE_STRATEGIES:
         raise ValueError(f"Invalid cache strategy: {name}")
     return CACHE_STRATEGIES[name]

@@ -20,7 +20,7 @@ Shapes (B = batch, KVH = kv heads, C = budget, D = head dim):
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -42,6 +42,13 @@ class CacheSpec:
     history_window_size: int = 1
     attn_thresholding: bool = False
     prompt_compression_strategy: str = "recent_global"
+    # FastGen hybrid: the policy menu (``hybrid.HybridStrategy`` entries),
+    # the share of prompt attention a policy must recover, and the token
+    # classes it can keep (special-token sequences, punctuation ids).
+    min_recovery_frac: float = 0.9
+    hybrid_strategies: Tuple[Any, ...] = ()
+    token_ids_special: Tuple[Tuple[int, ...], ...] = ()
+    token_ids_punc: Tuple[int, ...] = ()
 
     @property
     def quantized(self) -> bool:
@@ -70,10 +77,14 @@ class CacheState:
     spec: CacheSpec = field(default_factory=CacheSpec)
 
     def tensors(self):
-        """Every tensor the state holds (for memory accounting)."""
+        """Every tensor the state holds, those of a nested state in
+        ``extra`` (the analysis cache's shadow) included."""
         base = [self.k, self.v, self.pos, self.mask, self.cache_ct,
                 self.k_scales, self.k_zeros, self.v_scales, self.v_zeros]
-        return [t for t in base if t is not None] + list(self.extra.values())
+        out = [t for t in base if t is not None]
+        for val in self.extra.values():
+            out += val.tensors() if isinstance(val, CacheState) else [val]
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -162,7 +173,9 @@ def init_state(spec: CacheSpec, batch_size: int, n_kv_heads: int, head_dim: int,
 
 
 def reset_state(state: CacheState) -> CacheState:
-    """Fresh state for a new example, in place."""
+    """Fresh state for a new example, in place. A nested state in ``extra``
+    (the analysis cache's shadow) is reset the same way, and the owning
+    strategy's ``reset_extra`` restores extras whose fresh value is not 0."""
     state.k.zero_()
     state.v.zero_()
     state.pos.fill_(-1)
@@ -174,8 +187,19 @@ def reset_state(state: CacheState) -> CacheState:
     for t in (state.k_zeros, state.v_zeros):
         if t is not None:
             t.zero_()
-    for t in state.extra.values():
-        t.zero_()
+    for val in state.extra.values():
+        if isinstance(val, CacheState):
+            reset_state(val)
+        else:
+            val.zero_()
+    from . import get_cache_strategy
+
+    try:
+        strategy = get_cache_strategy(state.spec.cache_strategy)
+    except ValueError:  # a state built outside the registry
+        strategy = None
+    if hasattr(strategy, "reset_extra"):
+        strategy.reset_extra(state.spec, state.extra)
     return state
 
 
@@ -210,23 +234,41 @@ def gather_scalar(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return arr.gather(2, idx.long()[..., None])[..., 0]
 
 
+def gather_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr [B,H,C,...] -> rows [B,H,...] at slot idx [B,H]."""
+    index = idx.long().reshape(idx.shape + (1,) * (arr.dim() - 2))
+    index = index.expand(idx.shape + (1,) + tuple(arr.shape[3:]))
+    return arr.gather(2, index).squeeze(2)
+
+
 def store_kv_rows(state: CacheState, idx: torch.Tensor, k_row: torch.Tensor,
-                  v_row: torch.Tensor) -> CacheState:
+                  v_row: torch.Tensor, skip: Optional[torch.Tensor] = None) -> CacheState:
     """Write one K/V row per (batch, head) at slot ``idx``, quantizing only
-    the inserted row."""
+    the inserted row.
+
+    ``skip`` [B, H] bool marks heads whose slot must stay byte-identical
+    (the hybrid cache's dropping heads, whose dummy target C - 1 may hold a
+    real row): their incumbent row, scales and zeros are gathered and
+    written back."""
     spec = state.spec
     if spec.quantized:
         qk, ks, kz = quantize_rows(k_row, spec.cache_bits)
         qv, vs, vz = quantize_rows(v_row, spec.cache_bits)
-        scatter_rows(state.k, idx, qk)
-        scatter_rows(state.v, idx, qv)
-        scatter_scalar(state.k_scales, idx, ks)
-        scatter_scalar(state.k_zeros, idx, kz)
-        scatter_scalar(state.v_scales, idx, vs)
-        scatter_scalar(state.v_zeros, idx, vz)
+        rows = {"k": qk, "v": qv}
+        sides = {"k_scales": ks, "k_zeros": kz, "v_scales": vs, "v_zeros": vz}
     else:
-        scatter_rows(state.k, idx, k_row)
-        scatter_rows(state.v, idx, v_row)
+        rows = {"k": k_row.to(state.k.dtype), "v": v_row.to(state.v.dtype)}
+        sides = {}
+    for name, row in rows.items():
+        buf = getattr(state, name)
+        if skip is not None:
+            row = torch.where(skip[..., None], gather_rows(buf, idx), row)
+        scatter_rows(buf, idx, row)
+    for name, val in sides.items():
+        buf = getattr(state, name)
+        if skip is not None:
+            val = torch.where(skip, gather_scalar(buf, idx), val)
+        scatter_scalar(buf, idx, val)
     return state
 
 
@@ -325,8 +367,10 @@ class CacheStrategy:
         return state
 
     @classmethod
-    def decode_update(cls, state: CacheState, input_pos, k, v) -> CacheState:
+    def decode_update(cls, state: CacheState, input_pos, k, v, token=None) -> CacheState:
         """Insert one token (pre-attention), evicting if needed, in place.
+        ``token`` [B] (the current ids) is read only by strategies whose
+        insert logic depends on it (hybrid, which overrides this).
 
         Unlike the JAX package, this does not dequantize the whole cache:
         callers that need dense K/V call ``materialize_kv`` themselves, and
@@ -349,13 +393,17 @@ class CacheStrategy:
 # --------------------------------------------------------------------------
 
 
-def decode_update(strategy, state: CacheState, input_pos, k, v) -> CacheState:
-    """Insert one token (pre-attention), evicting if needed, in place."""
-    return strategy.decode_update(state, input_pos, k, v)
+def decode_update(strategy, state: CacheState, input_pos, k, v, token=None) -> CacheState:
+    """Insert one token (pre-attention), evicting if needed, in place.
+    ``token`` [B]: the current token ids (hybrid's punctuation tracking)."""
+    return strategy.decode_update(state, input_pos, k, v, token=token)
 
 
 def strategy_needs_attn(strategy, spec: CacheSpec) -> bool:
-    """Whether decode must return attention probabilities for this cache."""
+    """Whether decode must return attention probabilities for this cache;
+    hybrid's depends on its menu."""
+    if hasattr(strategy, "menu_needs_attn"):
+        return strategy.menu_needs_attn(spec)
     return strategy.needs_attn
 
 

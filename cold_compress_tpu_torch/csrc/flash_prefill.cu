@@ -19,6 +19,13 @@
 //   TPU kernel accumulated across sequential grid steps, which Hopper's
 //   parallel blocks cannot do.)
 //
+// A second entry point, flash_profile, replaces pallas_prefill.py::
+// flash_profile: the same pass 1, then pass 2 (flash_profile_colsum_kernel)
+// sums the same probabilities into the FastGen hybrid profile: cum (every
+// valid row) and, for up to four recent-window lengths w, the rows whose
+// window holds the key (c <= pos <= c + w - 1). The window sums ride on the
+// loop cum already needs, which visits every row at or after the key.
+//
 // Bound on this card: operations. At P = 8192, head_dim 128 the causal
 // products are ~0.55 TFLOP per layer (QK^T + PV), plus the pass-2
 // recompute of QK^T; the inputs are ~100 MB. The design puts the products on
@@ -350,9 +357,160 @@ flash_colsum_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// Pass 2 of flash_profile: the FastGen profile accumulators. The same block
+// per (64-key block, KV head, batch) and the same recomputed, normalised
+// probabilities as flash_colsum_kernel. cum sums them over every valid query
+// row (weight 1 / G); wcols[wi] sums only the rows whose recent window of
+// length win[wi] holds the key: c <= pos <= c + win - 1 (and pos <
+// prompt_len). Raw sums, no division by the number of queries.
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+flash_profile_colsum_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const float* __restrict__ mbuf,
+                            const float* __restrict__ lbuf,
+                            const int* __restrict__ plen_arr,
+                            float* __restrict__ cum, float* __restrict__ wcols,
+                            int4 win, int B, int H, int KVH, int P, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kBR * kStride;
+  float* ms = reinterpret_cast<float*>(Ks + kBK * kStride);  // [kBR]
+  float* ils = ms + kBR;                                      // [kBR] 1 / l
+  float* red = ils + kBR;                                     // [1 + NW][4][kBK]
+
+  const int G = H / KVH;
+  const int kb = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nrows = P * G;
+  const size_t bh = (size_t)b * KVH + kvh;
+  const size_t wstride = (size_t)B * KVH * P;  // one window's [B, KVH, P]
+  const int key0 = kb * kBK;
+  const int plen = plen_arr[b];
+  const int wl[4] = {win.x, win.y, win.z, win.w};
+
+  if (key0 >= plen) {  // keys no valid query sees: sums are zero
+    for (int t = threadIdx.x; t < kBK; t += kThreads) {
+      cum[bh * P + key0 + t] = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) wcols[wi * wstride + bh * P + key0 + t] = 0.f;
+    }
+    return;
+  }
+  load_kv_tile(Ks, k + (bh * P + key0) * kD);
+  const float wg = 1.0f / (float)G;
+
+  float cc[8][2], cw[NW > 0 ? NW : 1][8][2];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      cc[nt][j] = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) cw[wi][nt][j] = 0.f;
+    }
+
+  const int row_end = min(plen, P) * G;
+  for (int r0 = key0 * G; r0 < row_end; r0 += kBR) {
+    __syncthreads();
+    load_q_tile(Qs, q, b, kvh, r0, H, G, P);
+    for (int t = threadIdx.x; t < kBR; t += kThreads) {
+      const int r = r0 + t;
+      ms[t] = r < nrows ? mbuf[bh * nrows + r] : 0.f;
+      ils[t] = r < nrows ? __fdiv_rn(1.0f, lbuf[bh * nrows + r]) : 0.f;
+    }
+    __syncthreads();
+    uint32_t qa[8][4];
+    load_q_frags(qa, Qs, warp, gid, tig);
+    float s[8][4];
+    warp_scores(s, qa, Ks, gid, tig);
+
+    const int ra = warp * 16 + gid, rb = ra + 8;
+    const int posA = (r0 + ra) / G, posB = (r0 + rb) / G;
+    const float wcA = posA < plen ? wg : 0.f, wcB = posB < plen ? wg : 0.f;
+    const float mA = ms[ra], mB = ms[rb], ilA = ils[ra], ilB = ils[rb];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = key0 + nt * 8 + tig * 2 + j;
+        const float pA = col <= posA ? wcA * (expf(s[nt][j] * scale - mA) * ilA) : 0.f;
+        const float pB = col <= posB ? wcB * (expf(s[nt][2 + j] * scale - mB) * ilB) : 0.f;
+        cc[nt][j] += pA + pB;
+#pragma unroll
+        for (int wi = 0; wi < NW; ++wi)
+          cw[wi][nt][j] += (posA - col < wl[wi] ? pA : 0.f) + (posB - col < wl[wi] ? pB : 0.f);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float vals[1 + NW];
+      vals[0] = cc[nt][j];
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) vals[1 + wi] = cw[wi][nt][j];
+#pragma unroll
+      for (int a = 0; a < 1 + NW; ++a) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          vals[a] += __shfl_xor_sync(0xffffffffu, vals[a], off);
+        if (gid == 0) red[(a * 4 + warp) * kBK + nt * 8 + tig * 2 + j] = vals[a];
+      }
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < kBK; t += kThreads) {
+#pragma unroll
+    for (int a = 0; a < 1 + NW; ++a) {
+      float sum = 0.f;
+      for (int w = 0; w < 4; ++w) sum += red[(a * 4 + w) * kBK + t];
+      if (a == 0)
+        cum[bh * P + key0 + t] = sum;
+      else
+        wcols[(a - 1) * wstride + bh * P + key0 + t] = sum;
+    }
+  }
+}
+
 cudaError_t set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Pass 1 of both entry points: y and each folded row's (m, l).
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* y, void* mbuf,
+                       void* lbuf, int B, int H, int KVH, int P, float scale,
+                       cudaStream_t stream) {
+  const int G = H / KVH;
+  const size_t smem = (size_t)(kBR + 2 * kBK) * kStride * sizeof(__nv_bfloat16);
+  cudaError_t e = set_smem((const void*)flash_fwd_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((P * G + kBR - 1) / kBR, KVH, B);
+  flash_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)y, (float*)mbuf, (float*)lbuf, H, KVH, P, scale);
+  return cudaGetLastError();
+}
+
+template <int NW>
+cudaError_t launch_profile_colsum(const void* q, const void* k, const void* mbuf,
+                                  const void* lbuf, const void* plen, void* cum,
+                                  void* wcols, int4 win, int B, int H, int KVH, int P,
+                                  float scale, cudaStream_t stream) {
+  const size_t smem = (size_t)(kBR + kBK) * kStride * sizeof(__nv_bfloat16) +
+                      (2 * kBR + (1 + NW) * 4 * kBK) * sizeof(float);
+  cudaError_t e = set_smem((const void*)flash_profile_colsum_kernel<NW>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(P / kBK, KVH, B);
+  flash_profile_colsum_kernel<NW><<<grid, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const float*)mbuf,
+      (const float*)lbuf, (const int*)plen, (float*)cum, (float*)wcols, win, B, H, KVH,
+      P, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -362,15 +520,8 @@ extern "C" int flash_prefill_summary(const void* q, const void* k, const void* v
                                      const void* plen, void* cum, void* obs,
                                      int B, int H, int KVH, int P, float scale,
                                      int obs_len, int need_summary, void* stream) {
-  const int G = H / KVH;
-  const size_t smem1 = (size_t)(kBR + 2 * kBK) * kStride * sizeof(__nv_bfloat16);
-  cudaError_t e = set_smem((const void*)flash_fwd_kernel, smem1);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid1((P * G + kBR - 1) / kBR, KVH, B);
-  flash_fwd_kernel<<<grid1, kThreads, smem1, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)y, (float*)mbuf, (float*)lbuf, H, KVH, P, scale);
-  e = cudaGetLastError();
+  cudaError_t e = launch_fwd(q, k, v, y, mbuf, lbuf, B, H, KVH, P, scale,
+                             (cudaStream_t)stream);
   if (e != cudaSuccess || !need_summary) return (int)e;
   const size_t smem2 = (size_t)(kBR + kBK) * kStride * sizeof(__nv_bfloat16) +
                        (2 * kBR + 2 * 4 * kBK) * sizeof(float);
@@ -382,4 +533,30 @@ extern "C" int flash_prefill_summary(const void* q, const void* k, const void* v
       (const float*)lbuf, (const int*)plen, (float*)cum, (float*)obs, H, KVH, P,
       scale, obs_len);
   return (int)cudaGetLastError();
+}
+
+// Attention plus the FastGen profile (flash_profile): pass 1 as above, then
+// cum [B, KVH, P] and wcols [n_windows, B, KVH, P] for up to four distinct
+// window lengths w0..w3.
+extern "C" int flash_profile(const void* q, const void* k, const void* v, void* y,
+                             void* mbuf, void* lbuf, const void* plen, void* cum,
+                             void* wcols, int B, int H, int KVH, int P, float scale,
+                             int n_windows, int w0, int w1, int w2, int w3, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = launch_fwd(q, k, v, y, mbuf, lbuf, B, H, KVH, P, scale, s);
+  if (e != cudaSuccess) return (int)e;
+  const int4 win = make_int4(w0, w1, w2, w3);
+  switch (n_windows) {
+    case 0: return (int)launch_profile_colsum<0>(q, k, mbuf, lbuf, plen, cum, wcols, win,
+                                                 B, H, KVH, P, scale, s);
+    case 1: return (int)launch_profile_colsum<1>(q, k, mbuf, lbuf, plen, cum, wcols, win,
+                                                 B, H, KVH, P, scale, s);
+    case 2: return (int)launch_profile_colsum<2>(q, k, mbuf, lbuf, plen, cum, wcols, win,
+                                                 B, H, KVH, P, scale, s);
+    case 3: return (int)launch_profile_colsum<3>(q, k, mbuf, lbuf, plen, cum, wcols, win,
+                                                 B, H, KVH, P, scale, s);
+    case 4: return (int)launch_profile_colsum<4>(q, k, mbuf, lbuf, plen, cum, wcols, win,
+                                                 B, H, KVH, P, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

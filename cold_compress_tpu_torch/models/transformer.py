@@ -102,6 +102,18 @@ class Transformer(nn.Module):
         return self.tok_embeddings.device
 
 
+def set_prefill_w4a8(model: Transformer, on: bool) -> None:
+    """Route (or stop routing) the prefill of the four int4 layer
+    projections through the W4A8 prefill kernel (K8) instead of bf16
+    dequantization. The head sees one row at prefill and stays on K2."""
+    for layer in model.layers:
+        for lin in (layer.attention.wqkv, layer.attention.wo, layer.feed_forward.w13,
+                    layer.feed_forward.w2):
+            if not isinstance(lin, QuantizedLinear):
+                raise ValueError("prefill_w4a8 needs int4 layer weights")
+            lin.prefill_w4a8 = on
+
+
 def make_rope_table(cfg: ModelConfig, max_positions: Optional[int] = None,
                     device=None) -> torch.Tensor:
     """Rope rows for positions [0, n), truncated to the run's length."""
@@ -150,20 +162,27 @@ def _qkv(cfg: ModelConfig, attn: Attention, x: torch.Tensor, freqs: torch.Tensor
 
 
 def attention_prefill(cfg, attn: Attention, x, cache: CacheState, input_pos, valid,
-                      prompt_len, freqs):
+                      prompt_len, freqs, tokens=None):
     """Prefill attention + cache fill: full causal attention first, then
-    prompt compression when the budget is below the padded prompt length."""
+    prompt compression when the budget is below the padded prompt length.
+    A profiling strategy (hybrid) replaces both by one attention pass that
+    also profiles the heads (K6), then fills from the profile; ``tokens``
+    [B, P] are the ids it classifies."""
     spec = cache.spec
     strategy = get_cache_strategy(spec.cache_strategy)
     compressor = get_prompt_compressor(spec.prompt_compression_strategy)
     B, P, _ = x.shape
     compress = spec.max_cache_length < P
     q, k, v = _qkv(cfg, attn, x, freqs)
-    need_summary = strategy_needs_attn(strategy, spec) or (
-        compress and compressor.needs_attn
-    )
-    y, summary = prefill_attention(q, k, v, valid, prompt_len, need_summary=need_summary)
-    fill_from_kv(strategy, compressor, cache, k, v, summary, input_pos, valid, prompt_len)
+    if hasattr(strategy, "profile_prefill_with_attn"):
+        y = strategy.profile_prefill_with_attn(spec, cache, q, k, v, tokens, input_pos, valid,
+                                               prompt_len)
+    else:
+        need_summary = strategy_needs_attn(strategy, spec) or (
+            compress and compressor.needs_attn
+        )
+        y, summary = prefill_attention(q, k, v, valid, prompt_len, need_summary=need_summary)
+        fill_from_kv(strategy, compressor, cache, k, v, summary, input_pos, valid, prompt_len)
     y = y.transpose(1, 2).reshape(B, P, cfg.n_head * cfg.head_dim)
     return attn.wo(y)
 
@@ -171,7 +190,8 @@ def attention_prefill(cfg, attn: Attention, x, cache: CacheState, input_pos, val
 def fill_from_kv(strategy, compressor, cache: CacheState, k, v, summary, input_pos,
                  valid, prompt_len) -> CacheState:
     """Prompt compression + cache fill from full-sequence K/V and the
-    attention summaries, in place."""
+    attention summaries, in place; then an analysis (``debug_*``) cache
+    fills its shadow."""
     spec = cache.spec
     compress = spec.max_cache_length < k.shape[2]
     if compress and compressor.name != "full":
@@ -191,13 +211,16 @@ def fill_from_kv(strategy, compressor, cache: CacheState, k, v, summary, input_p
         kept_attn = summary["cum_mean"] if strategy_needs_attn(strategy, spec) else None
     strategy.update_state(spec, cache, input_pos, kept_attn, is_prefill=True,
                           prompt_len=prompt_len)
+    if hasattr(strategy, "post_prefill"):
+        strategy.post_prefill(spec, cache, k, v, summary, input_pos, valid, prompt_len)
     return cache
 
 
 def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freqs,
-                     attn_top_k: float = 1.0):
+                     attn_top_k: float = 1.0, token=None):
     """Single-token decode attention over the fixed-budget cache; the new
-    token is inserted BEFORE attention so it attends to itself.
+    token is inserted BEFORE attention so it attends to itself. ``token``
+    [B] is the current id (hybrid tracks punctuation with it).
 
     Every cache precision (bf16, int8, int4, int2) goes to the decode
     kernel (K3/K5), which dequantizes inside the kernel, never in device
@@ -209,7 +232,7 @@ def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freq
     strategy = get_cache_strategy(spec.cache_strategy)
     B = x.shape[0]
     q, k, v = _qkv(cfg, attn, x, freqs)
-    decode_update(strategy, cache, input_pos, k, v)
+    decode_update(strategy, cache, input_pos, k, v, token=token)
     need_attn = strategy_needs_attn(strategy, spec)
     if attn_top_k >= 1.0 and decode_attn_supported(q.shape, cfg.n_kv_head):
         y, pooled = decode_attention(
@@ -269,7 +292,7 @@ def prefill(model: Transformer, caches: Sequence[CacheState], tokens: torch.Tens
     for layer, cache in zip(model.layers, caches):
         attn_out = attention_prefill(
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
-            cache, input_pos, valid, prompt_len, freqs,
+            cache, input_pos, valid, prompt_len, freqs, tokens=tokens,
         )
         x = _block(cfg, layer, x, attn_out)
     last = x[torch.arange(B, device=dev), plen.expand(B).long() - 1]
@@ -292,7 +315,7 @@ def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.T
     for layer, cache in zip(model.layers, caches):
         attn_out = attention_decode(
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
-            cache, input_pos, freqs, attn_top_k,
+            cache, input_pos, freqs, attn_top_k, token=token,
         )
         x = _block(cfg, layer, x, attn_out)
     return _logits(model, x)[:, 0]

@@ -9,8 +9,10 @@ is repacked once into the W4A8 kernel's layout (``ops/qmm.py``).
 
 ``QuantizedLinear`` dispatches by the number of rows L, as the JAX package's
 ``linear`` does on the TPU: L <= 32 goes to the W4A8 kernel (K1/K2); larger L
-(prefill) dequantizes one layer to bf16 and calls ``torch.matmul``
-(pallas_qmm.py:1154 leaves the prefill W4A8 kernel opt-in).
+(prefill) dequantizes one layer to bf16 and calls ``torch.matmul``, or, with
+``prefill_w4a8=True`` (the explicit counterpart of the JAX package's opt-in
+``CCT_PREFILL_W4A8=1``, pallas_qmm.py:1154), goes to the W4A8 prefill
+kernel (K8), which quantizes the activations to int8 as K1 does.
 
 An int8 weight (``{"kind": "int8", "w": int8 [in, out], "scales": f32
 [out]}``, the ``--head_bits 8`` vocab head) becomes an ``Int8Linear``: L <=
@@ -60,24 +62,28 @@ class QuantizedLinear(nn.Module):
     """int4 group-wise weight held in the W4A8 kernel's layout.
 
     ``w`` uint8 [out, in/2] and ``sz`` bf16 [out, in/gs, 2]. ``counter``
-    names the launch counter (``qmm.LAUNCHES``) the kernel increments: the
-    projection it serves.
+    names the launch counter (``qmm.LAUNCHES``) the decode kernel
+    increments: the projection it serves (``w4a8_gemv.<name>``); K8 counts
+    under ``w4a8_gemm.<name>``. ``prefill_w4a8`` sends L > 32 rows to K8
+    instead of the bf16 dequantization.
     """
 
     def __init__(self, w: torch.Tensor, sz: torch.Tensor, group_size: int,
-                 bias: Optional[torch.Tensor] = None, *, counter: str):
+                 bias: Optional[torch.Tensor] = None, *, counter: str,
+                 prefill_w4a8: bool = False):
         super().__init__()
         self.register_buffer("w", w)
         self.register_buffer("sz", sz)
         self.register_buffer("bias", bias)
         self.group_size = group_size
         self.counter = counter
+        self.prefill_w4a8 = prefill_w4a8
 
     @classmethod
     def from_rowpack(cls, w, scales, zeros, group_size, bias=None, *,
-                     counter: str) -> "QuantizedLinear":
+                     counter: str, prefill_w4a8: bool = False) -> "QuantizedLinear":
         wg, sz = qmm.rowpack_to_gemv(w, scales, zeros)
-        return cls(wg, sz, group_size, bias=bias, counter=counter)
+        return cls(wg, sz, group_size, bias=bias, counter=counter, prefill_w4a8=prefill_w4a8)
 
     @property
     def in_features(self) -> int:
@@ -96,6 +102,9 @@ class QuantizedLinear(nn.Module):
         if x2.shape[0] <= KERNEL_MAX_ROWS:
             y = qmm.w4a8_gemv(x2.contiguous(), self.w, self.sz, self.group_size,
                               counter=self.counter).to(x.dtype)
+        elif self.prefill_w4a8:
+            y = qmm.w4a8_gemm(x2.contiguous(), self.w, self.sz, self.group_size,
+                              counter=self.counter.replace("w4a8_gemv", "w4a8_gemm")).to(x.dtype)
         else:
             y = torch.matmul(x2, self.dense(x.dtype))
         return _add_bias(y.reshape(*lead, y.shape[-1]), self.bias)

@@ -14,9 +14,15 @@ z_g * xs_g)`` in f32. This is W4A8, as on the TPU, not W4A16.
 
 Bound on the H100: bytes (the weight stream at batch 1). The layout is the
 port's own ("gemv", see the kernel source): each output column's nibbles
-contiguous, repacked once from the checkpoint's rowpack. The prefill path
-(``dequantize_gemv``) reads the same stored bytes, so the weights are held
-once.
+contiguous, repacked once from the checkpoint's rowpack. The prefill paths
+(``dequantize_gemv`` for bf16 ``torch.matmul``, or K8) read the same stored
+bytes, so the weights are held once.
+
+K8 (``csrc/w4a8_gemm.cu``, ``w4a8_gemm``) replaces ``qmm_w4a8_prefill``
+(pallas_qmm.py:1177) and ``qmm_w4a8_prefill_cpt`` (:1100): the same W4A8
+function at prefill size on the int8 tensor cores, opt-in as in the JAX
+package (``QuantizedLinear(prefill_w4a8=True)``). Bound: operations at L =
+8192.
 
 K9 (``csrc/w8a8_gemv.cu``) replaces ``qmm_w8a8_tiled`` (pallas_qmm.py:1293),
 the ``--head_bits 8`` vocab head: int8 weights with one f32 scale per
@@ -39,6 +45,7 @@ from . import _build
 LAUNCHES = {
     "w4a8_gemv.wqkv": 0, "w4a8_gemv.wo": 0, "w4a8_gemv.w13": 0,
     "w4a8_gemv.w2": 0, "w4a8_gemv.head": 0, "w8a8_gemv.head": 0,
+    "w4a8_gemm.wqkv": 0, "w4a8_gemm.wo": 0, "w4a8_gemm.w13": 0, "w4a8_gemm.w2": 0,
 }
 
 _MASK = 0x0F
@@ -46,8 +53,10 @@ _MASK = 0x0F
 #: The f32 reciprocal of 127 (exactly representable as a Python float).
 INV_127 = 0.007874015718698502
 
-#: Output columns the plain version unpacks at a time (bounds its memory).
+#: Output columns and activation rows the plain version takes at a time
+#: (bound its memory: the per-group dots are ng * rows * columns f32).
 PLAIN_COL_CHUNK = 16384
+PLAIN_ROW_CHUNK = 256
 #: Inputs per f32 partial dot in the W8A8 plain version: 1024 * 127 * 127 <
 #: 2**24, so every partial sum of integer products is exact in f32.
 W8A8_EXACT_DEPTH = 1024
@@ -126,8 +135,13 @@ def w4a8_gemv_plain(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
 
     The per-group integer dots run as f32 matmuls: every operand is a small
     integer (|xq| <= 127, |q - 8| <= 8) and every partial sum stays below
-    2**24, so they are exact in f32 (and in TF32)."""
+    2**24, so they are exact in f32 (and in TF32). Rows are independent, so
+    a large L is taken ``PLAIN_ROW_CHUNK`` rows at a time, with the same
+    result."""
     L, IN = x.shape
+    if L > PLAIN_ROW_CHUNK:
+        return torch.cat([w4a8_gemv_plain(x[i:i + PLAIN_ROW_CHUNK], wg, sz, group_size)
+                          for i in range(0, L, PLAIN_ROW_CHUNK)])
     OUT = wg.shape[0]
     gs = group_size
     ng = IN // gs
@@ -189,6 +203,64 @@ def w4a8_gemv(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
         L, IN, OUT, gs, _build.stream_ptr(x.device),
     )
     _build.check(status, "w4a8_gemv")
+    LAUNCHES[counter] += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# W4A8 at prefill size (K8)
+# --------------------------------------------------------------------------
+
+
+def _lib_gemm():
+    fn = _build.library("w4a8_gemm").w4a8_gemm
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def w4a8_gemm(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor, group_size: int,
+              counter: str) -> torch.Tensor:
+    """x [L, IN] @ int4 weight in the kernel layout -> [L, OUT] f32, for
+    prefill-sized L: K1's function (its plain version is ``w4a8_gemv_plain``)
+    on the int8 tensor cores, reading the same stored bytes.
+
+    ``counter`` is the key of ``LAUNCHES`` that a launch increments.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel; any
+    input it does not take raises."""
+    if x.device.type == "cpu":
+        return w4a8_gemv_plain(x, wg, sz, group_size)
+    L, IN = x.shape
+    OUT = wg.shape[0]
+    gs = group_size
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"w4a8_gemm takes bf16 activations, got {x.dtype}")
+    if wg.dtype != torch.uint8 or wg.shape != (OUT, IN // 2):
+        raise ValueError(f"bad weight {tuple(wg.shape)} {wg.dtype} for IN={IN}")
+    if sz.dtype != torch.bfloat16 or sz.shape != (OUT, IN // gs, 2):
+        raise ValueError(f"bad scales {tuple(sz.shape)} {sz.dtype}")
+    # IN a multiple of the kernel's 128-input step; a group size that is a
+    # multiple of 32 and divides 128 or is a multiple of it.
+    if IN % 128 or IN % gs or gs % 32 or (128 % gs and gs % 128):
+        raise ValueError(f"unsupported IN={IN} / group size {gs}")
+    if not (x.is_contiguous() and wg.is_contiguous() and sz.is_contiguous()):
+        raise ValueError("w4a8_gemm needs contiguous inputs")
+    if wg.data_ptr() % 16:
+        raise ValueError("weight bytes must be 16-byte aligned")
+    if not (x.device == wg.device == sz.device):
+        raise ValueError("inputs on different devices")
+    dev = x.device
+    xq = torch.empty((L, IN), dtype=torch.int8, device=dev)
+    sx = torch.empty((L,), dtype=torch.float32, device=dev)
+    xs = torch.empty((L, IN // gs), dtype=torch.int32, device=dev)
+    y = torch.empty((L, OUT), dtype=torch.float32, device=dev)
+    status = _lib_gemm()(
+        x.data_ptr(), wg.data_ptr(), sz.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+        xs.data_ptr(), y.data_ptr(), L, IN, OUT, gs, _build.stream_ptr(dev),
+    )
+    _build.check(status, "w4a8_gemm")
     LAUNCHES[counter] += 1
     return y
 

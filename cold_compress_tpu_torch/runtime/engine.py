@@ -23,7 +23,12 @@ from ..caches import CacheSpec, get_cache_strategy
 from ..caches.patterns import apply_pattern, normalize_cache_length
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import Transformer, fuse_layer_params, make_rope_table
+from ..models.transformer import (
+    Transformer,
+    fuse_layer_params,
+    make_rope_table,
+    set_prefill_w4a8,
+)
 
 
 def cache_compatibility(args: Dict[str, Any]) -> None:
@@ -48,10 +53,14 @@ def _as_list(x):
 
 
 def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
-                      max_seq_length: int) -> Tuple[CacheSpec, ...]:
+                      max_seq_length: int, token_ids: Optional[Dict[str, Any]] = None
+                      ) -> Tuple[CacheSpec, ...]:
     """Normalise lengths and strategies across layers and build one spec per
     layer: fraction -> absolute lengths, tile/repeat patterns, per-layer
-    recent windows and the global-token budget check."""
+    recent windows and the global-token budget check. The hybrid options
+    (``hybrid_strategies``, ``min_recovery_frac``) come from the cache
+    options; ``token_ids`` (or ``cache_kwargs["token_ids"]``) gives the
+    ``special`` id sequences and ``punctuation`` ids hybrid keeps."""
     kw = dict(cache_kwargs)
     lengths = [
         normalize_cache_length(length, max_seq_length)
@@ -78,6 +87,14 @@ def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
     global_tokens = int(kw.get("global_tokens", 1))
     if global_tokens > min(lengths):
         raise ValueError("Global tokens must be less than max_cache_length.")
+    hybrid_strategies = ()
+    if kw.get("hybrid_strategies"):
+        from ..caches.hybrid import normalize_hybrid_strategies
+
+        hybrid_strategies = normalize_hybrid_strategies(kw["hybrid_strategies"])
+    token_ids = token_ids or kw.get("token_ids") or {}
+    token_ids_special = tuple(tuple(int(t) for t in seq) for seq in token_ids.get("special", ()))
+    token_ids_punc = tuple(int(t) for t in token_ids.get("punctuation", ()))
     return tuple(
         CacheSpec(
             cache_strategy=strategies[i],
@@ -89,6 +106,10 @@ def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
             history_window_size=int(kw.get("history_window_size", 1)),
             attn_thresholding=bool(kw.get("attn_thresholding", False)),
             prompt_compression_strategy=prompt_strategies[i],
+            min_recovery_frac=float(kw.get("min_recovery_frac", 0.9)),
+            hybrid_strategies=hybrid_strategies,
+            token_ids_special=token_ids_special,
+            token_ids_punc=token_ids_punc,
         )
         for i in range(cfg.n_layer)
     )
@@ -162,10 +183,15 @@ def load_params(path: str, device=None) -> Dict[str, Any]:
 
 
 def build_model(cfg: ModelConfig, params: Dict[str, Any], device=None,
-                max_positions: Optional[int] = None) -> Transformer:
+                max_positions: Optional[int] = None, prefill_w4a8: bool = False) -> Transformer:
     """Fuse q/k/v and w1/w3, repack int4 leaves into the kernel layout and
-    build the ``Transformer`` with a rope table for ``max_positions``."""
+    build the ``Transformer`` with a rope table for ``max_positions``.
+    ``prefill_w4a8`` sends the int4 layer projections' prefill to the W4A8
+    prefill kernel (K8; off by default, as in the JAX package)."""
     dev = resolve_device(device)
     rope = make_rope_table(cfg, max_positions, device=dev)
-    return Transformer(cfg, fuse_layer_params(params), rope).to(dev)
+    model = Transformer(cfg, fuse_layer_params(params), rope).to(dev)
+    if prefill_w4a8:
+        set_prefill_w4a8(model, True)
+    return model
 

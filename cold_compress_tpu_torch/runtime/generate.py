@@ -89,10 +89,11 @@ def generate(
         forced_first = None
 
     # ---- prefill ---------------------------------------------------------
-    # Direct-fill caches write all P padded slots, so the bucket must not
-    # exceed their length.
+    # Direct-fill caches (full, hybrid, and the full outer cache of debug_*)
+    # write all P padded slots, so the bucket must not exceed their length.
     direct_fill = [
-        s.max_cache_length for s in specs if s.cache_strategy in ("full", "hybrid")
+        s.max_cache_length for s in specs
+        if s.cache_strategy in ("full", "hybrid") or s.cache_strategy.startswith("debug_")
     ]
     P = prefill_bucket or bucket_length(prompt_length)
     if direct_fill and P > min(direct_fill):

@@ -18,7 +18,7 @@ REPO = Path(__file__).resolve().parents[1]
 #: figure), plus the card's name and power limit.
 CONFIG_KEYS = {
     "model", "weight_bits", "head_bits", "cache_bits", "strategy", "context", "budget_frac",
-    "decode_tokens", "batch", "prefill_toks_per_sec", "model_gb", "cache_memory_gb",
+    "decode_tokens", "batch", "prefill_w4a8", "prefill_toks_per_sec", "model_gb", "cache_memory_gb",
     "memory_used_gb", "weight_stream_gbps", "backend", "device", "card",
 }
 
@@ -54,6 +54,9 @@ def test_smoke_command_prints_one_json_line():
     (["--strategy", "keep_it_odd", "--global_tokens", "8"], {"strategy": "keep_it_odd"}),
     (["--strategy", "recent_global", "--decode_tokens", "4"],
      {"strategy": "recent_global", "decode_tokens": 16}),
+    (["--strategy", "hybrid"], {"strategy": "hybrid", "budget_frac": 0.25}),
+    (["--strategy", "debug_heavy_hitter"], {"strategy": "debug_heavy_hitter"}),
+    (["--prefill_w4a8"], {"strategy": "heavy_hitter", "prefill_w4a8": True}),
 ])
 def test_smoke_serves_other_configurations(argv, config, capsys):
     """``--smoke`` fixes the model, context and token count; the cache and
@@ -66,7 +69,7 @@ def test_smoke_serves_other_configurations(argv, config, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--weight_bits", "8"], ["--weight_bits", "16"], ["--batch", "2"],
-    ["--strategy", "hybrid"], ["--strategy", "debug_heavy_hitter"],
+    ["--strategy", "hybrid", "--batch", "4"], ["--strategy", "debug_heavy_hitter", "--weight_bits", "8"],
 ])
 def test_unported_flags_raise(argv):
     with pytest.raises(ValueError, match="not ported yet"):
@@ -87,6 +90,12 @@ def test_cache_options_follow_bench_py():
     assert kw["max_cache_length"] == [0.25] and kw["cache_bits"] == 8
     full = bench.cache_kwargs("full", 0.25, 4, None)
     assert full["max_cache_length"] == [1.0] and full["prompt_compression_strategy"] == ["full"]
-    for name in ("l2", "random", "recent_global", "keep_it_odd"):
+    for name in ("l2", "random", "recent_global", "keep_it_odd", "debug_heavy_hitter"):
         assert bench.cache_kwargs(name, 0.25, 4, 4)["prompt_compression_strategy"] == [
             "recent_global"]
+    hybrid = bench.cache_kwargs("hybrid", 0.25, 4, 8)
+    assert hybrid["max_cache_length"] == [1.0] and hybrid["prompt_compression_strategy"] == ["full"]
+    assert [e["strategy"] for e in hybrid["hybrid_strategies"]] == [
+        "special", "special_punc", "special_punc_heavy_hitter",
+        "special_punc_heavy_hitter_window", "full"]
+    assert hybrid["token_ids"] == {"special": [[1], [2]], "punctuation": list(range(16, 48))}

@@ -287,3 +287,96 @@ def test_generate_on_card_matches_cpu(dev):
     assert launches["decode_attention.kv8"] == cfg.n_layer * 7
     assert launches["hh_evict"] == cfg.n_layer * 7
     assert launches["w4a8_gemv.head"] == 8
+
+
+@pytest.mark.parametrize("P,plen,G,windows", [
+    (256, 200, 4, (51,)), (512, 475, 2, (51, 128)), (1024, 77, 8, ()),
+    (512, 512, 4, (1, 30, 200, 512)),
+])
+def test_flash_profile_matches_plain(dev, P, plen, G, windows):
+    """K6 against its plain version: y as K4's; the raw profile sums to
+    1e-4 of their largest value (f32 order only). No window, and four."""
+    B, KVH, D = 2, 2, 128
+    g = _gen(dev, P + G + len(windows))
+    q = torch.randn((B, KVH * G, P, D), device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn((B, KVH, P, D), device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn((B, KVH, P, D), device=dev, generator=g).to(torch.bfloat16)
+    before = prefill_attn.LAUNCHES["flash_profile"]
+    y, cum, wcols = prefill_attn.flash_profile(q, k, v, plen, window_lens=windows)
+    assert prefill_attn.LAUNCHES["flash_profile"] == before + 1
+    ref_y, ref_cum, ref_w = prefill_attn.flash_profile_plain(q, k, v, plen, windows)
+    _assert_bf16_out_close(y, ref_y, 2**-7)
+    tol = 1e-4 * float(ref_cum.abs().max())
+    torch.testing.assert_close(cum, ref_cum, rtol=0, atol=tol)
+    assert wcols.shape == (len(windows), B, KVH, P)
+    torch.testing.assert_close(wcols, ref_w, rtol=0, atol=tol)
+    with pytest.raises(ValueError):  # five windows
+        prefill_attn.flash_profile(q, k, v, plen, window_lens=(1, 2, 3, 4, 5))
+
+
+@pytest.mark.parametrize("L", [33, 256, 1000])
+@pytest.mark.parametrize("IN,OUT,gs", [(512, 1000, 128), (1024, 384, 64), (14336, 256, 128),
+                                       (256, 200, 32), (512, 136, 256)])
+def test_w4a8_gemm_matches_plain(dev, L, IN, OUT, gs):
+    """K8 against K1's plain version: ragged rows and columns, every group
+    size it takes. Exact integer group dots: only f32 order differs."""
+    g = _gen(dev, 7 * L + IN + gs)
+    wg = torch.randint(0, 256, (OUT, IN // 2), dtype=torch.uint8, device=dev, generator=g)
+    s = torch.rand((OUT, IN // gs), device=dev, generator=g) * 3e-3 + 1e-3
+    z = (torch.rand((OUT, IN // gs), device=dev, generator=g) - 0.5) * 2e-2
+    sz = torch.stack([s, z], -1).to(torch.bfloat16).contiguous()
+    x = torch.randn((L, IN), device=dev, generator=g).to(torch.bfloat16)
+    x[0] = 0.0  # an all-zero row: sx at its 1e-8 floor
+    before = qmm.LAUNCHES["w4a8_gemm.w2"]
+    y = qmm.w4a8_gemm(x, wg, sz, gs, counter="w4a8_gemm.w2")
+    assert qmm.LAUNCHES["w4a8_gemm.w2"] == before + 1
+    ref = qmm.w4a8_gemv_plain(x, wg, sz, gs)
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-4 * float(ref.abs().max()) + 1e-6)
+    with pytest.raises(ValueError):  # a group size it does not take
+        qmm.w4a8_gemm(x, wg[:, : IN // 2], sz, 48, counter="w4a8_gemm.w2")
+
+
+def test_hybrid_decode_update_on_card_matches_cpu(dev):
+    """The hybrid fill and 24 vectorised decode steps (kv8, dropping,
+    evicting and punctuation-tracking heads) leave the same state on the
+    card as on the CPU, bit for bit."""
+    from cold_compress_tpu_torch.caches import base, get_cache_strategy
+    from cold_compress_tpu_torch.caches.hybrid import normalize_hybrid_strategies
+
+    B, KVH, P, D = 2, 4, 96, 128
+    menu = normalize_hybrid_strategies([
+        {"strategy": "special_punc"}, {"strategy": "window", "recent_window": 0.1},
+        {"strategy": "window_heavy_hitter", "recent_window": 0.3, "heavy_hitter_frac": 0.25},
+        {"strategy": "full"}])
+    spec = base.CacheSpec(cache_strategy="hybrid", max_cache_length=P, max_seq_length=P,
+                          global_tokens=3, cache_bits=8, hybrid_strategies=menu,
+                          token_ids_special=((5,),), token_ids_punc=(46, 44))
+    strat = get_cache_strategy("hybrid")
+    rng = np.random.RandomState(3)
+    k, v = (torch.from_numpy(rng.randn(B, KVH, P + 24, D).astype(np.float32)) for _ in range(2))
+    cum = torch.from_numpy(rng.rand(B, KVH, P).astype(np.float32))
+    wcols = torch.from_numpy(rng.rand(2, B, KVH, P).astype(np.float32)) * cum
+    toks = torch.from_numpy(rng.choice([5, 46, 44, 9, 10, 11], size=(B, P)))
+    plen = torch.tensor([80, 70], dtype=torch.int32)
+    valid = torch.arange(P)[None] < plen[:, None]
+    sidx = torch.tensor([[0, 1, 2, 3], [1, 2, 0, 3]], dtype=torch.int32)
+    # The fill on the CPU, copied to the card: the steps start equal.
+    cpu = strat.init(spec, B, KVH, D, device="cpu")
+    strat.fill_after_profile(spec, cpu, cum, wcols, k[:, :, :P], v[:, :, :P], toks,
+                             torch.arange(P), valid, plen)
+    cpu.extra["strategy_idx"].copy_(sidx)  # every policy, whatever the profile chose
+    card = strat.init(spec, B, KVH, D, device=dev)
+    for t_g, t_c in zip(card.tensors(), cpu.tensors()):
+        t_g.copy_(t_c)
+    states = {"cuda": card, "cpu": cpu}
+    for step in range(24):
+        attn = torch.from_numpy(rng.rand(B, KVH, P).astype(np.float32))
+        tok = torch.tensor([46 if step % 3 == 0 else 9, 10])
+        for name, s in states.items():
+            d = torch.device(name)
+            kr, vr = (t[:, :, P + step:P + step + 1].to(d) for t in (k, v))
+            base.decode_update(strat, s, 80 + step, kr, vr, token=tok.to(d))
+            strat.update_state(spec, s, 80 + step, attn.to(d) * s.mask, is_prefill=False)
+    g, c = states["cuda"], states["cpu"]
+    for t_g, t_c in zip(g.tensors(), c.tensors()):
+        assert torch.equal(t_g.cpu(), t_c)

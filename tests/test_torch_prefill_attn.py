@@ -92,3 +92,41 @@ def test_prefill_attention_routes_head_dim_128_to_the_kernel(need_summary):
     assert prefill_attn.flash_prefill_supported((1, 4, 256, 128))
     assert not prefill_attn.flash_prefill_supported((1, 4, 256, 64))
     assert not prefill_attn.flash_prefill_supported((1, 4, 200, 128))
+
+
+# ---------------------------------------------------------------------------
+# K6: attention plus the FastGen profile
+# ---------------------------------------------------------------------------
+
+WINDOWS = (51, 128)  # two distinct window lengths, as a two-window menu gives
+
+
+def test_profile_plain_matches_tpu_flash_profile_kernel():
+    """K6's plain version against ``flash_profile(interpret=True)``: the raw
+    accumulators cum and wcols within 5e-3 of max|cum| (the bound of the
+    JAX package's own kernel-vs-XLA test), y within the two bf16 roundings
+    of ``test_plain_matches_tpu_flash_kernel``."""
+    from cold_compress_tpu.ops.pallas_prefill import flash_profile as jax_flash_profile
+
+    rng = np.random.RandomState(11)
+    q, k, v = (rng.randn(B, h, P, D).astype(np.float32) / 8 for h in (H, KVH, KVH))
+    plen = P - 37
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    ref_y, ref_cum, ref_w = jax_flash_profile(bf(q), bf(k), bf(v), jnp.int32(plen),
+                                              window_lens=WINDOWS, interpret=True)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    before = prefill_attn.LAUNCHES["flash_profile"]
+    y, cum, wcols = prefill_attn.flash_profile(*t, plen, window_lens=WINDOWS)
+    assert prefill_attn.LAUNCHES["flash_profile"] == before  # CPU: the plain version
+    assert wcols.shape == (2, B, KVH, P) and cum.shape == (B, KVH, P)
+    scale = float(np.abs(np.asarray(ref_cum)).max())
+    assert float(np.abs(cum.numpy() - np.asarray(ref_cum)).max()) < 5e-3 * scale
+    assert float(np.abs(wcols.numpy() - np.asarray(ref_w)).max()) < 5e-3 * scale
+    assert np.all(cum.numpy()[..., plen:] == 0.0)
+    np.testing.assert_allclose(y.float().numpy()[:, :, :plen],
+                               np.asarray(ref_y, np.float32)[:, :, :plen], rtol=2e-2, atol=2e-2)
+    # The window sums are parts of cum: each is at most cum, and a window
+    # as long as the prompt holds every row.
+    assert bool((wcols <= cum + 1e-6).all())
+    _, cum_full, w_full = prefill_attn.flash_profile(*t, plen, window_lens=(P,))
+    torch.testing.assert_close(w_full[0], cum_full, rtol=1e-5, atol=1e-7)

@@ -269,3 +269,89 @@ def test_random_int8_head_keys_match_jax():
     for key in ("output/w", "output/scales", "output/qmeta", "layers/1/ffn/w2/w"):
         a, b = np.asarray(ref[key]), np.asarray(got[key])
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), key
+
+
+# ---------------------------------------------------------------------------
+# W4A8 at prefill size (K8)
+# ---------------------------------------------------------------------------
+
+
+def _stacked(leaves):
+    return JL.QuantizedWeight(
+        w=jnp.stack([lf.w for lf in leaves]), scales=jnp.stack([lf.scales for lf in leaves]),
+        zeros=jnp.stack([lf.zeros for lf in leaves]), kind="int4", group_size=128,
+    )
+
+
+@pytest.mark.parametrize("L", [64, 300])
+def test_w4a8_prefill_plain_matches_tpu_prefill_kernels(L):
+    """K8's plain version (K1's function at any L) against
+    ``qmm_w4a8_prefill`` on the colpack layout (interpret mode, rows padded
+    to its 256-row tile): the same int8 activations and exact group dots,
+    so only f32 order differs (1e-4 of max|y|). Against
+    ``qmm_w4a8_prefill_cpt``, whose sidecar rounds z - 8s to bf16: K1's
+    documented deviation, one bf16 rounding of each element's zero term
+    (at these row counts a few elements exceed the decode tests' 4e-3 of
+    max|y|: up to 0.030 against 0.020 at L = 64)."""
+    from cold_compress_tpu.ops.pallas_qmm import qmm_w4a8_prefill, qmm_w4a8_prefill_cpt
+
+    rng = np.random.RandomState(L)
+    IN, OUT, NL = 512, 768, 2
+    leaves = [_leaf(rng, IN, OUT) for _ in range(NL)]
+    colpack = JL.to_colpack(_stacked(leaves))
+    cpt = JL.to_cpt(colpack)
+    x = _x(rng, L, IN)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    for i, leaf in enumerate(leaves):
+        wg, sz = _torch_leaf(leaf)
+        before = qmm.LAUNCHES["w4a8_gemm.w13"]
+        got = qmm.w4a8_gemm(_bf16(x), wg, sz, 128, counter="w4a8_gemm.w13").numpy()
+        assert qmm.LAUNCHES["w4a8_gemm.w13"] == before  # CPU: the plain version
+        assert got.shape == (L, OUT)
+        ref = np.asarray(qmm_w4a8_prefill(xb, colpack.w, colpack.scales, colpack.zeros, i,
+                                          group_size=128, interpret=True))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+        ref_cpt = np.asarray(qmm_w4a8_prefill_cpt(xb, cpt.w, cpt.scales, i, group_size=128,
+                                                  interpret=True))
+        # Per element: one bf16 rounding of each group's z - 8s (relative
+        # 2**-8 at most: 8 significant bits) in the zero term
+        # sx * sum_g (z_g - 8 s_g) * xs_g, counted in magnitude.
+        xq, sx = qmm.quantize_activations(_bf16(x))
+        xs = xq.reshape(L, -1, 128).sum(-1).abs().numpy()  # [L, ng]
+        s = np.asarray(leaf.scales, np.float32)
+        z = np.asarray(leaf.zeros, np.float32)
+        zero_term = sx.numpy() * (xs @ np.abs(z - 8 * s))
+        err = np.abs(got - ref_cpt)
+        assert np.all(err <= 2**-8 * zero_term + 1e-4 * np.abs(ref_cpt).max())
+        # Only the low-nibble half of the cpt columns carries z - 8s; the
+        # high half stores z itself and agrees as tightly as colpack.
+        np.testing.assert_allclose(got[:, OUT // 2:], ref_cpt[:, OUT // 2:], rtol=0,
+                                   atol=1e-4 * np.abs(ref_cpt).max())
+
+
+def test_quantized_linear_prefill_w4a8_route():
+    """``prefill_w4a8=True`` sends L > 32 rows to K8 (its plain version
+    here, counted under ``w4a8_gemm.<name>`` only on the card) and leaves
+    L <= 32 on K1; ``build_model(prefill_w4a8=True)`` sets it on the four
+    layer projections and not on the head."""
+    from cold_compress_tpu_torch.models.config import ModelConfig as TCfg
+    from cold_compress_tpu_torch.runtime.engine import build_model
+
+    rng = np.random.RandomState(6)
+    leaf = _leaf(rng, 256, 256)
+    wg, sz = _torch_leaf(leaf)
+    lin = TL.QuantizedLinear(wg, sz, 128, counter="w4a8_gemv.wo", prefill_w4a8=True)
+    x = _x(rng, 40, 256)
+    y = lin(_bf16(x))
+    want = qmm.w4a8_gemv_plain(_bf16(x), wg, sz, 128).to(torch.bfloat16)
+    assert torch.equal(y, want)
+    lin.prefill_w4a8 = False
+    assert not torch.equal(lin(_bf16(x)), y)  # the bf16 dequant path
+    cfg = TCfg.from_name("TestKernel")
+    flat = TW.random_quantized_params(cfg, seed=0)
+    model = build_model(cfg, params_from_flat(flat, "cpu"), "cpu", max_positions=512,
+                        prefill_w4a8=True)
+    layer = model.layers[1]
+    assert all(m.prefill_w4a8 for m in (layer.attention.wqkv, layer.attention.wo,
+                                         layer.feed_forward.w13, layer.feed_forward.w2))
+    assert not model.output.prefill_w4a8

@@ -31,6 +31,7 @@ from cold_compress_tpu_torch.caches import (
     get_prompt_compressor,
     register_strategy,
 )
+from cold_compress_tpu_torch.bench import cache_kwargs as bench_cache_kwargs
 from cold_compress_tpu_torch.caches import base as TB
 from cold_compress_tpu_torch.caches import patterns as TP
 from cold_compress_tpu_torch.models.config import ModelConfig
@@ -150,7 +151,9 @@ def test_pyramid_ramp_matches_jax(n_layer, length, decreasing):
      "cache_bits": 4},
     {"cache_strategy": ["l2"], "prompt_compression_strategy": ["l2"],
      "max_cache_length": [0.1], "recent_window": 0.2, "cache_bits": 2},
-], ids=["heavy_hitter_pyramid", "heavy_hitter_funnel", "local_global", "l2_fractional"])
+    dict(bench_cache_kwargs("hybrid", 0.25, 4, 8), min_recovery_frac=0.8),
+], ids=["heavy_hitter_pyramid", "heavy_hitter_funnel", "local_global", "l2_fractional",
+        "hybrid_fastgen"])
 def test_cache_specs_match_jax(config):
     """``cache_configs/*.yaml`` shapes: per-layer specs equal field by field."""
     ref = jax_build_specs(JaxModelConfig.from_name("Meta-Llama-3-8B-Instruct"), config, 8192)
@@ -159,8 +162,10 @@ def test_cache_specs_match_jax(config):
     for g, r in zip(got, ref):
         for field in ("cache_strategy", "max_cache_length", "max_seq_length", "global_tokens",
                       "recent_window", "cache_bits", "prompt_compression_strategy",
-                      "history_window_size", "attn_thresholding"):
+                      "history_window_size", "attn_thresholding", "min_recovery_frac",
+                      "token_ids_special", "token_ids_punc"):
             assert getattr(g, field) == getattr(r, field), field
+        assert [vars(e) for e in g.hybrid_strategies] == [vars(e) for e in r.hybrid_strategies]
     lengths = [s.max_cache_length for s in got]
     if config.get("cache_length_pattern") == "pyramid":
         assert lengths[0] > lengths[-1] and any(n % 128 for n in lengths)
@@ -171,11 +176,14 @@ def test_cache_specs_match_jax(config):
 def test_registry_and_strategies_not_ported():
     assert set(CACHE_STRATEGIES) == {"full", "random", "recent_global", "l2", "keep_it_odd",
                                      "heavy_hitter"}
-    for name in ("hybrid", "debug_heavy_hitter"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_cache_strategy(name)
+    # hybrid and the debug_* analysis wrappers resolve outside the dict, as
+    # in the JAX package.
+    assert get_cache_strategy("hybrid").name == "hybrid"
+    assert get_cache_strategy("debug_heavy_hitter").inner_strategy.name == "heavy_hitter"
     with pytest.raises(ValueError, match="Invalid cache strategy"):
         get_cache_strategy("nope")
+    with pytest.raises(ValueError, match="Invalid cache strategy"):
+        get_cache_strategy("debug_nope")
 
     @register_strategy
     class Oldest(CacheStrategy):
