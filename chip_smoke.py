@@ -341,17 +341,31 @@ def check_hh_evict(dev, records):
            "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None)
 
 
-def check_w8a8(dev, records):
+#: K9's shapes: the int8 vocab head, and the four fused layer projections
+#: of an int8 checkpoint (``bench --weight_bits 8``).
+W8A8_SHAPES = [  # (counter, IN, OUT)
+    ("w8a8_gemv.head", 4096, 128256),
+    ("w8a8_gemv.wqkv", 4096, 6144),
+    ("w8a8_gemv.wo", 4096, 4096),
+    ("w8a8_gemv.w13", 4096, 28672),
+    ("w8a8_gemv.w2", 14336, 4096),
+]
+
+
+def check_w8a8(dev, records, name, IN, OUT):
     from cold_compress_tpu_torch.ops import qmm
 
-    IN, OUT = 4096, 128256
-    gen = torch.Generator(device=dev).manual_seed(5)
-    w = torch.randint(-127, 128, (IN, OUT), dtype=torch.int8, device=dev, generator=gen)
-    s = torch.rand((OUT,), device=dev, generator=gen) * 1e-4 + 1e-4
-    wt, st = qmm.int8_to_gemv(w, s)
-    del w
+    gen = torch.Generator(device=dev).manual_seed(5 + IN + OUT)
+    nbytes = IN * OUT + 4 * OUT + 2 * IN + 4 * OUT
+    n = copies_for(nbytes)
+    layers = []
+    for _ in range(n):
+        w = torch.randint(-127, 128, (IN, OUT), dtype=torch.int8, device=dev, generator=gen)
+        s = torch.rand((OUT,), device=dev, generator=gen) * 1e-4 + 1e-4
+        layers.append(qmm.int8_to_gemv(w, s))
+        del w
+    wt, st = layers[0]
     x = torch.randn((1, IN), device=dev, generator=gen).to(torch.bfloat16)
-    name = "w8a8_gemv.head"
     y = qmm.w8a8_gemv(x, wt, st, counter=name)
     ref = qmm.w8a8_gemv_plain(x, wt, st)
     torch.cuda.synchronize()
@@ -362,9 +376,8 @@ def check_w8a8(dev, records):
     log(f"[check] {name} IN={IN} OUT={OUT}: bit-equal {same}, max_abs_err={err:.3e}")
     assert same and bool(torch.isfinite(y).all()), f"{name} disagrees with its plain version"
 
-    nbytes = IN * OUT + 4 * OUT + 2 * IN + 4 * OUT
-    ms = time_ms(lambda i: qmm.w8a8_gemv(x, wt, st, counter=name), 50)
-    plain_ms = time_ms(lambda i: qmm.w8a8_gemv_plain(x, wt, st), 3, 1)
+    ms = time_ms(lambda i: qmm.w8a8_gemv(x, *layers[i % n], counter=name), 50)
+    plain_ms = time_ms(lambda i: qmm.w8a8_gemv_plain(x, *layers[i % n]), 3, 1)
     b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
     # The library's int8 GEMM: cuBLASLt takes at least 17 rows, so the
     # activations are quantized and padded to 32 rows beforehand.
@@ -373,7 +386,11 @@ def check_w8a8(dev, records):
     xq32[:1] = xq.to(torch.int8)
     sx32 = torch.ones((32, 1), device=dev)
     sx32[:1] = sx
-    lib = lambda i: (torch._int_mm(xq32, wt.t()).float() * st) * sx32  # noqa: E731
+
+    def lib(i):
+        wt_i, st_i = layers[i % n]
+        return (torch._int_mm(xq32, wt_i.t()).float() * st_i) * sx32
+
     try:
         lib_same = torch.equal(lib(0)[:1], ref)
         library_ms = time_ms(lib, 50)
@@ -385,6 +402,67 @@ def check_w8a8(dev, records):
         f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library {lib_text}")
     record(records, name, name, "w8a8_gemv.cu", "ops/pallas_qmm.py:1293", err, "bit-equal",
            0.0, ms, plain_ms, b_ms, b_by, library_ms)
+    del layers
+
+
+#: K10's shapes: the unfused rowpack projections of the JAX package's
+#: unstacked path (Llama-3-8B), each with the fused counter of the port's
+#: projection that computes it.
+K10_SHAPES = [  # (label, IN, OUT, counter)
+    ("wq", 4096, 4096, "w4a8_gemv.wqkv"),
+    ("wk_wv", 4096, 1024, "w4a8_gemv.wqkv"),
+    ("w1_w3", 4096, 14336, "w4a8_gemv.w13"),
+    ("w2", 14336, 4096, "w4a8_gemv.w2"),
+]
+CLI_RUN = "generate CLI (int4 checkpoint, heavy_hitter_pyramid kv8)"
+
+
+def check_k10(dev, records):
+    """K10 (the TPU's rowpack layouts of K1's function) runs as K1's kernel
+    after the port's one repack. Each leaf is quantized on the card from
+    normal weights (per-group scales and zeros that vary); the kernel is
+    held against K1's plain version and against the rowpack function
+    computed from the unrepacked checkpoint bytes."""
+    from cold_compress_tpu_torch.ops import qmm
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_weight_int4
+
+    gs = 128
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for label, IN, OUT, counter in K10_SHAPES:
+        ng = IN // gs
+        nbytes = IN * OUT // 2 + OUT * ng * 4 + 2 * IN + 4 * OUT
+        n = copies_for(nbytes)
+        leaves, packed = [], []
+        for _ in range(n):
+            leaf = quantize_weight_int4(torch.randn((IN, OUT), device=dev, generator=gen) * 0.02,
+                                        gs)
+            leaves.append(leaf)
+            packed.append(qmm.rowpack_to_gemv(leaf["w"], leaf["scales"], leaf["zeros"]))
+        x = torch.randn((1, IN), device=dev, generator=gen).to(torch.bfloat16)
+        name = f"k10.{label}"
+        y = qmm.w4a8_gemv(x, *packed[0], gs, counter=counter)
+        ref = qmm.w4a8_gemv_plain(x, *packed[0], gs)
+        lf = leaves[0]
+        ref_rp = qmm.w4a8_rowpack_plain(x, lf["w"], lf["scales"], lf["zeros"], gs)
+        torch.cuda.synchronize()
+        assert y.shape == (1, OUT) and bool(torch.isfinite(y).all()), name
+        err, err_rp = max_err(y, ref), max_err(y, ref_rp)
+        tol = 1e-4 * float(ref.abs().max()) + 1e-6
+        log(f"[check] {name} IN={IN} OUT={OUT}: against K1's plain version max_abs_err="
+            f"{err:.3e}, against the rowpack plain version {err_rp:.3e}, tol={tol:.3e}")
+        assert err <= tol and err_rp <= tol, f"{name}: kernel disagrees with a plain version"
+
+        ms = time_ms(lambda i: qmm.w4a8_gemv(x, *packed[i % n], gs, counter=counter), 50)
+        plain_ms = time_ms(lambda i: qmm.w4a8_gemv_plain(x, *packed[i % n], gs), 5, 1)
+        b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
+        log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+            f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none")
+        record(records, name, counter, "w4a8_gemv.cu", "ops/pallas_qmm.py:294", max(err, err_rp),
+               "1e-4*max|ref| + 1e-6", max(err, err_rp) / tol, ms, plain_ms, b_ms, b_by, None,
+               from_run=CLI_RUN, also_replaces=[f"{REPO_TPU}/ops/pallas_qmm.py:215",
+                                                f"{REPO_TPU}/ops/pallas_qmm.py:407 (flat)",
+                                                f"{REPO_TPU}/ops/pallas_qmm.py:890"])
+        del leaves, packed
 
 
 def check_flash_prefill(dev, records):
@@ -556,16 +634,17 @@ def make_caches(cfg, kw: dict, context: int, device: str):
 
 
 def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head",
-                      prefill_w4a8: bool = False) -> dict:
+                      prefill_w4a8: bool = False, layers: str = "w4a8_gemv") -> dict:
     """Exact kernel launches of a run of ``steps`` decode steps (plus the
-    prefill) at head_dim 128: every projection and the head once per step
-    (the head once more for the prefill's last row), decode attention per
-    layer per step at the cache's precision, one flash prefill per layer
-    (the profiling one, K6, for hybrid), and the fused eviction per layer
-    per step for a one-slot heavy-hitter history (a debug_heavy_hitter
-    shadow's too). A debug_* cache attends over its full bf16 outer cache
-    with pooled probabilities. With ``prefill_w4a8`` each layer projection
-    also runs K8 once, at prefill."""
+    prefill) at head_dim 128: every projection (``layers`` names their
+    kernel, None for dense bf16 layers) and the head (``head``, None for a
+    dense one) once per step (the head once more for the prefill's last
+    row), decode attention per layer per step at the cache's precision, one
+    flash prefill per layer (the profiling one, K6, for hybrid), and the
+    fused eviction per layer per step for a one-slot heavy-hitter history (a
+    debug_heavy_hitter shadow's too). A debug_* cache attends over its full
+    bf16 outer cache with pooled probabilities. With ``prefill_w4a8`` each
+    layer projection also runs K8 once, at prefill."""
     from cold_compress_tpu_torch.caches import get_cache_strategy
     from cold_compress_tpu_torch.ops import decode_attn
 
@@ -579,10 +658,11 @@ def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head",
     elif strategy.startswith("debug_"):
         bits, evicting = 16, strategy[len("debug_"):]
     projections = ("wqkv", "wo", "w13", "w2")
-    want = {f"w4a8_gemv.{p}": n * steps for p in projections}
+    want = {f"{layers}.{p}": n * steps for p in projections} if layers else {}
     if prefill_w4a8:
         want.update({f"w4a8_gemm.{p}": n for p in projections})
-    want[head] = steps + 1
+    if head:
+        want[head] = steps + 1
     want[decode_attn.variant(bits, needs_attn)] = n * steps
     want["flash_profile" if strategy == "hybrid" else "flash_prefill_summary"] = n
     if evicting == "heavy_hitter" and kw.get("history_window_size", 1) == 1:
@@ -596,17 +676,25 @@ def witness(run_name: str, C: int, launches: dict, want: dict, runs: list) -> No
     runs.append((run_name, C, got))
 
 
-IN_SITU = [  # (strategy, cache bits, kept positions must match exactly)
-    ("heavy_hitter", 8, False),
-    ("random", 2, True),
-    ("keep_it_odd", 4, True),
-    ("heavy_hitter", 16, False),
-    ("heavy_hitter", 4, False),
-    ("heavy_hitter", 2, False),
-    ("recent_global", 8, True),
-    ("hybrid", 8, False),
-    ("debug_heavy_hitter", 8, False),
+IN_SITU = [  # (strategy, cache bits, kept positions must match exactly, layer weights)
+    ("heavy_hitter", 8, False, "int4"),
+    ("random", 2, True, "int4"),
+    ("keep_it_odd", 4, True, "int4"),
+    ("heavy_hitter", 16, False, "int4"),
+    ("heavy_hitter", 4, False, "int4"),
+    ("heavy_hitter", 2, False, "int4"),
+    ("recent_global", 8, True, "int4"),
+    ("hybrid", 8, False, "int4"),
+    ("debug_heavy_hitter", 8, False, "int4"),
+    ("heavy_hitter", 8, False, "int8"),
+    ("heavy_hitter", 8, False, "bf16"),
 ]
+#: Layer and head kernels by weight kind: random int4 weights
+#: (``random_quantized_params``), ``init_params`` quantized to int8 layers
+#: and head (``quantize_params(mode="int8")``), and ``init_params`` as they
+#: are (dense bf16, no kernel).
+WEIGHT_KERNELS = {"int4": ("w4a8_gemv", "w4a8_gemv.head"),
+                  "int8": ("w8a8_gemv", "w8a8_gemv.head"), "bf16": (None, None)}
 #: The in-situ hybrid run's threshold: with layer 1's attention sharpened
 #: (see ``sharpened_layer``), bench.py's menu sends layer 0's head to
 #: special_punc_heavy_hitter (its heavy hitters recover ~0.901 of the
@@ -648,10 +736,23 @@ def recorded_profile_scores():
         hybrid._profile_finalize = finalize
 
 
+def tree_to(node, device):
+    """A parameter tree with every tensor moved to ``device``."""
+    if isinstance(node, torch.Tensor):
+        return node.to(device)
+    if isinstance(node, dict):
+        return {k: tree_to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [tree_to(v, device) for v in node]
+    return node
+
+
 def in_situ_parity(dev, runs: list):
-    from cold_compress_tpu_torch.models.transformer import prefill
+    from cold_compress_tpu_torch.models.transformer import init_params, prefill
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
-    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+    from cold_compress_tpu_torch.quantization.weight_quant import (
+        quantize_params, random_quantized_params,
+    )
     from cold_compress_tpu_torch.runtime.engine import build_model as build, params_from_flat
     from cold_compress_tpu_torch.runtime.generate import generate
 
@@ -659,13 +760,19 @@ def in_situ_parity(dev, runs: list):
     forced = np.random.RandomState(1).randint(2, 500, size=8).tolist()
     forced_punc = forced[:2] + [20] + forced[3:5] + [33] + forced[6:]  # bench's punctuation
     tokens = prompt + [0] * (512 - len(prompt))
-    models = {device: build_model("TestKernel", 0, device, 512) for device in (dev, "cpu")}
-    cfg = models["cpu"][0]
+    built = {device: build_model("TestKernel", 0, device, 512) for device in (dev, "cpu")}
+    cfg = built["cpu"][0]
+    models = {"int4": {device: model for device, (_, model) in built.items()}}
     flat = random_quantized_params(cfg, seed=0, head_mode="int4")
     sharp = {device: build(cfg, sharpened_layer(params_from_flat(flat, device)), device,
                            max_positions=512) for device in (dev, "cpu")}
+    dense = init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16, "cpu")
+    for kind, tree in (("bf16", dense), ("int8", quantize_params(dense, "int8",
+                                                                 output_mode="int8"))):
+        models[kind] = {device: build(cfg, tree_to(tree, device), device, max_positions=512)
+                        for device in (dev, "cpu")}
     with recorded_profile_scores() as scores:
-        for strategy, bits, exact_pos in IN_SITU:
+        for strategy, bits, exact_pos, weights in IN_SITU:
             kw = cache_kw(strategy, bits)
             forced_s = forced
             if strategy == "hybrid":
@@ -673,7 +780,7 @@ def in_situ_parity(dev, runs: list):
                 forced_s = forced_punc
             out = {}
             for device in (dev, "cpu"):
-                model = sharp[device] if strategy == "hybrid" else models[device][1]
+                model = sharp[device] if strategy == "hybrid" else models[weights][device]
                 caches = make_caches(cfg, kw, 512, device)
                 with torch.inference_mode():
                     logits = prefill(model, caches, torch.tensor([tokens], device=device),
@@ -693,10 +800,12 @@ def in_situ_parity(dev, runs: list):
                                np.stack([c.pos.cpu().numpy() for c in caches]), launches, extra)
             (l_g, e_g, f_g, pos_g, launches, x_g), (l_c, e_c, f_c, pos_c, cpu_launches, x_c) = (
                 out[dev], out["cpu"])
-            run_name = f"in-situ TestKernel {strategy} kv{bits}"
+            run_name = f"in-situ TestKernel {strategy} kv{bits}" + (
+                f", {weights} layers" if weights != "int4" else "")
             assert not any(cpu_launches.values()), "CPU tensors must take the plain versions"
+            layer_kernel, head_kernel = WEIGHT_KERNELS[weights]
             witness(run_name, caches[0].spec.max_cache_length, launches,
-                    expected_launches(cfg, kw, 7), runs)
+                    expected_launches(cfg, kw, 7, head_kernel, layers=layer_kernel), runs)
             if strategy == "hybrid":
                 check_hybrid_policies(run_name, x_g, x_c, kw["min_recovery_frac"])
             if "attention_losses" in x_c:
@@ -725,6 +834,82 @@ def in_situ_parity(dev, runs: list):
             assert np.all(np.isfinite(l_g)) and gap_l <= tol_l, run_name
             assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol, run_name
             assert same_pos == 1.0 or not exact_pos, f"{run_name}: kept positions differ"
+
+
+def quantize_on_card_matches_cpu(dev):
+    """The port's quantization on the card gives the CPU's bytes, for one
+    8B layer's wq (4096 -> 4096) and w2 (14336 -> 4096), int4 and int8."""
+    from cold_compress_tpu_torch.quantization.weight_quant import (
+        quantize_weight_int4, quantize_weight_int8,
+    )
+    from cold_compress_tpu_torch.runtime.engine import flatten_params
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for name, IN, OUT in (("wq", 4096, 4096), ("w2", 14336, 4096)):
+        w = (torch.randn((IN, OUT), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        for fn in (quantize_weight_int4, quantize_weight_int8):
+            card, cpu = flatten_params(fn(w)), flatten_params(fn(w.cpu()))
+            same = sorted(card) == sorted(cpu) and all(
+                card[k].dtype == cpu[k].dtype and card[k].tobytes() == cpu[k].tobytes()
+                for k in cpu)
+            log(f"[parity] {fn.__name__} of a {name} {IN}x{OUT} bf16 weight: card and CPU "
+                f"byte-identical: {same}")
+            assert same, f"{fn.__name__} on the card differs from the CPU"
+
+
+def cli_args(checkpoint, device, extra=()):
+    from cold_compress_tpu_torch.generate import parse_args
+
+    return parse_args(["--device", device, "--checkpoint_path", str(checkpoint), "--cache_config",
+                       "heavy_hitter_pyramid", "--max_cache_length", "0.25", "--cache_bits", "8",
+                       *extra])
+
+
+def cli_kw(args) -> dict:
+    """The cache options of a parsed CLI run, for ``expected_launches``."""
+    return {k: getattr(args, k) for k in ("cache_strategy", "cache_bits", "history_window_size")}
+
+
+def in_situ_cli(dev, runs: list):
+    """The generate CLI over an int4 TestKernel checkpoint quantized and
+    saved on the CPU, with ``heavy_hitter_pyramid`` (per-layer budgets of
+    ragged length): greedy on the card, then the card's tokens
+    teacher-forced through the same CLI on the CPU."""
+    import tempfile
+
+    from cold_compress_tpu_torch.generate import PROMPTS_DIR, run
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_params
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_params
+    from cold_compress_tpu_torch.runtime.engine import save_params
+
+    cfg = ModelConfig.from_name("TestKernel")
+    params = init_params(cfg, torch.Generator().manual_seed(3), torch.bfloat16, "cpu")
+    text = (PROMPTS_DIR / "long_prompt_short_output.txt").read_text()[:400]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = f"{tmp}/byte/TestKernel/model_int4.g128.npz"
+        save_params(quantize_params(params, "int4", 128, output_mode="int4"), path)
+        extra = ("--max_new_tokens", "8", "--prompt", text)
+        args = cli_args(path, dev, extra)
+        reset_kernel_launches()
+        seq, info, caches = run(args)
+        launches = kernel_launches()
+        P = info["prompt_length"]
+        seq_c, info_c, caches_c = run(cli_args(path, "cpu", extra), next_tokens=seq[P:])
+    run_name = "in-situ TestKernel generate CLI heavy_hitter_pyramid kv8"
+    lengths = [c.spec.max_cache_length for c in caches]
+    witness(run_name, lengths[0], launches,
+            expected_launches(cfg, cli_kw(args), info["perf_stats"]["decode_steps"]), runs)
+    e_g, e_c = np.asarray(info["emitted_probs"]), np.asarray(info_c["emitted_probs"])
+    f_g, f_c = np.asarray(info["final_probs"]), np.asarray(info_c["final_probs"])
+    gap, gap_f, tol = float(np.abs(e_g - e_c).max()), float(np.abs(f_g - f_c).max()), \
+        5e-2 * float(e_c.max())
+    log(f"[parity] {run_name}: cache lengths {lengths}, prompt {P} tokens, card tokens "
+        f"{seq[P:]}; card vs cpu (the card's tokens forced): emitted_probs max gap {gap:.3e}, "
+        f"final_probs max gap {gap_f:.3e} (tol {tol:.3e})")
+    assert seq_c == seq and len(set(lengths)) > 1 and any(n % 128 for n in lengths), run_name
+    assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol, run_name
 
 
 def check_hybrid_policies(run_name, on_card, on_cpu, min_recovery: float):
@@ -783,7 +968,7 @@ def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: 
 
 
 def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head_counter,
-            profile=False):
+            profile=False, layers="w4a8_gemv"):
     """One ``generate()`` run at full width after a short warm-up, with its
     launch witness and output checks; with ``profile``, then a profile of a
     few more decode steps."""
@@ -809,26 +994,8 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
         f"({perf['prefill_toks_per_sec']:.1f} tok/s); decode {perf['decode_toks_per_sec']:.3f} "
         f"tok/s over {steps} steps; peak memory {peak_gb:.3f} GB  [{card}]")
 
-    gen_tokens = seq[prompt_len:]
-    assert steps == new_tokens - 1 and len(gen_tokens) == new_tokens, run_name
-    assert all(0 <= t < cfg.vocab_size for t in gen_tokens), run_name
-    final = np.asarray(info["final_probs"])
-    assert final.shape == (cfg.vocab_size,) and np.all(np.isfinite(final)), run_name
-    assert abs(float(final.sum()) - 1.0) < 1e-3, run_name
-    emitted = np.asarray(info["emitted_probs"])
-    assert emitted.shape == (new_tokens,) and np.all((emitted > 0) & (emitted <= 1)), run_name
     hybrid = kw["cache_strategy"][0] == "hybrid"
-    for c in caches:
-        C = c.spec.max_cache_length
-        pos = c.pos[0].cpu().numpy()
-        filled = [row[row >= 0] for row in pos]
-        assert all(len(set(r.tolist())) == len(r) for r in filled), "duplicate positions"
-        if hybrid:  # per-head budgets: each head keeps what its policy allows
-            assert int(c.cache_ct.max()) <= C, run_name
-            assert torch.equal(c.cache_ct, c.mask.sum(-1).to(torch.int32)), run_name
-        else:
-            assert int(c.cache_ct.min()) == min(C, prompt_len + steps), run_name
-            assert int(pos.max()) == prompt_len + new_tokens - 2  # last decoded token's slot
+    check_outputs(run_name, cfg, seq, info, caches, prompt_len, new_tokens, hybrid)
     if hybrid:
         from cold_compress_tpu_torch.caches.hybrid import HybridCache
 
@@ -842,7 +1009,7 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
             + f"; kept slots per head min {int(kept.min())}, mean {float(kept.mean()):.1f}, "
               f"max {int(kept.max())} of C={spec.max_cache_length}")
     witness(run_name, caches[0].spec.max_cache_length, launches,
-            expected_launches(cfg, kw, steps, head_counter), runs)
+            expected_launches(cfg, kw, steps, head_counter, layers=layers), runs)
     if profile:
         profile_decode(model, caches, seq[-1], len(seq), 8, card, run_name)
 
@@ -889,6 +1056,138 @@ def prefill_w4a8_run(cfg, model, dev, card, runs):
     assert len(seq) == prompt_len + 8, run_name
     witness(run_name, caches[0].spec.max_cache_length, launches,
             expected_launches(cfg, kw, 7, prefill_w4a8=True), runs)
+
+
+def check_outputs(run_name, cfg, seq, info, caches, prompt_len, new_tokens, hybrid=False):
+    """Finite outputs of the expected shapes, and caches that hold each
+    position once: filled to their length and ending on the last decoded
+    token, or, for hybrid's per-head budgets, each head within its cache."""
+    steps = info["perf_stats"]["decode_steps"]
+    gen_tokens = seq[prompt_len:]
+    assert steps == new_tokens - 1 and len(gen_tokens) == new_tokens, run_name
+    assert all(0 <= t < cfg.vocab_size for t in gen_tokens), run_name
+    final = np.asarray(info["final_probs"])
+    assert final.shape == (cfg.vocab_size,) and np.all(np.isfinite(final)), run_name
+    assert abs(float(final.sum()) - 1.0) < 1e-3, run_name
+    emitted = np.asarray(info["emitted_probs"])
+    assert emitted.shape == (new_tokens,) and np.all((emitted > 0) & (emitted <= 1)), run_name
+    for c in caches:
+        C = c.spec.max_cache_length
+        pos = c.pos[0].cpu().numpy()
+        assert all(len(set(r[r >= 0].tolist())) == int((r >= 0).sum()) for r in pos), run_name
+        if hybrid:
+            assert int(c.cache_ct.max()) <= C, run_name
+            assert torch.equal(c.cache_ct, c.mask.sum(-1).to(torch.int32)), run_name
+        else:
+            assert int(c.cache_ct.min()) == min(C, prompt_len + steps), run_name
+            assert int(pos.max()) == prompt_len + new_tokens - 2, run_name  # the last token
+
+
+def scratch_dir(need_bytes: int) -> str:
+    """A new directory with ``need_bytes`` free: under the temporary
+    directory, else under the checkout's git-ignored ``build/``. Raises if
+    neither has the room."""
+    import os
+    import shutil
+    import tempfile
+
+    for base in (tempfile.gettempdir(), os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                     "build")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        log(f"[e2e] {base}: {free / 1e9:.1f} GB free, {need_bytes / 1e9:.1f} GB needed")
+        if free >= need_bytes:
+            return tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
+    raise RuntimeError(f"no directory with {need_bytes / 1e9:.1f} GB free for the checkpoint")
+
+
+def cli_full_run(dev, card, runs):
+    """The quantize/generate CLI path at Llama-3-8B's full width and depth:
+    random bf16 weights drawn on the card, ``quantize_params(mode="int4",
+    group_size=128, output_mode="int4")`` (what ``quantize --mode int4``
+    does) leaf by leaf on the card, ``save_params`` to a ``byte`` path, then
+    ``generate.run`` over that file with ``heavy_hitter_pyramid`` kv8 at 25%
+    (per-layer budgets: the JAX package's unstacked rowpack path, K10), the
+    default prompt file cut to 8064 byte tokens, 128 greedy tokens."""
+    import os
+    import shutil
+
+    from cold_compress_tpu_torch.generate import run
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_params, model_size_bytes
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_params
+    from cold_compress_tpu_torch.runtime.engine import save_params
+
+    name = "Meta-Llama-3-8B-Instruct"
+    cfg = ModelConfig.from_name(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    quantized = quantize_params(params, "int4", 128, output_mode="int4")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bf16_gb = model_size_bytes(params) / 1e9
+    del params
+    log(f"[e2e] {name} bf16 weights drawn on the card in {t1 - t0:.1f} s ({bf16_gb:.2f} GB "
+        f"without embeddings), quantized to int4 on the card in {t2 - t1:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    tmp = scratch_dir(7 * 10**9)
+    try:
+        path = os.path.join(tmp, "byte", name, "model_int4.g128.npz")
+        t0 = time.perf_counter()
+        save_params(quantized, path)
+        write_s = time.perf_counter() - t0
+        del quantized
+        torch.cuda.empty_cache()
+        log(f"[e2e] save_params: {os.path.getsize(path)} bytes written in {write_s:.1f} s "
+            f"to {path}")
+        args = cli_args(path, dev, ("--max_new_tokens", "128"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()
+        seq, info, caches = run(args)
+        launches = kernel_launches()
+    finally:
+        shutil.rmtree(tmp)
+    perf = info["perf_stats"]
+    P = info["prompt_length"]
+    lengths = [c.spec.max_cache_length for c in caches]
+    log(f"[e2e] {CLI_RUN}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"[e2e] {CLI_RUN}: load {info['load_seconds']:.1f} s, per-layer C {lengths}, prefill "
+        f"{perf['prefill_seconds']:.4f} s for {P} tokens ({perf['prefill_toks_per_sec']:.1f} "
+        f"tok/s); decode {perf['decode_toks_per_sec']:.3f} tok/s over {perf['decode_steps']} "
+        f"steps; peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB  [{card}]")
+    log(f"[e2e] {CLI_RUN}: generation {info['generation'][:80]!r}")
+    assert P == 8064, f"{CLI_RUN}: prompt of {P} tokens, want 8192 - 128"
+    assert len(set(lengths)) > 1 and any(n % 128 for n in lengths), lengths
+    check_outputs(CLI_RUN, cfg, seq, info, caches, P, 128)
+    witness(CLI_RUN, lengths[0], launches,
+            expected_launches(cfg, cli_kw(args), perf["decode_steps"]), runs)
+
+
+def int8_bench_run(dev, card, runs, profile=False):
+    """``bench --weight_bits 8`` at bench's defaults: int8 layers from
+    ``random_quantized_params(mode="int8")`` (whose head is int8 too, as
+    in the JAX package), kv8 heavy_hitter at 25% of 8192, 64 tokens."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+    from cold_compress_tpu_torch.runtime.engine import build_model as build, params_from_flat
+
+    cfg = ModelConfig.from_name("Meta-Llama-3-8B-Instruct")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flat = random_quantized_params(cfg, seed=0, mode="int8", head_mode="int4")
+    model = build(cfg, params_from_flat(flat, dev), dev, max_positions=8192)
+    del flat
+    torch.cuda.synchronize()
+    log(f"[e2e] Llama-3-8B int8 built in {time.perf_counter() - t0:.1f} s")
+    e2e_run("bench --weight_bits 8 (int8 layers and head)", cfg, model,
+            cache_kw("heavy_hitter", 8), 8192, 64, dev, card, runs, "w8a8_gemv.head", profile,
+            layers="w8a8_gemv")
 
 
 def end_to_end(dev, card, runs, profile=False):
@@ -973,13 +1272,15 @@ def main() -> int:
 
     records = []
     check_w4a8(dev, records)
+    check_k10(dev, records)
     for bits in (16, 8, 4, 2):
         for need_attn in (True, False):
             check_decode(dev, records, bits, need_attn, 2048)
     for bits in (16, 8, 4):
         check_decode(dev, records, bits, False, 32768)
     check_hh_evict(dev, records)
-    check_w8a8(dev, records)
+    for name, IN, OUT in W8A8_SHAPES:
+        check_w8a8(dev, records, name, IN, OUT)
     check_flash_prefill(dev, records)
     for windows in ((2457,), (819, 2457)):
         check_flash_profile(dev, records, windows)
@@ -990,18 +1291,26 @@ def main() -> int:
     runs = []  # (run name, its cache length, its launches), phase 4 first
     in_situ = []
     in_situ_parity(dev, in_situ)
+    in_situ_cli(dev, in_situ)
+    quantize_on_card_matches_cpu(dev)
     log(f"[phase3] done at {time.perf_counter() - t_start:.1f} s")
     end_to_end(dev, card, runs, profile=args.profile)
+    log(f"[phase4] bench paths done at {time.perf_counter() - t_start:.1f} s")
+    cli_full_run(dev, card, runs)
+    log(f"[phase4] CLI run done at {time.perf_counter() - t_start:.1f} s")
+    int8_bench_run(dev, card, runs, profile=args.profile)
     runs += in_situ
 
-    # Each kernel's launches come from the first run that drives it: the
-    # full-width runs of phase 4, else the in-situ runs of phase 3. A
-    # record's C is where phase 2 checked it; path_C is the cache length of
-    # the run whose launches it reports.
+    # Each kernel's launches come from the run its record names (K10's: the
+    # CLI run), else from the first run that drives it: the full-width runs
+    # of phase 4, else the in-situ runs of phase 3. A record's C is where
+    # phase 2 checked it; path_C is the cache length of the run whose
+    # launches it reports.
     kernels = []
     for rec in records:
         path, path_C, n = next(((r, C, got[rec["counter"]]) for r, C, got in runs
-                                if rec["counter"] in got), (None, None, 0))
+                                if rec["counter"] in got
+                                and rec.get("from_run", r) == r), (None, None, 0))
         assert n > 0, f"{rec['name']} was launched by no run through generate()"
         kernels.append({**rec, "launches": n, "path": path, "path_C": path_C})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

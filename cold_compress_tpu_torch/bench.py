@@ -14,10 +14,13 @@ power limit.
 Served: every ``--strategy`` (``hybrid`` with ``bench.py``'s FastGen menu,
 and ``debug_<strategy>``, the attention-loss analysis of ``<strategy>``),
 ``--cache_bits 16/8/4/2``, ``--head_bits 4/8``, any ``--context`` up to the
-model's block size, and ``--prefill_w4a8`` (the W4A8 prefill kernel, the
+model's block size, ``--prefill_w4a8`` (the W4A8 prefill kernel, the
 explicit counterpart of the JAX package's ``CCT_PREFILL_W4A8=1``; off by
-default there too). ``--weight_bits`` other than 4 and ``--batch`` above 1
-are not ported yet and raise.
+default there too; int4 layers only), and ``--weight_bits 8/16``: int8
+layers (``random_quantized_params(mode="int8")``, whose head is int8 at
+either ``--head_bits``, as in the JAX package) through the W8A8 kernel, or
+dense bf16 layers and head (``init_params``, seed 0) through
+``torch.matmul``. ``--batch`` above 1 is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -103,8 +106,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="Prefill the int4 layer projections with the W4A8 kernel (int8 "
                          "activations) instead of bf16 dequantization.")
     args = ap.parse_args(argv)
-    if args.weight_bits != 4:
-        raise ValueError(f"--weight_bits {args.weight_bits} {NOT_PORTED} (int4 only)")
+    if args.prefill_w4a8 and args.weight_bits != 4:
+        raise ValueError("--prefill_w4a8 needs int4 layers (--weight_bits 4)")
     if args.batch != 1:
         raise ValueError(f"--batch {args.batch} {NOT_PORTED} (batch 1 only)")
     if args.smoke:
@@ -115,7 +118,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def run(args: argparse.Namespace) -> dict:
     from .caches import cache_memory_gb
     from .models.config import ModelConfig
-    from .models.transformer import init_caches
+    from .models.transformer import init_caches, init_params
     from .quantization.weight_quant import random_quantized_params
     from .runtime.engine import (
         build_cache_specs, build_model, cache_compatibility, params_from_flat,
@@ -132,10 +135,15 @@ def run(args: argparse.Namespace) -> dict:
     cache_bits = None if args.cache_bits == 16 else args.cache_bits
     kw = cache_kwargs(args.strategy, args.budget_frac, args.global_tokens, cache_bits)
     cache_compatibility(kw)
-    flat = random_quantized_params(cfg, seed=0, head_mode=f"int{args.head_bits}")
-    model = build_model(cfg, params_from_flat(flat, device), device,
-                        max_positions=args.context, prefill_w4a8=args.prefill_w4a8)
-    del flat
+    if args.weight_bits == 16:
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                             torch.bfloat16, device)
+    else:
+        params = params_from_flat(random_quantized_params(
+            cfg, seed=0, mode=f"int{args.weight_bits}", head_mode=f"int{args.head_bits}"), device)
+    model = build_model(cfg, params, device, max_positions=args.context,
+                        prefill_w4a8=args.prefill_w4a8)
+    del params
     specs = build_cache_specs(cfg, kw, args.context)
     caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
 

@@ -342,19 +342,21 @@ def init_caches(cfg: ModelConfig, specs, batch_size: int = 1, dtype=torch.bfloat
 
 
 def _concat_leaves(leaves):
-    """Concatenate weight leaves along the output (last) axis: dense tensors
-    or int4 rowpack dicts (bytes, scales and zeros all end in the output
-    axis), so the fused projection computes exactly the unfused ones."""
-    if isinstance(leaves[0], dict):
-        if any(l.get("kind") == "int8" for l in leaves):
-            raise ValueError("int8 layer weights are not ported yet (only an int8 vocab head)")
-        gs = leaves[0]["group_size"]
-        if not all(isinstance(l, dict) and l["group_size"] == gs for l in leaves):
+    """Concatenate weight leaves along the output (last) axis: dense tensors,
+    int4 rowpack dicts (bytes, scales and zeros all end in the output axis)
+    or int8 dicts (``w`` [in, out], ``scales`` [out]), so the fused
+    projection computes exactly the unfused ones."""
+    first = leaves[0]
+    if isinstance(first, dict):
+        kind, gs = first.get("kind"), first["group_size"]
+        if not all(isinstance(l, dict) and l.get("kind") == kind and l["group_size"] == gs
+                   for l in leaves):
             raise ValueError("fused projections must share quantization settings")
-        return {
-            key: torch.cat([l[key] for l in leaves], dim=-1)
-            for key in ("w", "scales", "zeros")
-        } | {"group_size": gs}
+        keys = ("w", "scales") if kind == "int8" else ("w", "scales", "zeros")
+        return {key: torch.cat([l[key] for l in leaves], dim=-1) for key in keys} | {
+            k: first[k] for k in ("kind", "group_size") if k in first}
+    if any(isinstance(l, dict) for l in leaves):
+        raise ValueError("fused projections must share quantization settings")
     return torch.cat(leaves, dim=-1)
 
 
@@ -373,3 +375,55 @@ def fuse_layer_params(params: Params) -> Params:
         return {**lp, "attn": attn, "ffn": ffn}
 
     return {**params, "layers": [fuse_one(lp) for lp in params["layers"]]}
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                dtype=torch.bfloat16, device=None) -> Params:
+    """Random-normal weights (``0.02 * N(0, 1)`` drawn in f32, cast to
+    ``dtype``) in the JAX package's ``init_params`` layout: the same shapes,
+    dtypes and order, unfused, norms one, biases zero. The values come from
+    ``generator`` (seeded 0 when omitted) on ``device``, not from JAX's
+    keys; parity with the JAX package goes through checkpoints."""
+    dev = resolve_device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    D, H, KVH, hd, I = cfg.dim, cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.intermediate_size
+
+    def dense(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+
+    layers = []
+    for _ in range(cfg.n_layer):
+        attn = {"wq": dense(D, H * hd), "wk": dense(D, KVH * hd), "wv": dense(D, KVH * hd),
+                "wo": dense(H * hd, D)}
+        if cfg.attention_bias:
+            attn |= {"bq": torch.zeros(H * hd, dtype=dtype, device=dev),
+                     "bk": torch.zeros(KVH * hd, dtype=dtype, device=dev),
+                     "bv": torch.zeros(KVH * hd, dtype=dtype, device=dev)}
+        layers.append({
+            "attn": attn,
+            "ffn": {"w1": dense(D, I), "w3": dense(D, I), "w2": dense(I, D)},
+            "attention_norm": torch.ones(D, dtype=dtype, device=dev),
+            "ffn_norm": torch.ones(D, dtype=dtype, device=dev),
+        })
+    return {
+        "tok_embeddings": dense(cfg.vocab_size, D),
+        "layers": layers,
+        "norm": torch.ones(D, dtype=dtype, device=dev),
+        "output": None if cfg.tie_word_embeddings else dense(D, cfg.vocab_size),
+    }
+
+
+def model_size_bytes(params: Params) -> int:
+    """Bytes of every parameter tensor but the token embeddings (the JAX
+    package's ``model_size_bytes`` on the same tree)."""
+
+    def size(node) -> int:
+        if isinstance(node, torch.Tensor):
+            return node.numel() * node.element_size()
+        if isinstance(node, dict):
+            return sum(size(v) for v in node.values())
+        if isinstance(node, (list, tuple)):
+            return sum(size(v) for v in node)
+        return 0
+
+    return sum(size(v) for k, v in params.items() if k != "tok_embeddings")

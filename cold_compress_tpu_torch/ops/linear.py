@@ -15,9 +15,12 @@ is repacked once into the W4A8 kernel's layout (``ops/qmm.py``).
 kernel (K8), which quantizes the activations to int8 as K1 does.
 
 An int8 weight (``{"kind": "int8", "w": int8 [in, out], "scales": f32
-[out]}``, the ``--head_bits 8`` vocab head) becomes an ``Int8Linear``: L <=
-32 goes to the W8A8 kernel (K9); larger L dequantizes to bf16 for
-``torch.matmul``, as the JAX package's XLA int8 path does outside Pallas.
+[out]}``: the ``--head_bits 8`` vocab head, or every projection of an int8
+checkpoint) becomes an ``Int8Linear``: L <= 32 goes to the W8A8 kernel (K9),
+which forms ``(d * s) * sx`` where the JAX package's XLA ``w8a8_matmul``
+forms ``(d * sx) * s`` (one f32 rounding apart); larger L dequantizes to
+bf16 for ``torch.matmul``, as the JAX package's int8 path does at prefill.
+Dense (bf16) weights go to ``torch.matmul``, as the JAX package's XLA dots.
 """
 
 from __future__ import annotations

@@ -14,7 +14,14 @@ z_g * xs_g)`` in f32. This is W4A8, as on the TPU, not W4A16.
 
 Bound on the H100: bytes (the weight stream at batch 1). The layout is the
 port's own ("gemv", see the kernel source): each output column's nibbles
-contiguous, repacked once from the checkpoint's rowpack. The prefill paths
+contiguous, repacked once from the checkpoint's rowpack. That repack also
+ports K10, the TPU's older layouts of the same function: ``qmm_w4a8`` and
+``qmm_w4a8_stacked`` (pallas_qmm.py:294, :215; rowpack, which the JAX
+package's unstacked path runs, e.g. under per-layer cache budgets), the
+flat branch of ``qmm_w4a8_cp_stacked`` (:407) and ``qmm_w4a8_cpt_split``
+(:890). They differ from K1 only in f32 summation order and in how the zero
+term is kept; ``w4a8_rowpack_plain`` is the rowpack function computed from
+the checkpoint's bytes as they are. The prefill paths
 (``dequantize_gemv`` for bf16 ``torch.matmul``, or K8) read the same stored
 bytes, so the weights are held once.
 
@@ -40,11 +47,13 @@ import torch
 
 from . import _build
 
-#: Launch counts of the CUDA kernel, by caller: the four layer projections
-#: (K1) and the vocab head (K2). Incremented only where the kernel launches.
+#: Launch counts of the CUDA kernels, by kernel and caller: the four layer
+#: projections and the vocab head. Incremented only where a kernel launches.
 LAUNCHES = {
     "w4a8_gemv.wqkv": 0, "w4a8_gemv.wo": 0, "w4a8_gemv.w13": 0,
-    "w4a8_gemv.w2": 0, "w4a8_gemv.head": 0, "w8a8_gemv.head": 0,
+    "w4a8_gemv.w2": 0, "w4a8_gemv.head": 0,
+    "w8a8_gemv.wqkv": 0, "w8a8_gemv.wo": 0, "w8a8_gemv.w13": 0,
+    "w8a8_gemv.w2": 0, "w8a8_gemv.head": 0,
     "w4a8_gemm.wqkv": 0, "w4a8_gemm.wo": 0, "w4a8_gemm.w13": 0, "w4a8_gemm.w2": 0,
 }
 
@@ -158,6 +167,38 @@ def w4a8_gemv_plain(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
         z = sz[j0:j1, :, 1].float().t()[:, None, :]
         terms = d * s + xs.t()[:, :, None] * z
         out.append(terms.sum(0))
+    return torch.cat(out, dim=-1) * sx
+
+
+def w4a8_rowpack_plain(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+                       zeros: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Plain version of K10's rowpack function (``qmm_w4a8``,
+    pallas_qmm.py:294) on the checkpoint's bytes, unrepacked: x [L, IN] ->
+    y [L, OUT] f32. w int8 [IN/2, OUT] rowpack, scales/zeros [IN/gs, OUT].
+
+    As the TPU kernel keeps them: the low rows' groups (unsigned nibbles)
+    take ``s * sum(xq * q) + (z - 8 s) * xs`` with ``z - 8 s`` in f32, the
+    high rows' groups (signed q - 8) ``s * sum(xq * (q - 8)) + z * xs``;
+    the per-group dots are exact integers, and the sum is scaled by sx.
+    Each group lies in one half ((IN/2) % gs == 0, as the TPU gate asks)."""
+    L, IN = x.shape
+    gs = group_size
+    if (IN // 2) % gs:
+        raise ValueError(f"rowpack halves of {IN // 2} rows split groups of {gs}")
+    ng = IN // gs
+    xq, sx = quantize_activations(x)
+    xg = xq.reshape(L, ng, gs).transpose(0, 1)  # [ng, L, gs]
+    xs = xq.reshape(L, ng, gs).sum(-1).t()[:, :, None]  # [ng, L, 1] exact
+    hi = torch.arange(ng, device=x.device) >= ng // 2  # groups of rows IN/2..IN-1
+    out = []
+    for j0 in range(0, w.shape[1], PLAIN_COL_CHUNK):
+        j1 = min(w.shape[1], j0 + PLAIN_COL_CHUNK)
+        q = unpack_rowpack(w[:, j0:j1]).float() - 8.0 * hi.repeat_interleave(gs)[:, None]
+        d = torch.bmm(xg, q.reshape(ng, gs, j1 - j0))  # [ng, L, n] exact integers
+        s = scales[:, j0:j1].float()[:, None, :]
+        z = zeros[:, j0:j1].float()[:, None, :]
+        zterm = torch.where(hi[:, None, None], z, z - 8.0 * s)
+        out.append((d * s + xs * zterm).sum(0))
     return torch.cat(out, dim=-1) * sx
 
 

@@ -1,20 +1,22 @@
-"""Engine utilities: per-layer cache specs, compatibility checks, and the
-weight carry-over from the JAX package's checkpoint format.
+"""Engine utilities: per-layer cache specs, compatibility checks, and
+checkpoint IO in the JAX package's format.
 
-Counterpart of ``cold_compress_tpu/runtime/engine.py``. Checkpoints are the
-flat ``.npz`` that ``cold_compress_tpu/runtime/engine.py::save_params``
-writes: ``a/b/c`` key paths, ``#bf16`` for bf16 arrays stored as uint16
-views, ``#none`` for absent leaves, and a quantized weight as the keys
-``w``, ``scales``, ``zeros`` and ``qmeta = [bits, group_size]`` under its
-path (int4 weights also ``zeros``; ``qmeta`` bits 8 marks an int8 weight
-with f32 per-column scales). ``params_from_flat`` reads that scheme into
-tensors and
-``build_model`` turns the tree into a ``Transformer``.
+Counterpart of ``cold_compress_tpu/runtime/engine.py``. Checkpoints are a
+flat ``.npz``: ``a/b/c`` key paths, ``#bf16`` for bf16 arrays stored as
+uint16 views, ``#none`` for absent leaves, and a quantized weight as the
+keys ``w``, ``scales`` and ``qmeta = [bits, group_size]`` under its path
+(int4 weights also ``zeros``; ``qmeta`` bits 8 marks an int8 weight with
+per-column scales). ``save_params`` writes that scheme and
+``params_from_flat``/``load_params`` read it, so files pass both ways
+between the two packages; ``build_model`` turns a tree into a
+``Transformer``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,8 +117,19 @@ def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
     )
 
 
+def min_cache_length(specs: Sequence[CacheSpec]) -> int:
+    return min(s.max_cache_length for s in specs)
+
+
+def compute_max_seq_length(cfg: ModelConfig, prompt_lens: Sequence[int],
+                           max_new_tokens: int) -> Tuple[int, int]:
+    """(longest prompt, prompt + new tokens clamped to the block size)."""
+    max_prompt = max(prompt_lens)
+    return max_prompt, min(max_prompt + max_new_tokens, cfg.block_size)
+
+
 # --------------------------------------------------------------------------
-# Weight carry-over from the flat checkpoint scheme
+# Checkpoint IO in the flat key scheme
 # --------------------------------------------------------------------------
 
 
@@ -127,7 +140,8 @@ def _to_tensor(arr: np.ndarray, bf16: bool, device: torch.device) -> torch.Tenso
     return torch.from_numpy(arr).to(device)
 
 
-def params_from_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
+def params_from_flat(flat: Dict[str, np.ndarray], device=None,
+                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The parameter tree of the port's model from a flat checkpoint dict
     (``np.load`` of a ``save_params`` file, or ``random_quantized_params``).
 
@@ -135,9 +149,11 @@ def params_from_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]
     views); a quantized leaf becomes a dict ``{"w", "scales", "zeros",
     "group_size"}`` of int4 rowpack tensors, which the model repacks once
     into the W4A8 kernel's layout (``ops/qmm.py``); an int8 leaf becomes
-    ``{"kind": "int8", "w", "scales"}``. Legacy unsigned-nibble
-    (uint8) packs are read as they are: ``ops/qmm.py::unpack_rowpack``
-    takes both. Layer lists are rebuilt from their numeric path parts."""
+    ``{"kind": "int8", "w", "scales", "group_size"}``. Legacy
+    unsigned-nibble (uint8) packs are read as they are:
+    ``ops/qmm.py::unpack_rowpack`` takes both. Layer lists are rebuilt from
+    their numeric path parts. ``dtype`` casts every floating array (scales
+    included) to it, as the JAX package's ``load_params(dtype=)`` does."""
     dev = resolve_device(device)
     tree: Dict[str, Any] = {}
     for key, arr in flat.items():
@@ -153,7 +169,10 @@ def params_from_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]
         elif parts[-1] == "qmeta":
             node["qmeta"] = [int(x) for x in np.asarray(arr)]
         else:
-            node[parts[-1]] = _to_tensor(np.asarray(arr), is_bf16, dev)
+            t = _to_tensor(np.asarray(arr), is_bf16, dev)
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            node[parts[-1]] = t
     return _listify(tree)
 
 
@@ -162,7 +181,8 @@ def _listify(node):
         if "qmeta" in node:
             bits, group_size = node["qmeta"]
             if bits == 8:
-                return {"kind": "int8", "w": node["w"], "scales": node["scales"]}
+                return {"kind": "int8", "w": node["w"], "scales": node["scales"],
+                        "group_size": group_size}
             if bits != 4:
                 raise ValueError(f"int{bits} weights are not ported (int4 and int8 only)")
             return {
@@ -176,10 +196,63 @@ def _listify(node):
     return node
 
 
-def load_params(path: str, device=None) -> Dict[str, Any]:
+def load_params(path, device=None, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """``params_from_flat`` over a ``save_params`` ``.npz`` file."""
     with np.load(path, allow_pickle=False) as data:
-        return params_from_flat({k: data[k] for k in data.files}, device)
+        return params_from_flat({k: data[k] for k in data.files}, device, dtype)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def flatten_params(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A parameter tree (lists, dicts, quantized leaf dicts, tensors, None)
+    in the flat key scheme; bf16 arrays as ``#bf16`` uint16 views, so numpy
+    can hold them. Tensors are copied to the host one leaf at a time."""
+    flat: Dict[str, np.ndarray] = {}
+    if isinstance(params, dict) and "w" in params and "scales" in params:
+        bits = 8 if params.get("kind") == "int8" else 4
+        flat[prefix + "w"] = _array(params["w"])
+        for key in ("scales", "zeros"):
+            if params.get(key) is not None:
+                tag = "#bf16" if params[key].dtype == torch.bfloat16 else ""
+                flat[prefix + key + tag] = _array(params[key])
+        flat[prefix + "qmeta"] = np.array([bits, int(params.get("group_size", 128))])
+    elif isinstance(params, dict):
+        for k, v in params.items():
+            flat.update(flatten_params(v, f"{prefix}{k}/"))
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            flat.update(flatten_params(v, f"{prefix}{i}/"))
+    elif params is None:
+        flat[prefix[:-1] + "#none"] = np.zeros((0,))
+    else:
+        tag = "#bf16" if params.dtype == torch.bfloat16 else ""
+        flat[prefix[:-1] + tag] = _array(params)
+    return flat
+
+
+def save_params(params, path) -> None:
+    """Write a parameter tree to ``path`` (``.npz``) in the flat key scheme,
+    readable by the JAX package's ``load_params``."""
+    flat = flatten_params(params)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_model(checkpoint_path, precision: Optional[torch.dtype] = torch.bfloat16,
+               model_name: Optional[str] = None, device=None):
+    """(cfg, params) of a checkpoint. The architecture comes from
+    ``model_name`` or else the checkpoint's parent directory name; floating
+    arrays are cast to ``precision``, as the JAX package's ``load_model``
+    does. ``build_model`` then builds the model."""
+    path = Path(checkpoint_path)
+    cfg = ModelConfig.from_name(model_name or path.parent.name)
+    return cfg, load_params(path, device, dtype=precision)
 
 
 def build_model(cfg: ModelConfig, params: Dict[str, Any], device=None,

@@ -20,6 +20,7 @@ import torch
 
 from ..caches import reset_state
 from ..models.transformer import Transformer, decode_step, prefill
+from . import engine
 
 
 def bucket_length(n: int, minimum: int = 16) -> int:
@@ -43,6 +44,10 @@ def generate(
     *,
     next_tokens: Optional[Sequence[int]] = None,
     terminator_ids: Optional[Sequence[int]] = None,
+    feed_long_prompts: bool = False,
+    decode_first_token: bool = False,
+    min_cache_length: Optional[int] = None,
+    pad_id: int = 0,
     prefill_bucket: Optional[int] = None,
     attn_top_k: float = 1.0,
 ) -> Tuple[List[int], Dict[str, Any], Any]:
@@ -53,8 +58,14 @@ def generate(
 
     * ``next_tokens``: teacher forcing; every step emits the given token and
       records its probability.
-    * a prompt exactly as long as the smallest cache feeds its last token
+    * ``feed_long_prompts``: a prompt longer than ``min_cache_length - 1``
+      (by default the smallest cache's length) prefills its first
+      ``min_cache_length - 1`` tokens and feeds the rest through the decode
+      loop as forced tokens, one per step.
+    * a prompt exactly as long as ``min_cache_length`` feeds its last token
       through decode, so eviction state exists before the cache overflows.
+    * ``decode_first_token``: the last prompt token goes through decode.
+    * ``pad_id`` fills the prefill bucket past the prompt.
     * ``terminator_ids``: a lane records nothing after emitting one.
     * ``attn_top_k < 1``: decode attention sums values over only that share
       of the top-scored cache slots (``decode_step``).
@@ -71,10 +82,16 @@ def generate(
     terminator_ids = [int(t) for t in (terminator_ids or [])]
     specs = [c.spec for c in caches]
 
-    min_cache_length = min(s.max_cache_length for s in specs)
+    min_cache_length = min_cache_length or engine.min_cache_length(specs)
+    max_prompt_len = min_cache_length - 1
     prefix: List[int] = []
-    if prompt_length == min_cache_length:
-        prompt, prefix = prompt[:-1], prompt[-1:]
+    if (feed_long_prompts and prompt_length > max_prompt_len) or (
+            prompt_length == min_cache_length):
+        prompt, prefix = prompt[:max_prompt_len], prompt[max_prompt_len:]
+        max_new_tokens += len(prefix)
+        prompt_length = len(prompt)
+    if decode_first_token:
+        prompt, prefix = prompt[:-1], prompt[-1:] + prefix
         max_new_tokens += 1
         prompt_length = len(prompt)
 
@@ -104,7 +121,7 @@ def generate(
                 f"direct-fill cache length ({P})."
             )
     tokens = torch.tensor(
-        [prompt + [0] * (P - prompt_length)], dtype=torch.long, device=device
+        [prompt + [pad_id] * (P - prompt_length)], dtype=torch.long, device=device
     )
 
     _sync(device)

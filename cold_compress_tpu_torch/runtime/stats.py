@@ -1,6 +1,6 @@
-"""Cache statistics of a finished run.
+"""Cache statistics of a finished run, and their printing.
 
-Port of ``cold_compress_tpu/runtime/stats.py::get_cache_stats``.
+Port of ``cold_compress_tpu/runtime/stats.py``.
 """
 
 from __future__ import annotations
@@ -45,3 +45,28 @@ def get_cache_stats(caches, prompt_len: int, gen_len: int) -> Dict[str, Any]:
         stats[f"{key}_avg"] = sum(vals) / len(vals)
     stats["cache_memory_gb"] = sum(cache_memory_gb(c) for c in caches)
     return stats
+
+
+def snake_to_capitalized(s: str) -> str:
+    return " ".join(word.capitalize() for word in s.split("_"))
+
+
+def print_stats(stats_dict: Dict[str, Any]) -> None:
+    """Print run-wide values one per line (two decimals), then each per-layer
+    key (``<name>_<layer>``) as one ``By Layer`` line."""
+    layered: Dict[str, list] = {}
+    flat: Dict[str, Any] = {}
+    for key, value in stats_dict.items():
+        parts = key.rsplit("_", 1)
+        if len(parts) == 2 and parts[1].isdigit():
+            layered.setdefault(snake_to_capitalized(parts[0]), []).append((int(parts[1]), value))
+        else:
+            flat[snake_to_capitalized(key)] = value
+    for key, value in flat.items():
+        try:
+            print(f"{key}: {value:.02f}")
+        except (TypeError, ValueError):
+            print(f"{key}: {value}")
+    for stat in sorted(layered):
+        layers = ", ".join(f"{i}={v:.02f}" for i, v in sorted(layered[stat]))
+        print(f"{stat} By Layer: {layers}")

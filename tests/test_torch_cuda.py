@@ -380,3 +380,60 @@ def test_hybrid_decode_update_on_card_matches_cpu(dev):
     g, c = states["cuda"], states["cpu"]
     for t_g, t_c in zip(g.tensors(), c.tensors()):
         assert torch.equal(t_g.cpu(), t_c)
+
+
+@pytest.mark.parametrize("IN,OUT", [(4096, 1024), (288, 96), (14336, 256)])
+def test_weight_quantization_on_card_matches_cpu(dev, IN, OUT):
+    """int4 and int8 quantization of one bf16 leaf gives the same bytes on
+    the card as on the CPU (true f32 divisions, round half to even), also
+    at a dim that is no multiple of 128 (288: group size 96)."""
+    from cold_compress_tpu_torch.quantization.weight_quant import (
+        quantize_weight_int4, quantize_weight_int8,
+    )
+    from cold_compress_tpu_torch.runtime.engine import flatten_params
+
+    w = (torch.randn((IN, OUT), device=dev, generator=_gen(dev, IN + OUT)) * 0.02)
+    w = w.to(torch.bfloat16)
+    for fn in (quantize_weight_int4, quantize_weight_int8):
+        card, cpu = flatten_params(fn(w)), flatten_params(fn(w.cpu()))
+        assert sorted(card) == sorted(cpu)
+        for key in cpu:
+            assert card[key].dtype == cpu[key].dtype, key
+            assert card[key].tobytes() == cpu[key].tobytes(), key
+
+
+@pytest.mark.parametrize("L", [1, 5, 32])
+def test_w4a8_gemv_on_a_quantized_rowpack_leaf_matches_rowpack_plain(dev, L):
+    """K10's path: a rowpack leaf from ``quantize_weight_int4`` (scales and
+    zeros that vary per group), repacked once, through K1's kernel, against
+    the rowpack function on the unrepacked bytes. Exact integer group dots:
+    only the f32 order and the form of the zero term differ."""
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_weight_int4
+
+    g = _gen(dev, 40 + L)
+    leaf = quantize_weight_int4(torch.randn((1024, 384), device=dev, generator=g) * 0.02, 128)
+    wg, sz = qmm.rowpack_to_gemv(leaf["w"], leaf["scales"], leaf["zeros"])
+    x = torch.randn((L, 1024), device=dev, generator=g).to(torch.bfloat16)
+    before = qmm.LAUNCHES["w4a8_gemv.w13"]
+    y = qmm.w4a8_gemv(x, wg, sz, 128, counter="w4a8_gemv.w13")
+    assert qmm.LAUNCHES["w4a8_gemv.w13"] == before + 1
+    ref = qmm.w4a8_rowpack_plain(x, leaf["w"], leaf["scales"], leaf["zeros"], 128)
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_int8_layer_projection_runs_w8a8_kernel(dev):
+    """An int8 layer leaf (``quantize_weight_int8``) as the fused w13
+    projection: K9 on the card, counted as ``w8a8_gemv.w13``, the same bits
+    as the plain version on the CPU."""
+    from cold_compress_tpu_torch.models.transformer import make_linear
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_weight_int8
+
+    g = _gen(dev, 41)
+    leaf = quantize_weight_int8(torch.randn((512, 768), device=dev, generator=g) * 0.05)
+    x = torch.randn((1, 512), device=dev, generator=g).to(torch.bfloat16)
+    card = make_linear(leaf, "w13")
+    cpu = make_linear({k: v.cpu() if torch.is_tensor(v) else v for k, v in leaf.items()}, "w13")
+    before = qmm.LAUNCHES["w8a8_gemv.w13"]
+    y = card(x)
+    assert qmm.LAUNCHES["w8a8_gemv.w13"] == before + 1
+    assert torch.equal(y.cpu(), cpu(x.cpu()))

@@ -205,3 +205,101 @@ def test_int4_kv8_matches_jax_xla_path(kernel_params, port_kernel_run, monkeypat
     e_ref, f_ref = _jax_run(cfg, qp, {}, monkeypatch)
     e, f = port_kernel_run
     _check_probs(e, f, e_ref, f_ref, first_rtol=1e-2, steps_rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# Long prompts fed through decode, and the last prompt token decoded
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("feed,first", [(True, False), (False, True), (True, True)])
+def test_feed_long_prompts_and_decode_first_token_match_jax(tiny, feed, first):
+    """f32 TestTiny with a 32-slot heavy-hitter cache and the 90-token
+    prompt: ``feed_long_prompts`` prefills 31 tokens and forces the other 59
+    through decode, ``decode_first_token`` forces the last prompt token;
+    the same sequence and probabilities as the JAX package's ``generate()``,
+    and every fed step counts as a decode step."""
+    jcfg, jparams = tiny
+    cfg, model = _port_model("TestTiny", jparams, 128)
+    rope = JT.make_rope_table(jcfg)
+    kw = dict(feed_long_prompts=feed, decode_first_token=first)
+    jseq, jinfo, _ = jax_generate(jcfg, jparams, rope, _jax_caches(jcfg, HH_KW, 128, jnp.float32),
+                                  PROMPT_TINY, 8, **kw)
+    seq, info, caches = generate(model, _port_caches(cfg, HH_KW, 128, torch.float32),
+                                 PROMPT_TINY, 8, **kw)
+    assert seq == jseq and seq[:len(PROMPT_TINY)] == PROMPT_TINY
+    assert info["prompt_length"] == jinfo["prompt_length"] == (31 if feed else 89) - (
+        1 if feed and first else 0)
+    fed = len(PROMPT_TINY) - info["prompt_length"]
+    assert info["perf_stats"]["decode_steps"] == fed + 8 - 1
+    np.testing.assert_allclose(info["emitted_probs"], jinfo["emitted_probs"], rtol=1e-3,
+                               atol=1e-5)
+    np.testing.assert_allclose(info["final_probs"], jinfo["final_probs"], rtol=1e-3, atol=1e-6)
+
+
+def test_min_cache_length_and_pad_id_follow_jax(tiny):
+    """An explicit ``min_cache_length`` (below the caches') decides how much
+    of the prompt is fed; ``pad_id`` pads the prefill bucket (the padded
+    slots stay masked, so the tokens do not move)."""
+    jcfg, jparams = tiny
+    cfg, model = _port_model("TestTiny", jparams, 128)
+    rope = JT.make_rope_table(jcfg)
+    kw = dict(feed_long_prompts=True, min_cache_length=24, pad_id=7)
+    jseq, jinfo, _ = jax_generate(jcfg, jparams, rope, _jax_caches(jcfg, HH_KW, 128, jnp.float32),
+                                  PROMPT_TINY, 6, **kw)
+    seq, info, _ = generate(model, _port_caches(cfg, HH_KW, 128, torch.float32), PROMPT_TINY, 6,
+                            **kw)
+    assert info["prompt_length"] == jinfo["prompt_length"] == 23
+    assert seq == jseq
+    np.testing.assert_allclose(info["emitted_probs"], jinfo["emitted_probs"], rtol=1e-3,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# int8 and bf16 layer weights
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bf16_kernel_params():
+    cfg = JaxModelConfig.from_name("TestKernel")
+    return cfg, JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16)
+
+
+def _port_forced_run(qp):
+    cfg, model = _port_model("TestKernel", qp, 512)
+    before = kernel_launches()
+    seq, info, _ = generate(model, _port_caches(cfg, KV8_KW, 512, torch.bfloat16), PROMPT, 8,
+                            prefill_bucket=512, next_tokens=FORCED)
+    assert kernel_launches() == before and seq == PROMPT + FORCED
+    return model, np.asarray(info["emitted_probs"]), np.asarray(info["final_probs"])
+
+
+def test_int8_layers_kv8_match_tpu_program_in_interpret_mode(bf16_kernel_params, monkeypatch):
+    """int8 layers and head (``quantize_params(mode="int8")``, as the
+    quantize CLI writes them) against the TPU program in interpret mode:
+    its layers take XLA's ``w8a8_matmul``, its head the tiled W8A8 kernel;
+    the port's all take K9's plain version. Tolerances as the int4 run's."""
+    from cold_compress_tpu_torch.ops.linear import Int8Linear
+
+    cfg, params = bf16_kernel_params
+    qp = quantize_params(params, mode="int8", output_mode="int8")
+    model, e, f = _port_forced_run(qp)
+    assert isinstance(model.layers[0].attention.wqkv, Int8Linear)
+    e_ref, f_ref = _jax_run(cfg, qp, {"CCT_PALLAS_INTERPRET": "1", "CCT_TILED_HEAD": "1",
+                                      "CCT_ATTN_I8DOT": "0"}, monkeypatch)
+    _check_probs(e, f, e_ref, f_ref, first_rtol=5e-3, steps_rtol=3e-2)
+
+
+def test_bf16_layers_kv8_match_jax_xla_path(bf16_kernel_params, monkeypatch):
+    """Dense bf16 layers and head (``init_params``, the CLI's
+    ``--random_weights``), fused q|k|v and w1|w3, through ``torch.matmul``
+    against JAX's XLA dots."""
+    from cold_compress_tpu_torch.ops.linear import DenseLinear
+
+    cfg, params = bf16_kernel_params
+    model, e, f = _port_forced_run(params)
+    assert isinstance(model.layers[0].attention.wqkv, DenseLinear)
+    assert model.layers[0].attention.wqkv.weight.shape == (cfg.dim, 512)
+    e_ref, f_ref = _jax_run(cfg, params, {}, monkeypatch)
+    _check_probs(e, f, e_ref, f_ref, first_rtol=1e-2, steps_rtol=5e-2)

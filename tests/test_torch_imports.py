@@ -47,6 +47,24 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_optional_packages_load_lazily():
+    """Importing every module loads none of the tokenizer packages nor
+    PyYAML: the wrappers import theirs in their constructors, the cache
+    config overlay when it reads a file."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in ('sentencepiece', 'tiktoken', 'transformers', 'yaml')\n"
+        "             if m in sys.modules)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _imported_names(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -63,21 +81,27 @@ def _imported_names(path: Path):
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import_in_source(path):
-    """AST scan: no ``import jax`` and no import of the JAX package in the
-    port or in chip_smoke.py (lazy imports inside functions included)."""
+    """AST scan: no ``import jax``, no import of the JAX package and none of
+    the repository's root scripts in the port or in chip_smoke.py (lazy
+    imports inside functions included)."""
+    root_scripts = {p.stem for p in REPO.glob("*.py")}
     for name in _imported_names(path):
         top = name.split(".")[0]
         assert top != "jax", f"{path}: imports {name}"
         assert top != "cold_compress_tpu", f"{path}: imports {name}"
+        assert top not in root_scripts, f"{path}: imports the root script {name}"
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     """With no card and no explicit ``device="cpu"``, the entry points raise
     instead of continuing on the CPU."""
+    from cold_compress_tpu_torch import generate, quantize
     from cold_compress_tpu_torch.caches import CacheSpec
-    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.models.transformer import init_caches, init_params
     from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
-    from cold_compress_tpu_torch.runtime.engine import build_model, params_from_flat
+    from cold_compress_tpu_torch.runtime.engine import (
+        build_model, load_model, params_from_flat, save_params,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig.from_name("TestKernel")
@@ -92,6 +116,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     specs = [CacheSpec(max_cache_length=16, max_seq_length=16)] * cfg.n_layer
     with pytest.raises(RuntimeError):
         init_caches(cfg, specs)
+    with pytest.raises(RuntimeError):
+        init_params(cfg)
+    path = tmp_path / "TestKernel" / "model.npz"
+    save_params(init_params(cfg, device="cpu"), path)
+    with pytest.raises(RuntimeError):
+        load_model(path)
+    with pytest.raises(RuntimeError):
+        quantize.main(["--checkpoint_path", str(path), "--mode", "int4"])
+    with pytest.raises(RuntimeError):
+        generate.main(["--checkpoint_path", str(path), "--prompt", "hi"])
+    assert load_model(path, device="cpu")[0].name == "TestKernel"
     assert resolve_device("cpu") == torch.device("cpu")
     assert isinstance(cold_compress_tpu_torch.MODEL_CONFIGS, dict)
     assert np.isfinite(cfg.norm_eps)

@@ -3,7 +3,10 @@ the JAX package.
 
 The port's kernel wrapper takes its plain version on CPU tensors, so these
 tests hold the plain version (the kernel's arithmetic) against the TPU
-kernels run in Pallas interpret mode."""
+kernels run in Pallas interpret mode.
+
+Run as a script (``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_qmm.py``), it
+prints the gaps that the K10 and vocab-head tests bound."""
 
 import jax
 import jax.numpy as jnp
@@ -355,3 +358,223 @@ def test_quantized_linear_prefill_w4a8_route():
     assert all(m.prefill_w4a8 for m in (layer.attention.wqkv, layer.attention.wo,
                                          layer.feed_forward.w13, layer.feed_forward.w2))
     assert not model.output.prefill_w4a8
+
+
+# ---------------------------------------------------------------------------
+# K10: the TPU's older layouts of K1's function, run by the port as K1 after
+# its one rowpack repack
+# ---------------------------------------------------------------------------
+
+K10_IN, K10_OUT = 512, 512  # IN % 256, OUT % 128 and (IN / 2) % gs: every TPU gate
+
+
+def _k10_cpt_split(stacked):
+    """The stacked leaf as CCT_QMM_SPLIT=2 lays it out: cpt tiles of 128
+    columns (two per layer) split into two buffers."""
+    return JL.to_cpt_split(JL.to_cpt(JL.to_colpack(stacked), tile_out=128), 2)
+
+
+def _k10_ref(kernel, x, leaves, stacked):
+    """Layer 1's output of one TPU K10 function in interpret mode."""
+    from cold_compress_tpu.ops import pallas_qmm as P
+
+    if kernel == "qmm_w4a8":
+        lf = leaves[1]
+        return P.qmm_w4a8(x, lf.w, lf.scales, lf.zeros, group_size=128, interpret=True)
+    if kernel == "qmm_w4a8_stacked":
+        return P.qmm_w4a8_stacked(x, stacked.w, stacked.scales, stacked.zeros, 1,
+                                  group_size=128, interpret=True)
+    if kernel == "qmm_w4a8_cp_stacked":
+        cp = JL.to_colpack(stacked)
+        assert cp.w.ndim == 3  # the flat branch
+        return P.qmm_w4a8_cp_stacked(x, cp.w, cp.scales, cp.zeros, 1, group_size=128,
+                                     interpret=True)
+    split = _k10_cpt_split(stacked)
+    assert len(split.w) == 2 and split.w[0].shape == (2, 1, K10_IN, 128)
+    return P.qmm_w4a8_cpt_split(x, list(split.w), list(split.scales), 1, group_size=128,
+                                interpret=True)
+
+
+K10_KERNELS = ["qmm_w4a8", "qmm_w4a8_stacked", "qmm_w4a8_cp_stacked", "qmm_w4a8_cpt_split"]
+
+
+def k10_outputs(kernel, L):
+    """(K1's plain output, the TPU function's, each element's zero term
+    ``sx * sum_g |xs_g| |z_g - 8 s_g|``) for layer 1 of a two-layer stack of
+    rowpack leaves quantized from normal weights (scales and zeros vary
+    per group)."""
+    rng = np.random.RandomState(100 + L)
+    leaves = [_leaf(rng, K10_IN, K10_OUT) for _ in range(2)]
+    x = _x(rng, L, K10_IN)
+    ref = np.asarray(_k10_ref(kernel, jnp.asarray(x, jnp.bfloat16), leaves, _stacked(leaves)))
+    wg, sz = _torch_leaf(leaves[1])
+    got = qmm.w4a8_gemv(_bf16(x), wg, sz, 128, counter="w4a8_gemv.wqkv").numpy()
+    xq, sx = qmm.quantize_activations(_bf16(x))
+    xs = xq.reshape(L, -1, 128).sum(-1).abs().numpy()
+    s = np.asarray(leaves[1].scales, np.float32)
+    z = np.asarray(leaves[1].zeros, np.float32)
+    return got, ref, sx.numpy() * (xs @ np.abs(z - 8 * s))
+
+
+@pytest.mark.parametrize("L", [1, 5, 32])
+@pytest.mark.parametrize("kernel", K10_KERNELS)
+def test_k1_plain_matches_tpu_k10_kernels(kernel, L):
+    """K1's plain version on the port's repack of a rowpack leaf (varying
+    per-group scales and zeros from ``quantize_weight_int4``) against each
+    K10 function on its own layout of the same bytes, made by the JAX
+    package's repacks. Exact integer group dots on both sides: the rowpack
+    and flat colpack functions differ only in f32 order (1e-4 of max|y|);
+    ``qmm_w4a8_cpt_split`` also rounds each group's ``z - 8 s`` to bf16, so
+    each element within 2**-8 of its zero term (ROADMAP section 3)."""
+    got, ref, zero_term = k10_outputs(kernel, L)
+    assert got.shape == ref.shape == (L, K10_OUT)
+    tol = 1e-4 * np.abs(ref).max()
+    if kernel != "qmm_w4a8_cpt_split":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+    else:
+        assert np.all(np.abs(got - ref) <= 2**-8 * zero_term + tol)
+
+
+@pytest.mark.parametrize("L", [1, 5, 32])
+def test_rowpack_plain_matches_tpu_rowpack_kernel(L):
+    """``w4a8_rowpack_plain``, the rowpack function on the unrepacked bytes
+    (``z - 8 s`` kept in f32 for the low rows, as the TPU kernel keeps it),
+    against ``qmm_w4a8`` in interpret mode and against K1's plain version."""
+    from cold_compress_tpu.ops.pallas_qmm import qmm_w4a8
+
+    rng = np.random.RandomState(200 + L)
+    leaf = _leaf(rng, K10_IN, K10_OUT)
+    x = _x(rng, L, K10_IN)
+    ref = np.asarray(qmm_w4a8(jnp.asarray(x, jnp.bfloat16), leaf.w, leaf.scales, leaf.zeros,
+                              group_size=128, interpret=True))
+    tree = params_from_flat(_flatten(leaf), "cpu")
+    got = qmm.w4a8_rowpack_plain(_bf16(x), tree["w"], tree["scales"], tree["zeros"], 128)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    wg, sz = qmm.rowpack_to_gemv(tree["w"], tree["scales"], tree["zeros"])
+    k1 = qmm.w4a8_gemv_plain(_bf16(x), wg, sz, 128)
+    np.testing.assert_allclose(got.numpy(), k1.numpy(), rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def head_logits_above_tpu_gate():
+    """(the port's bf16 logits, the JAX package's) of an int4 head wider
+    than the rowpack gate's 32768 columns: dim 256, vocab 32896, eight
+    hidden rows as the final norm leaves them (unit RMS)."""
+    from cold_compress_tpu.ops.pallas_qmm import w4a8_supported
+
+    rng = np.random.RandomState(11)
+    D, V = 256, 32896
+    leaf = _leaf(rng, D, V)
+    x = _x(rng, 8, D)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CCT_PALLAS_INTERPRET", "1")
+        assert not w4a8_supported(xb.shape, leaf)  # the OUT <= 32768 gate
+        ref = np.asarray(JL.linear(xb, leaf), np.float32)
+    wg, sz = _torch_leaf(leaf)
+    got = qmm.w4a8_gemv(_bf16(x), wg, sz, 128, counter="w4a8_gemv.head").to(
+        torch.bfloat16).float().numpy()
+    return got, ref
+
+
+def test_int4_head_above_tpu_gate_w4a8_against_w4a16():
+    """The known deviation on the JAX package's unstacked path: an int4
+    head wider than the rowpack gate's 32768 columns (pallas_qmm.py:1436-
+    1452) is a bf16 dequantized matmul there (W4A16, linear.py:648), while
+    the port keeps K2 (W4A8). The logits differ by the activations' int8
+    rounding, within 1e-2 of each row's max|logit| (0.59-0.86% measured),
+    and the greedy token agrees on all eight rows (top-2 margins down to
+    0.016 of a 3.1-4.0 max)."""
+    got, ref = head_logits_above_tpu_gate()
+    gap = np.abs(got - ref).max(axis=-1) / np.abs(ref).max(axis=-1)
+    assert np.all(gap <= 1e-2), gap
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# int8 layer weights (K9 at the layer projections)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("L", [1, 5, 32])
+def test_int8_layer_plain_matches_xla_w8a8_matmul(L):
+    """An int8 layer leaf from ``quantize_weight_int8``: the JAX package's
+    XLA ``w8a8_matmul`` (the int8 layer path at L <= 32) forms ``(d * sx) *
+    s``, K9 ``(d * s) * sx``: the same exact integer dot and one f32
+    rounding apart (2**-22 relative), so after the cast to bf16 each element
+    agrees or differs by one bf16 unit (2**-7 of it)."""
+    rng = np.random.RandomState(300 + L)
+    IN, OUT = 256, 768
+    leaf = JW.quantize_weight_int8(jnp.asarray(rng.randn(IN, OUT).astype(np.float32) * 0.05))
+    x = _x(rng, L, IN)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CCT_PALLAS_INTERPRET", "1")
+        ref = np.asarray(JL.w8a8_matmul(jnp.asarray(x, jnp.bfloat16), leaf))
+        ref_bf16 = np.asarray(JL.linear(jnp.asarray(x, jnp.bfloat16), leaf), np.float32)
+    tree = params_from_flat(_flatten(leaf), "cpu")
+    assert tree["kind"] == "int8" and tree["group_size"] == 128
+    lin = TL.Int8Linear(tree["w"], tree["scales"], counter="w8a8_gemv.w13")
+    got = qmm.w8a8_gemv_plain(_bf16(x), lin.w, lin.s).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2**-22, atol=0)
+    got_bf16 = lin(_bf16(x)).float().numpy()
+    assert np.all(np.abs(got_bf16 - ref_bf16) <= 2**-7 * np.abs(ref_bf16))
+
+
+def test_int8_layers_fuse_and_route_to_k9():
+    """int8 layer leaves concatenate on the output axis (``w`` and
+    ``scales``) into ``Int8Linear``s counted as ``w8a8_gemv.<projection>``;
+    the fused projection computes exactly the unfused ones."""
+    from cold_compress_tpu_torch.models.transformer import fuse_layer_params
+    from cold_compress_tpu_torch.runtime.engine import build_model
+
+    cfg = ModelConfig.from_name("TestKernel")
+    flat = TW.random_quantized_params(cfg, seed=2, mode="int8")
+    tree = params_from_flat(flat, "cpu")
+    fused = fuse_layer_params(tree)["layers"][0]
+    attn = tree["layers"][0]["attn"]
+    assert fused["attn"]["wqkv"]["kind"] == "int8"
+    assert torch.equal(fused["attn"]["wqkv"]["w"],
+                       torch.cat([attn["wq"]["w"], attn["wk"]["w"], attn["wv"]["w"]], -1))
+    model = build_model(cfg, tree, "cpu", max_positions=512)
+    layer = model.layers[0]
+    for lin, name in ((layer.attention.wqkv, "wqkv"), (layer.attention.wo, "wo"),
+                      (layer.feed_forward.w13, "w13"), (layer.feed_forward.w2, "w2")):
+        assert isinstance(lin, TL.Int8Linear) and lin.counter == f"w8a8_gemv.{name}"
+    assert isinstance(model.output, TL.Int8Linear)  # mode="int8" gives an int8 head
+    x = _bf16(_x(np.random.RandomState(0), 1, cfg.dim))
+    whole = layer.attention.wqkv(x)
+    parts = torch.cat([TL.Int8Linear(attn[k]["w"], attn[k]["scales"], counter="w8a8_gemv.wqkv")(x)
+                       for k in ("wq", "wk", "wv")], -1)
+    assert torch.equal(whole, parts)
+
+
+@pytest.mark.parametrize("head_mode", ["int4", "int8"])
+def test_random_int8_layers_byte_identical(head_mode):
+    """``random_quantized_params(mode="int8")``: the JAX package's bytes
+    under the checkpoint key scheme, its head int8 whatever ``head_mode``
+    asks (the JAX function draws the head in the layers' mode)."""
+    ref = _flatten(JW.random_quantized_params(JaxModelConfig.from_name("TestKernel"), seed=4,
+                                              mode="int8", head_mode=head_mode))
+    got = TW.random_quantized_params(ModelConfig.from_name("TestKernel"), seed=4, mode="int8",
+                                     head_mode=head_mode)
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        a, b = np.asarray(got[key]), np.asarray(ref[key])
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), key
+    assert list(got["output/qmeta"]) == [8, 128]
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_default_matmul_precision", "highest")  # as tests/conftest.py
+    for kernel in K10_KERNELS:
+        for L in (1, 5, 32):
+            got, ref, zero_term = k10_outputs(kernel, L)
+            gap = np.abs(got - ref)
+            print(f"{kernel} L={L}: max gap / max|y| {gap.max() / np.abs(ref).max():.3e}, "
+                  f"max gap / zero term {(gap / np.maximum(zero_term, 1e-30)).max():.3e}")
+    got, ref = head_logits_above_tpu_gate()
+    top2 = np.sort(ref, -1)[:, -2:]
+    print("int4 head above the gate: gap / max|logit| per row",
+          np.round(np.abs(got - ref).max(-1) / np.abs(ref).max(-1), 5).tolist(),
+          "| max|logit|", np.abs(ref).max(-1).tolist(),
+          "| same argmax", bool((got.argmax(-1) == ref.argmax(-1)).all()),
+          "| top-2 margins", (top2[:, 1] - top2[:, 0]).tolist())
