@@ -18,6 +18,9 @@ Phases; any failure raises and the script exits non-zero:
    eviction (K7), the W8A8 head (K9), flash prefill (K4), flash prefill
    with the FastGen profile (K6) at one and two windows, and the W4A8
    prefill matmul (K8) at L = 8192 for the four layer projections;
+   decode attention and K4 also bit-equal across two calls, decode
+   attention one device kernel per call (``torch.profiler``), K4 and K6
+   with each pass timed alone;
 3. small in-situ parity: the port on the card against the port on the CPU
    (plain versions), TestKernel with int4 weights, teacher-forced, over
    several cache strategies and precisions (heavy_hitter at kv8, bf16, kv4
@@ -117,6 +120,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
             break
         hold_ms = 2 * queued_ms
     return start.elapsed_time(end) / iters
+
+
+def device_kernels_per_call(fn, own, calls: int = 5, warmup: int = 2):
+    """(device operations, of them the kernel's own launches) per call of
+    ``fn(i)``, from ``torch.profiler``'s device-side events: every kernel,
+    copy and fill the call queues, and those whose name holds one of the
+    strings ``own``. The first steps are traced and dropped (the tracer can
+    miss a launch while it starts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=calls, repeat=1)) as prof:
+        for i in range(warmup + calls):
+            fn(i)
+            torch.cuda.synchronize()
+            prof.step()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.count for e in rows) / calls
+    mine = sum(e.count for e in rows if any(o in e.key for o in own)) / calls
+    return total, mine
 
 
 def copies_for(nbytes: int) -> int:
@@ -238,7 +262,7 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int):
     row_bytes = decode_attn.packed_width(bits, D) * (2 if bits == 16 else 1)
     side = 0 if bits == 16 else 4 * 4 * B * KVH * C  # f32 scales and zeros of K and V
     nbytes = (2 * B * KVH * C * row_bytes + side + B * KVH * C  # K, V, their sides, mask
-              + 2 * B * H * D + 4 * B * H * D                   # q in, f32 out
+              + 2 * B * H * D + 2 * B * H * D                   # q in, bf16 out
               + (4 * B * KVH * C if need_attn else 0))          # pooled out
     n = copies_for(nbytes)
     layers = [_decode_inputs(dev, gen, bits, B, KVH, C, D) for _ in range(n)]
@@ -252,8 +276,11 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int):
         return decode_attn.decode_attention(*args(i), bits=bits, need_attn=need_attn)
 
     out, pooled = run(0)
+    again = run(0)
     ref_out, ref_pooled = decode_attn.decode_attention_plain(*args(0), bits, need_attn)
     torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and (not need_attn or torch.equal(pooled, again[1])), \
+        f"{name}: two calls on the same inputs differ"
     # Same roundings on both sides; only the order of the f32 sums differs
     # (the kernel sums 128-slot chunks).
     err, ratio, tol = bf16_out_err(out, ref_out, 2**-8)
@@ -270,6 +297,10 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int):
     log(f"[check] {name} B={B} H={H} KVH={KVH}: {text}")
     assert ok, f"{name} disagrees with its plain version"
 
+    # One device kernel per call: nothing before it (q is bf16 already) and
+    # no cast after it (it writes q's dtype).
+    n_dev, n_own = device_kernels_per_call(run, ("decode_attn_kernel",))
+    assert n_dev == n_own <= 1, f"{name}: {n_dev} device operations per call, {n_own} its own"
     iters = 200 if C <= 4096 else 50
     ms = time_ms(run, iters)
     plain_ms = time_ms(lambda i: decode_attn.decode_attention_plain(*args(i), bits, need_attn),
@@ -284,12 +315,14 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int):
         library_ms = time_ms(lambda i: sdpa(q, layers[i % n][0], layers[i % n][1],
                                             attn_mask=masks[i % n], enable_gqa=True), iters)
         lib_text = f"{library_ms:.4f} ms (scaled_dot_product_attention, enable_gqa)"
+    nc = decode_attn.default_cluster(B, KVH, C, G, bits, need_attn)
     log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-        f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: {lib_text}")
+        f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: {lib_text}; "
+        f"{n_dev:g} device kernels per call, clusters of {nc} CTAs")
     replaces = ("ops/pallas_decode_attn.py:899" if C <= 4096
                 else "ops/pallas_decode_attn.py:438")
     record(records, name, counter, "decode_attn.cu", replaces, err, tol, ratio, ms, plain_ms,
-           b_ms, b_by, library_ms, C=C)
+           b_ms, b_by, library_ms, C=C, device_kernels_per_call=n_dev, cluster=nc)
 
 
 def check_hh_evict(dev, records):
@@ -465,6 +498,22 @@ def check_k10(dev, records):
         del leaves, packed
 
 
+PREFILL_KERNELS = ("flash_fwd_kernel", "colsum_kernel", "colsum_reduce")
+
+
+def pass_times(q, k, v, plen: int, windows=None):
+    """ms of K4's (or, with ``windows``, K6's) pass 1 alone and of pass 2
+    with its reduction alone, on the same inputs."""
+    from cold_compress_tpu_torch.ops import prefill_attn
+
+    plen_t = torch.full((q.shape[0],), plen, dtype=torch.int32, device=q.device)
+    _, mbuf, ilbuf = prefill_attn.flash_pass1(q, k, v)
+    pass1 = time_ms(lambda i: prefill_attn.flash_pass1(q, k, v), 5, 1)
+    pass2 = time_ms(lambda i: prefill_attn.flash_pass2(q, k, mbuf, ilbuf, plen_t,
+                                                       window_lens=windows), 5, 1)
+    return pass1, pass2
+
+
 def check_flash_prefill(dev, records):
     from cold_compress_tpu_torch.ops import prefill_attn
 
@@ -475,6 +524,10 @@ def check_flash_prefill(dev, records):
     v = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
 
     y, summ = prefill_attn.flash_prefill(q, k, v, plen, need_summary=True)
+    y2, summ2 = prefill_attn.flash_prefill(q, k, v, plen, need_summary=True)
+    assert torch.equal(y, y2) and all(torch.equal(summ[key], summ2[key]) for key in summ), \
+        "flash_prefill_summary: two calls on the same inputs differ"
+    del y2, summ2
     ref_y, ref_summ = prefill_attn.flash_prefill_plain(q, k, v, plen, need_summary=True)
     torch.cuda.synchronize()
     # The kernel rounds the unnormalised probabilities to bf16 before P.V,
@@ -493,6 +546,9 @@ def check_flash_prefill(dev, records):
     assert float(summ["cum_mean"][..., plen:].abs().max()) == 0.0
 
     ms = time_ms(lambda i: prefill_attn.flash_prefill(q, k, v, plen, need_summary=True), 5, 1)
+    pass1_ms, pass2_ms = pass_times(q, k, v, plen)
+    n_dev, n_own = device_kernels_per_call(
+        lambda i: prefill_attn.flash_prefill(q, k, v, plen, need_summary=True), PREFILL_KERNELS)
     plain_ms = time_ms(lambda i: prefill_attn.flash_prefill_plain(q, k, v, plen), 2, 1)
     nbytes = 2 * (2 * B * H * P * D + 2 * B * KVH * P * D) + 2 * 4 * B * KVH * P
     pairs = B * H * P * (P + 1) // 2  # causal (query, key) pairs
@@ -501,11 +557,15 @@ def check_flash_prefill(dev, records):
     vr = v.repeat_interleave(H // KVH, dim=1)
     sdpa_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         q, kr, vr, is_causal=True), 5, 1)
-    log(f"[time] flash_prefill_summary: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; "
+    log(f"[time] flash_prefill_summary: {ms:.3f} ms (pass 1 {pass1_ms:.3f}, pass 2 and its "
+        f"reduction {pass2_ms:.3f}; bound {b_ms:.3f} ms by {b_by}; "
         f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library: none "
-        f"(scaled_dot_product_attention, causal y only, no summaries: {sdpa_ms:.3f} ms)")
+        f"(scaled_dot_product_attention, causal y only, no summaries: {sdpa_ms:.3f} ms); "
+        f"{n_dev:g} device operations per call, {n_own:g} of them the kernel's")
     record(records, "flash_prefill_summary", "flash_prefill_summary", "flash_prefill.cu",
-           "ops/pallas_prefill.py:167", err, tol, ratio, ms, plain_ms, b_ms, b_by, None)
+           "ops/pallas_prefill.py:167", err, tol, ratio, ms, plain_ms, b_ms, b_by, None,
+           pass1_ms=pass1_ms, pass2_ms=pass2_ms, device_kernels_per_call=n_dev,
+           own_kernels_per_call=n_own, sdpa_causal_y_ms=sdpa_ms)
 
 
 def check_flash_profile(dev, records, windows):
@@ -537,6 +597,9 @@ def check_flash_profile(dev, records, windows):
     del ref_y, ref_cum, ref_w
 
     ms = time_ms(lambda i: prefill_attn.flash_profile(q, k, v, plen, window_lens=windows), 5, 1)
+    pass1_ms, pass2_ms = pass_times(q, k, v, plen, windows)
+    n_dev, n_own = device_kernels_per_call(
+        lambda i: prefill_attn.flash_profile(q, k, v, plen, window_lens=windows), PREFILL_KERNELS)
     plain_ms = time_ms(lambda i: prefill_attn.flash_profile_plain(q, k, v, plen, windows), 1, 1)
     nbytes = 2 * (2 * B * H * P * D + 2 * B * KVH * P * D) + 4 * (1 + len(windows)) * B * KVH * P
     pairs = B * H * P * (P + 1) // 2  # causal (query, key) pairs
@@ -547,11 +610,15 @@ def check_flash_profile(dev, records, windows):
     vr = v.repeat_interleave(H // KVH, dim=1)
     sdpa_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         q, kr, vr, is_causal=True), 5, 1)
-    log(f"[time] {name}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; "
+    log(f"[time] {name}: {ms:.3f} ms (pass 1 {pass1_ms:.3f}, pass 2 and its reduction "
+        f"{pass2_ms:.3f}; bound {b_ms:.3f} ms by {b_by}; "
         f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library: none "
-        f"(scaled_dot_product_attention, causal y only, no profile: {sdpa_ms:.3f} ms)")
+        f"(scaled_dot_product_attention, causal y only, no profile: {sdpa_ms:.3f} ms); "
+        f"{n_dev:g} device operations per call, {n_own:g} of them the kernel's")
     record(records, name, "flash_profile", "flash_prefill.cu", "ops/pallas_prefill.py:281",
-           err, tol, ratio, ms, plain_ms, b_ms, b_by, None, windows=list(windows))
+           err, tol, ratio, ms, plain_ms, b_ms, b_by, None, windows=list(windows),
+           pass1_ms=pass1_ms, pass2_ms=pass2_ms, device_kernels_per_call=n_dev,
+           own_kernels_per_call=n_own, sdpa_causal_y_ms=sdpa_ms)
 
 
 def check_w4a8_gemm(dev, records):

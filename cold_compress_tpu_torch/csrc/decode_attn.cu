@@ -1,4 +1,5 @@
-// Single-query GQA decode attention over a bf16 or affine-quantized KV cache.
+// Single-query GQA decode attention over a bf16 or affine-quantized KV cache,
+// in one launch per call.
 //
 // Replaces the TPU kernels of cold_compress_tpu/ops/pallas_decode_attn.py::
 // quantized_decode_attention, all of which compute one contract (the i8dot
@@ -7,13 +8,15 @@
 //   - the chunked online-softmax kernels `_kernel_chunked(_ms)` and
 //     `_chunk_step`, the manual double-buffered `_kernel_manual` and the slim
 //     `_kernel_v2`, which serve caches above the one-shot VMEM budget.
-// One split-C kernel serves every cache length here, so it follows the
-// one-shot numerics at every C:
+// One kernel serves every cache length here, so it follows the one-shot
+// numerics at every C:
 //   k = bf16(u * s + z'), z' = z - 2^(BITS-1) * s   (BITS 8/4/2; no FMA)
 //   k = the stored bf16 value                        (BITS 16)
 //   scores = (q_bf16 . k) in f32 * 1/sqrt(D); masked slots -> -1e30
-//   probs = softmax in f32; pooled[c] = (sum_g probs[g][c]) * (1/G)
-//   out = sum_c bf16(probs[g][c]) * v in f32
+//   probs = softmax in f32 with the global (m, l) (in base 2: log2 e rides
+//     in the scale, so exp becomes exp2; p = e * (1 / l));
+//   pooled[c] = (sum_g probs[g][c]) * (1/G)
+//   out = sum_c bf16(probs[g][c]) * v in f32, written in q's dtype
 // The TPU's chunked kernel rounds the unnormalised e (not p) to bf16 before
 // P.V; the difference is bounded in the tests.
 //
@@ -24,38 +27,47 @@
 //
 // Bound on this card: bytes (K and V of every KV head, 2*C*D*BITS/8 bytes,
 // plus the per-slot scale/zero/mask). At batch 1 there are only KVH heads,
-// so the cache is split over C into chunks of kChunk slots, one block each
-// (128 blocks at C = 2048, KVH = 8), and every warp issues all its loads
-// before it uses them. Three launches on the caller's stream:
-//   1. scores: each block dequantizes its chunk's K rows (8 lanes per row,
-//      16 values per lane), writes the G heads' scores to a workspace and the
-//      chunk's softmax statistics (max m_s, sum l_s of exp(score - m_s));
-//   2. probabilities and P.V: each block folds every chunk's (m_s, l_s) into
-//      the head's final (m, l) in a fixed order (one warp per query head),
-//      normalises its chunk's scores as a one-pass softmax does
-//      (exp(s - m) / l), writes the pooled probabilities when NEED_ATTN,
-//      rounds them to bf16 and multiplies them with its V rows into a
-//      partial output;
-//   3. reduce: the partial outputs are summed over the chunks in order.
+// so each (batch, KV head) is one thread-block cluster of up to 16 CTAs
+// that split C into contiguous ranges, and the cluster's CTAs meet through
+// distributed shared memory instead of a second launch:
+//   1. each CTA streams its K rows through a three-stage ring in shared
+//      memory (cp.async by every thread, 32 KB of bf16 or kv8 rows a stage,
+//      into rows padded so that the tensor-core fragment loads meet no bank
+//      conflict; the per-slot scales and zeros ride beside them), computes
+//      the G heads' scores on the tensor cores (q's fragments in registers,
+//      K dequantized to bf16 straight into fragments) and keeps them in
+//      shared memory (or, where they do not fit, in a global workspace),
+//      then its local max m_s and sum l_s of exp(score - m_s); the first V
+//      tiles are already loading;
+//   2. cluster barrier; every CTA folds all the cluster's (m_s, l_s), read
+//      from its peers' shared memory, in CTA order, so every CTA holds the
+//      same global (m, l); it streams its V rows into a partial P.V, again
+//      on the tensor cores, forming each p as it
+//      goes: rounded to bf16 for the product (products of bf16 values are
+//      exact; the f32 sums run in another order than the plain version's)
+//      and summed over the heads for the pooled probabilities;
+//   3. cluster barrier; CTA i sums column slice i of the output over the
+//      cluster's partials in CTA order and writes it in q's dtype.
 // Every sum has a fixed order (no atomics), so the result is deterministic.
-// The workspace (scores, statistics, partials) is sized per call by
-// decode_attention_workspace.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kD = 128;
 constexpr int kMaxG = 8;
-constexpr int kChunk = 128;                          // cache slots per block
-constexpr int kWarps = 8;
+constexpr int kMaxCluster = 16;
+constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerLane = kChunk / (kWarps * 4);  // scores: 4 rows per warp step
-constexpr int kSlotsPerWarp = kChunk / kWarps;       // P.V
-constexpr int kQStride = kD + kD / 16;               // query row stride: one pad per 16
+constexpr int kStages = 3;
+constexpr int kSmemScoreBytes = 64 * 1024;         // scores above this go to global
+constexpr int kMaskPre = 8;                        // mask bytes a thread loads up front
 constexpr float kNegInf = -1e30f;
 
 // Row layout of one cache format.
@@ -64,10 +76,43 @@ struct Fmt {
   static constexpr int kPer = BITS >= 8 ? 1 : 8 / BITS;  // values per byte
   static constexpr int kRowBytes = BITS == 16 ? kD * 2 : kD * BITS / 8;
   static constexpr int kSeg = kD / kPer;                // columns per bit range
-  // scores: 8 lanes per row, 16 values each
-  static constexpr int kLaneBytes = kRowBytes / 8;
-  static constexpr int kLaneWords = kLaneBytes / 4;
+  // Cache rows per ring stage (32 KB of bf16 or kv8 rows; a multiple of
+  // 128 for the warps' row blocks).
+  static constexpr int kTileRows = BITS == 16 ? 128 : BITS == 8 ? 256 : BITS == 4 ? 384 : 1024;
+  // Row strides of a stage in shared memory, padded so that the lanes of
+  // one shared-memory access hit distinct banks: K rows as the scores read
+  // them, V rows as P.V reads them (see k_quarter and VLane).
+  static constexpr int kKStride = BITS == 16 ? 320 : BITS == 8 ? 144 : kRowBytes;
+  static constexpr int kVStride = BITS == 16 ? 288 : BITS == 8 ? 160 : BITS == 4 ? 96 : 32;
+  static constexpr int kStageBytes =
+      kTileRows * (kKStride > kVStride ? kKStride : kVStride);
+  static constexpr int kSideFloats = BITS == 16 ? 0 : 2 * kTileRows;  // scales, zeros
 };
+
+// Byte offsets of one CTA's dynamic shared memory.
+struct Layout {
+  size_t side, redm, redl, stats, fin, part, scores, total;
+};
+
+template <int BITS>
+__host__ __device__ inline Layout layout(int MG, int G, int per, bool smem_scores) {
+  Layout L;
+  L.side = (size_t)kStages * Fmt<BITS>::kStageBytes;
+  L.redm = L.side + (size_t)kStages * Fmt<BITS>::kSideFloats * 4;
+  L.redl = L.redm + kWarps * kMaxG * 4;
+  L.stats = L.redl + kWarps * kMaxG * 4;
+  L.fin = L.stats + kMaxG * 2 * 4;
+  L.part = L.fin + 2 * kMaxG * 4;
+  L.scores = L.part + (size_t)MG * kD * 4;
+  L.total = L.scores + (smem_scores ? (size_t)G * per * 4 : 0);
+  return L;
+}
+
+__host__ __device__ inline int cta_slots(int C, int nc) { return (C + nc - 1) / nc; }
+
+__host__ __device__ inline bool scores_fit(int G, int per) {
+  return (size_t)G * per * 4 <= (size_t)kSmemScoreBytes;
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -84,360 +129,588 @@ __device__ __forceinline__ float folded_zero(float z, float s) {
   return __fsub_rn(z, __fmul_rn((float)(1 << (BITS - 1)), s));
 }
 
-// N 32-bit words from a 4*N-byte aligned address, in as few loads as the
-// alignment allows.
+// ---- asynchronous copies ----
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// N 32-bit words of shared memory from a 4*N-byte aligned address.
 template <int N>
 __device__ __forceinline__ void load_words(const uint8_t* p, uint32_t* w) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int k = 0; k < N / 4; ++k) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + k);
+      const uint4 v = reinterpret_cast<const uint4*>(p)[k];
       w[4 * k] = v.x;
       w[4 * k + 1] = v.y;
       w[4 * k + 2] = v.z;
       w[4 * k + 3] = v.w;
     }
   } else if constexpr (N == 2) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
     w[0] = v.x;
     w[1] = v.y;
   } else {
-    w[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
 }
 
-// Value i (0..15) of a scores lane: its column and its dequantized value.
-// BITS 16: halfword i of the lane's 32 bytes, column lane8*16 + i.
-// BITS 8/4/2: byte b = i % kLaneBytes, bit range seg = i / kLaneBytes,
-// column lane8*kLaneBytes + b + seg*kSeg.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// m16n8k16 bf16 product on the tensor cores, f32 accumulate; A's rows 8-15
+// (a1, a3) are zero here: at most 8 query heads.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a2, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// Scores S = q K^T as m16n8k16 products: M = the G query heads, N = 8 cache
+// rows, K = 16 of the 128 columns per step. The order of the columns in the
+// dot product is free, so lane (gid, tig) takes a quarter of row gid's
+// bytes (kRowBytes / 4 of them, 32 values: contiguous, or for bf16 four
+// interleaved chunks) and step ks, value j (j = 0, 1: B's k = 2 tig + j;
+// j = 2, 3: k = 8 + 2 tig + j - 2) is column kcol(tig, ks, j); q's A
+// fragment takes the same columns.
 template <int BITS>
-__device__ __forceinline__ int score_col(int lane8, int i) {
-  using F = Fmt<BITS>;
-  if constexpr (BITS == 16) {
-    return lane8 * 16 + i;
-  } else {
-    return lane8 * F::kLaneBytes + (i % F::kLaneBytes) + (i / F::kLaneBytes) * F::kSeg;
-  }
+__device__ __forceinline__ int kcol(int tig, int ks, int j) {
+  // bf16: the lane's 16-byte chunks tig, tig + 4, tig + 8, tig + 12 (two
+  // steps each), so that the four tig lanes of an access meet distinct banks.
+  if constexpr (BITS == 16) return (tig + 4 * (ks >> 1)) * 8 + (ks & 1) * 4 + j;
+  if constexpr (BITS == 8) return tig * 32 + ks * 4 + j;
+  if constexpr (BITS == 4) return (ks >> 2) * 64 + tig * 16 + (ks & 3) * 4 + j;
+  return (ks >> 1) * 32 + tig * 8 + (ks & 1) * 4 + j;  // BITS 2
 }
 
+// B fragment (b0: j = 0, 1; b1: j = 2, 3) of step ks from the lane's
+// quarter row `w`, dequantized and rounded to bf16.
 template <int BITS>
-__device__ __forceinline__ float score_val(const uint32_t* w, int i, float s, float zp) {
-  using F = Fmt<BITS>;
+__device__ __forceinline__ void k_frag(const uint32_t* w, int ks, float s, float zp,
+                                       uint32_t& b0, uint32_t& b1) {
   if constexpr (BITS == 16) {
-    const uint32_t h = (w[i >> 1] >> (16 * (i & 1))) & 0xFFFFu;
-    return __uint_as_float(h << 16);
+    b0 = w[2 * ks];
+    b1 = w[2 * ks + 1];
   } else {
-    const int b = i % F::kLaneBytes, seg = i / F::kLaneBytes;
-    const uint32_t byte = (w[b >> 2] >> (8 * (b & 3))) & 0xFFu;
-    const uint32_t u = BITS == 8 ? byte : (byte >> (BITS * seg)) & ((1u << BITS) - 1u);
-    return deq_bf16(u, s, zp);
+    // The four values sit in one word: bytes 0-3, at bit offset `shift`
+    // within each byte for the packed formats.
+    const uint32_t word = BITS == 8 ? w[ks] : BITS == 4 ? w[ks & 3] : w[ks & 1];
+    const int shift = BITS == 8 ? 0 : BITS == 4 ? (ks >> 2) * 4 : (ks >> 1) * 2;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = deq_bf16((word >> (8 * j + shift)) & ((1u << (BITS == 8 ? 8 : BITS)) - 1u), s, zp);
+    b0 = pack_bf16(v[0], v[1]);
+    b1 = pack_bf16(v[2], v[3]);
   }
 }
 
-struct Workspace {
-  float* scores;  // [B, KVH, G, C]
-  float* stats;   // [B, KVH, nsplit, G, 2]: (m_s, l_s)
-  float* part;    // [B, KVH, nsplit, G, kD]
+// P.V as m16n8k16 products: M = the G query heads, K = 16 cache rows of a
+// step, N = 8 columns per product. Lane (gid, tig) holds the rows tig,
+// tig + 4, tig + 8, tig + 12 of the step (B's k = 2 tig + 0, 1 and
+// 8 + 2 tig + 0, 1) and 8 columns of each, half * 64 + gid * 8 + n for the
+// products n = 0..7, so that it reads 8 contiguous values of a row; the
+// product's C column c (= 2 tig + j) is then output column half * 64 +
+// c * 8 + n.
+template <int BITS>
+struct VLane {
+  static constexpr int kWords = BITS == 16 ? 4 : 2;  // the 8 values' bytes
+  __device__ static int byte0(int gid, int half) {
+    if constexpr (BITS == 16) return half * 128 + gid * 16;
+    if constexpr (BITS == 8) return half * 64 + gid * 8;
+    if constexpr (BITS == 4) return gid * 8;
+    return (gid & 3) * 8;  // BITS 2
+  }
+  __device__ static int shift(int gid, int half) {
+    if constexpr (BITS == 4) return half * 4;
+    if constexpr (BITS == 2) return (half * 2 + (gid >> 2)) * 2;
+    return 0;
+  }
 };
 
-inline size_t workspace_floats(int B, int KVH, int C, int G, int nsplit,
-                               Workspace* ws, float* base) {
-  const size_t heads = (size_t)B * KVH;
-  const size_t n_scores = heads * G * C;
-  const size_t n_stats = heads * nsplit * G * 2;
-  const size_t n_part = heads * nsplit * G * kD;
-  if (ws) {
-    ws->scores = base;
-    ws->stats = base + n_scores;
-    ws->part = base + n_scores + n_stats;
+// bf16 value n (0..7) of two rows' words, packed (row a low, row b high).
+template <int BITS>
+__device__ __forceinline__ uint32_t v_pair(const uint32_t* wa, const uint32_t* wb, int n,
+                                           int shift, float sa, float za, float sb, float zb) {
+  if constexpr (BITS == 16) {
+    return __byte_perm(wa[n >> 1], wb[n >> 1], (n & 1) ? 0x7632 : 0x5410);
+  } else {
+    constexpr uint32_t mask = (1u << (BITS == 8 ? 8 : BITS)) - 1u;
+    const int bit = 8 * (n & 3) + shift;
+    return pack_bf16(deq_bf16((wa[n >> 2] >> bit) & mask, sa, za),
+                     deq_bf16((wb[n >> 2] >> bit) & mask, sb, zb));
   }
-  return n_scores + n_stats + n_part;
 }
 
-// ---- 1. scores and per-chunk softmax statistics ----
+// The CTA's ring: item i < nt is K tile i, item nt + i is V tile i, each
+// kTileRows cache rows (the last one ragged) of this CTA's slot range,
+// copied by every thread with cp.async into padded rows.
 template <int BITS>
-__global__ void __launch_bounds__(kThreads)
-scores_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
-              const uint8_t* __restrict__ kc,       // [B, KVH, C, row bytes]
-              const float* __restrict__ ks, const float* __restrict__ kz,
-              const uint8_t* __restrict__ mask,     // [B, KVH, C]
-              Workspace ws, int KVH, int C, int G, float scale) {
+struct Ring {
   using F = Fmt<BITS>;
-  __shared__ float qs[kMaxG][kQStride];
-  __shared__ float sc[kMaxG][kChunk];
-  __shared__ float redm[kWarps][kMaxG];
-  __shared__ float redl[kWarps][kMaxG];
+  uint8_t* rows;    // [kStages][kStageBytes]
+  float* side;      // [kStages][2][kTileRows]: scales, then zeros
+  const uint8_t* kc;
+  const uint8_t* vc;
+  const float *ks, *kz, *vs, *vz;
+  size_t slot0;     // bh * C + c_begin
+  int n, nt;
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
+  __device__ int tile_rows(int i) const {
+    const int t = i < nt ? i : i - nt;
+    return min(F::kTileRows, n - t * F::kTileRows);
+  }
+
+  // Issue item i into its stage (nothing if it does not exist); always
+  // commits one cp.async group, so that group i is item i.
+  __device__ void issue(int i) {
+    if (i < 2 * nt) {
+      const int st = i % kStages;
+      const bool is_k = i < nt;
+      const int r0 = (is_k ? i : i - nt) * F::kTileRows;
+      const int rows_i = tile_rows(i);
+      constexpr int kChunks = F::kRowBytes / 16;  // per row
+      const int stride = is_k ? F::kKStride : F::kVStride;
+      uint8_t* dst = rows + (size_t)st * F::kStageBytes;
+      const uint8_t* src = (is_k ? kc : vc) + (slot0 + r0) * F::kRowBytes;
+      for (int c = threadIdx.x; c < rows_i * kChunks; c += kThreads) {
+        const int r = c / kChunks, ch = c % kChunks;
+        cp_async16(dst + r * stride + ch * 16, src + (size_t)c * 16);
+      }
+      if constexpr (BITS != 16) {
+        const float* s = is_k ? ks : vs;
+        const float* z = is_k ? kz : vz;
+        float* sd = side + (size_t)st * F::kSideFloats;
+        for (int t = threadIdx.x; t < 2 * rows_i; t += kThreads) {
+          const int r = t < rows_i ? t : t - rows_i;
+          cp_async4(sd + (t < rows_i ? r : F::kTileRows + r), (t < rows_i ? s : z) + slot0 + r0 + r);
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  // Wait for item i, visible to the whole CTA.
+  __device__ void wait(int i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+  }
+};
+
+template <int BITS, bool NEED_ATTN, int MG>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
+                   const uint8_t* __restrict__ kc,       // [B, KVH, C, row bytes]
+                   const uint8_t* __restrict__ vc,
+                   const float* __restrict__ ks, const float* __restrict__ kz,
+                   const float* __restrict__ vs, const float* __restrict__ vz,
+                   const uint8_t* __restrict__ mask,     // [B, KVH, C]
+                   void* __restrict__ out,               // [B, H, D], bf16 or f32
+                   float* __restrict__ pooled,           // [B, KVH, C]
+                   float* __restrict__ ws_scores,        // [B, KVH, G, C] or unused
+                   int KVH, int C, int G, int per, int smem_scores, int out_bf16,
+                   float scale) {
+  using F = Fmt<BITS>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t bh = (size_t)b * KVH + h;
-  const int c0 = split * kChunk;
-  const int n = min(kChunk, C - c0);
+  const int c_begin = min(C, rank * per);
+  const int n = min(C, c_begin + per) - c_begin;
 
-  // 8 lanes per cache row; a warp step covers 4 rows. Issue this lane's
-  // loads first.
-  const int sub = lane >> 3, lane8 = lane & 7;
-  uint32_t raw[kRowsPerLane][F::kLaneWords];
-  float srow[kRowsPerLane], zrow[kRowsPerLane];
+  const Layout L = layout<BITS>(MG, G, per, smem_scores);
+  float* redm = reinterpret_cast<float*>(smem + L.redm);   // [kWarps][kMaxG]
+  float* redl = reinterpret_cast<float*>(smem + L.redl);   // [kWarps][kMaxG]
+  float* stats = reinterpret_cast<float*>(smem + L.stats); // [kMaxG][2]: m_s, l_s
+  float* fin = reinterpret_cast<float*>(smem + L.fin);     // [2][kMaxG]: m, 1 / l
+  float* part = reinterpret_cast<float*>(smem + L.part);   // [G][kD]
+  // Scores of head g at local slot c: sc[g * ss + c].
+  float* sc = smem_scores ? reinterpret_cast<float*>(smem + L.scores)
+                          : ws_scores + bh * G * C + c_begin;
+  const size_t ss = smem_scores ? (size_t)per : (size_t)C;
+
+  Ring<BITS> ring;
+  ring.rows = smem;
+  ring.side = reinterpret_cast<float*>(smem + L.side);
+  ring.kc = kc;
+  ring.vc = vc;
+  ring.ks = ks;
+  ring.kz = kz;
+  ring.vs = vs;
+  ring.vz = vz;
+  ring.slot0 = bh * C + c_begin;
+  ring.n = n;
+  ring.nt = (n + F::kTileRows - 1) / F::kTileRows;
+  const int nt = ring.nt;
+
+  // Before the ring's copies queue up: q's A fragments (head gid, the
+  // columns kcol gives this lane), and the first mask bytes of the slots
+  // this thread owns in the softmax below.
+  const int gid = lane >> 2, tig = lane & 3;
+  uint32_t qa[8][2];
+  const unsigned short* qh = reinterpret_cast<const unsigned short*>(q) + (bh * G + gid) * kD;
 #pragma unroll
-  for (int i = 0; i < kRowsPerLane; ++i) {
-    const int r = i * kWarps * 4 + warp * 4 + sub;
-    srow[i] = zrow[i] = 0.f;
+  for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-    for (int k = 0; k < F::kLaneWords; ++k) raw[i][k] = 0u;
-    if (r < n) {
-      const size_t c = bh * C + c0 + r;
-      load_words<F::kLaneWords>(kc + c * F::kRowBytes + lane8 * F::kLaneBytes, raw[i]);
+    for (int h2 = 0; h2 < 2; ++h2)
+      qa[kk][h2] = gid < G ? (uint32_t)qh[kcol<BITS>(tig, kk, 2 * h2)] |
+                                 ((uint32_t)qh[kcol<BITS>(tig, kk, 2 * h2 + 1)] << 16)
+                           : 0u;
+  bool okpre[kMaskPre];
+#pragma unroll
+  for (int u = 0; u < kMaskPre; ++u) {
+    const int c = u * kThreads + tid;
+    okpre[u] = c < n && mask[bh * C + c_begin + c];
+  }
+
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) ring.issue(i);
+
+  // ---- 1. scores on the tensor cores: 8 cache rows per product ----
+  constexpr int kRowTiles = F::kTileRows / 8 / kWarps;  // products per warp per tile
+  constexpr int kQuarter = F::kRowBytes / 4;             // a lane's bytes of a row
+  for (int i = 0; i < nt; ++i) {
+    ring.wait(i);
+    const int st = i % kStages;
+    const int rows_i = ring.tile_rows(i);
+    const uint8_t* tile = ring.rows + (size_t)st * F::kStageBytes;
+    const float* side = ring.side + (size_t)st * F::kSideFloats;
+    // Rows past the ragged end compute on stale bytes and are not written.
+#pragma unroll
+    for (int u = 0; u < kRowTiles; ++u) {
+      const int r8 = (warp + u * kWarps) * 8;
+      if (r8 >= rows_i) break;  // uniform across the warp
+      const int r = r8 + gid;
+      uint32_t w[kQuarter / 4];
+      const uint8_t* row = tile + (size_t)r * F::kKStride;
+      if constexpr (BITS == 16) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) load_words<4>(row + (tig + 4 * c) * 16, w + 4 * c);
+      } else {
+        load_words<kQuarter / 4>(row + tig * kQuarter, w);
+      }
+      float s = 0.f, zp = 0.f;
       if constexpr (BITS != 16) {
-        srow[i] = ks[c];
-        zrow[i] = kz[c];
+        s = side[r];
+        zp = folded_zero<BITS>(side[F::kTileRows + r], s);
+      }
+      // Two accumulators (even and odd steps) halve the chain of
+      // dependent products.
+      float c4[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t b0, b1;
+        k_frag<BITS>(w, kk, s, zp, b0, b1);
+        mma_bf16(c4[kk & 1], qa[kk][0], qa[kk][1], b0, b1);
+      }
+      // c4[.][j]: head gid, row r8 + 2 tig + j.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = r8 + tig * 2 + j;
+        if (gid < G && key < rows_i)
+          sc[gid * ss + i * F::kTileRows + key] = (c4[0][j] + c4[1][j]) * scale;
+      }
+    }
+    __syncthreads();
+    ring.issue(i + kStages);
+  }
+
+  // ---- local softmax statistics over this CTA's slots, masked ----
+  float mx[MG];
+#pragma unroll
+  for (int g = 0; g < MG; ++g) mx[g] = kNegInf;
+  for (int c0 = 0; c0 < n; c0 += kMaskPre * kThreads) {
+    bool ok[kMaskPre];
+#pragma unroll
+    for (int u = 0; u < kMaskPre; ++u) {
+      const int c = c0 + u * kThreads + tid;
+      ok[u] = c0 == 0 ? okpre[u] : (c < n && mask[bh * C + c_begin + c]);
+    }
+#pragma unroll
+    for (int u = 0; u < kMaskPre; ++u) {
+      const int c = c0 + u * kThreads + tid;
+      if (c >= n) break;
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        if (g >= G) break;
+        float v = sc[g * ss + c];
+        if (!ok[u]) {
+          v = kNegInf;
+          sc[g * ss + c] = v;
+        }
+        mx[g] = fmaxf(mx[g], v);
       }
     }
   }
-  for (int i = tid; i < G * kD; i += kThreads) {
-    const int g = i / kD, d = i % kD;
-    qs[g][d + (d >> 4)] = __bfloat162float(q[bh * G * kD + i]);
-  }
-  __syncthreads();
-
 #pragma unroll
-  for (int i = 0; i < kRowsPerLane; ++i) {
-    const int r = i * kWarps * 4 + warp * 4 + sub;
-    float acc[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-    const float zp = BITS == 16 ? 0.f : folded_zero<BITS == 16 ? 8 : BITS>(zrow[i], srow[i]);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float kv = score_val<BITS>(raw[i], j, srow[i], zp);
-      const int d = score_col<BITS>(lane8, j);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) acc[g] = fmaf(qs[g][d + (d >> 4)], kv, acc[g]);
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float v = acc[g];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      if (lane8 == 0 && r < n) sc[g][r] = mask[bh * C + c0 + r] ? v * scale : kNegInf;
-    }
-  }
-  __syncthreads();
-
-  // Chunk max per head, then the sum of exp(score - max); thread t < n owns
-  // slot t of the chunk.
-  const bool own = tid < n;
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    float v = own ? sc[g][tid] : kNegInf;
+  for (int g = 0; g < MG; ++g) {
+    float v = mx[g];
     for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) redm[warp][g] = v;
+    if (lane == 0) redm[warp * kMaxG + g] = v;
   }
   __syncthreads();
+  float ms[MG], ls[MG];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    float m = redm[0][g];
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, redm[w][g]);
-    float v = own ? expf(sc[g][tid] - m) : 0.f;
+  for (int g = 0; g < MG; ++g) {
+    ms[g] = redm[g];
+    for (int w = 1; w < kWarps; ++w) ms[g] = fmaxf(ms[g], redm[w * kMaxG + g]);
+    ls[g] = 0.f;
+  }
+  for (int c = tid; c < n; c += kThreads) {
+#pragma unroll
+    for (int g = 0; g < MG; ++g)
+      if (g < G) ls[g] += exp2f(sc[g * ss + c] - ms[g]);
+  }
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    float v = ls[g];
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) redl[warp][g] = v;
-    if (own) ws.scores[(bh * G + g) * C + c0 + tid] = sc[g][tid];
+    if (lane == 0) redl[warp * kMaxG + g] = v;
   }
   __syncthreads();
   if (tid < G) {
-    float m = redm[0][tid], l = 0.f;
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, redm[w][tid]);
-    for (int w = 0; w < kWarps; ++w) l += redl[w][tid];
-    float* st = ws.stats + ((bh * nsplit + split) * G + tid) * 2;
-    st[0] = m;
-    st[1] = l;
-  }
-}
-
-// ---- 2. final (m, l), probabilities, pooled mean, partial P.V ----
-// Each lane owns 4 output columns, lane*4 .. lane*4 + 3.
-template <int BITS, bool NEED_ATTN>
-__global__ void __launch_bounds__(kThreads)
-pv_kernel(const uint8_t* __restrict__ vc,  // [B, KVH, C, row bytes]
-          const float* __restrict__ vs, const float* __restrict__ vz,
-          float* __restrict__ pooled,      // [B, KVH, C]
-          Workspace ws, int KVH, int C, int G) {
-  using F = Fmt<BITS>;
-  constexpr int kLoadWords = BITS == 16 ? 2 : 1;
-  __shared__ float fin[2][kMaxG];  // final m and l per head
-  __shared__ float ps[kMaxG][kChunk];
-  __shared__ float red[kWarps][kMaxG][kD];
-
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t bh = (size_t)b * KVH + h;
-  const int c0 = split * kChunk;
-  const int n = min(kChunk, C - c0);
-  // This lane's bytes within a row and, for packed rows, its bit range.
-  const int byte0 = BITS == 16 ? lane * 8 : (lane * 4) % F::kRowBytes;
-  const int seg = BITS >= 8 ? 0 : (lane * 4) / F::kSeg;
-
-  // This warp's V rows (slots warp, warp + kWarps, ...), loaded before
-  // anything waits on them.
-  uint32_t raw[kSlotsPerWarp][kLoadWords];
-  float srow[kSlotsPerWarp], zrow[kSlotsPerWarp];
-#pragma unroll
-  for (int u = 0; u < kSlotsPerWarp; ++u) {
-    const int t = warp + u * kWarps;
-#pragma unroll
-    for (int k = 0; k < kLoadWords; ++k) raw[u][k] = 0u;
-    srow[u] = zrow[u] = 0.f;
-    if (t < n) {
-      const size_t c = bh * C + c0 + t;
-      load_words<kLoadWords>(vc + c * F::kRowBytes + byte0, raw[u]);
-      if constexpr (BITS != 16) {
-        srow[u] = vs[c];
-        zrow[u] = vz[c];
-      }
-    }
-  }
-
-  // Final (m, l) of query head g = warp, over every chunk, lanes striding
-  // the chunks; the shuffle tree fixes the order.
-  if (warp < G) {
-    const float* st = ws.stats + bh * nsplit * G * 2;
-    float m = kNegInf;
-    for (int s = lane; s < nsplit; s += 32) m = fmaxf(m, st[(s * G + warp) * 2]);
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     float l = 0.f;
-    for (int s = lane; s < nsplit; s += 32)
-      l += st[(s * G + warp) * 2 + 1] * expf(st[(s * G + warp) * 2] - m);
-    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0) {
-      fin[0][warp] = m;
-      fin[1][warp] = l;
+    for (int w = 0; w < kWarps; ++w) l += redl[w * kMaxG + tid];
+    stats[tid * 2] = ms[tid];
+    stats[tid * 2 + 1] = l;
+  }
+
+  // ---- 2. global (m, l) from every CTA of the cluster, in CTA order ----
+  cluster.sync();
+  if (tid < G) {
+    float m = kNegInf;
+    for (int r = 0; r < nc; ++r) m = fmaxf(m, cluster.map_shared_rank(stats, r)[tid * 2]);
+    float l = 0.f;
+    for (int r = 0; r < nc; ++r) {
+      const float* st = cluster.map_shared_rank(stats, r);
+      l += st[tid * 2 + 1] * exp2f(st[tid * 2] - m);
     }
+    fin[tid] = m;
+    fin[kMaxG + tid] = __fdiv_rn(1.0f, l);
   }
   __syncthreads();
 
-  if (tid < n) {
-    const int c = c0 + tid;
-    float psum = 0.f;
-    for (int g = 0; g < G; ++g) {
-      const float e = expf(ws.scores[(bh * G + g) * C + c] - fin[0][g]);
-      const float p = __fdiv_rn(e, fin[1][g]);
-      ps[g][tid] = p;
-      psum += p;
-    }
-    if constexpr (NEED_ATTN) pooled[bh * C + c] = psum * (1.0f / (float)G);
-  }
-  __syncthreads();
-
-  float acc[kMaxG][4];
+  // ---- partial P.V on the tensor cores: 16 cache rows per step ----
+  // Warp w takes column half w & 1 of steps w >> 1, w >> 1 + kWarps / 2, ...
+  using VL = VLane<BITS>;
+  constexpr int kSteps = F::kTileRows / 16 * 2 / kWarps;  // (step, half) units per warp
+  const int half = warp & 1;
+  const int vbyte = VL::byte0(gid, half), vshift = VL::shift(gid, half);
+  float o[8][4];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
+  for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[g][j] = 0.f;
+    for (int j = 0; j < 4; ++j) o[nn][j] = 0.f;
+  for (int i = nt; i < 2 * nt; ++i) {
+    ring.wait(i);
+    const int st = i % kStages;
+    const int rows_i = ring.tile_rows(i);
+    const int t0 = (i - nt) * F::kTileRows;
+    const uint8_t* tile = ring.rows + (size_t)st * F::kStageBytes;
+    const float* side = ring.side + (size_t)st * F::kSideFloats;
 #pragma unroll
-  for (int u = 0; u < kSlotsPerWarp; ++u) {
-    const int t = warp + u * kWarps;
-    if (t >= n) break;  // uniform across the warp
-    float vv[4];
-    if constexpr (BITS == 16) {
+    for (int u = 0; u < kSteps; ++u) {
+      const int r16 = ((warp >> 1) + u * (kWarps / 2)) * 16;
+      if (r16 >= rows_i) break;  // uniform across the warp
+      // This lane's 4 rows r16 + tig + 4 rr: probabilities of head gid (0
+      // past the end), and 8 values of each row (0 past the end: stale
+      // bytes may not be finite).
+      float p[4], sv[4], zv[4];
+      uint32_t vw[4][VL::kWords];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        vv[j] = __uint_as_float(((raw[u][j >> 1] >> (16 * (j & 1))) & 0xFFFFu) << 16);
-    } else {
-      const float zp = folded_zero<BITS == 16 ? 8 : BITS>(zrow[u], srow[u]);
+      for (int rr = 0; rr < 4; ++rr) {
+        const int key = r16 + tig + 4 * rr;
+        const bool ok = key < rows_i;
+        // p of head gid with the global (m, 1 / l); its bf16 rounding
+        // enters P.V, the f32 value the pooled mean.
+        p[rr] = gid < G && ok ? exp2f(sc[gid * ss + t0 + key] - fin[gid]) * fin[kMaxG + gid] : 0.f;
+        load_words<VL::kWords>(tile + (size_t)key * F::kVStride + vbyte, vw[rr]);
+        sv[rr] = zv[rr] = 0.f;
+        if constexpr (BITS == 16) {
+          if (!ok)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t byte = (raw[u][0] >> (8 * j)) & 0xFFu;
-        const uint32_t q = BITS == 8 ? byte : (byte >> (BITS * seg)) & ((1u << BITS) - 1u);
-        vv[j] = deq_bf16(q, srow[u], zp);
+            for (int k = 0; k < VL::kWords; ++k) vw[rr][k] = 0u;
+        } else {
+          if (ok) {
+            sv[rr] = side[key];
+            zv[rr] = folded_zero<BITS>(side[F::kTileRows + key], sv[rr]);
+          }
+        }
+      }
+      if constexpr (NEED_ATTN) {
+        // Sum over the heads (the lanes of one tig); half 0 writes it.
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          float v = p[rr];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          const int key = r16 + tig + 4 * rr;
+          if (half == 0 && gid == 0 && key < rows_i)
+            pooled[bh * C + c_begin + t0 + key] = v * (1.0f / (float)G);
+        }
+      }
+      const uint32_t a0 = pack_bf16(p[0], p[1]), a2 = pack_bf16(p[2], p[3]);
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        const uint32_t b0 = v_pair<BITS>(vw[0], vw[1], nn, vshift, sv[0], zv[0], sv[1], zv[1]);
+        const uint32_t b1 = v_pair<BITS>(vw[2], vw[3], nn, vshift, sv[2], zv[2], sv[3], zv[3]);
+        mma_bf16(o[nn], a0, a2, b0, b1);
       }
     }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      const float p = bf16_round(ps[g][t]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[g][j] = fmaf(p, vv[j], acc[g][j]);
-    }
+    __syncthreads();
+    ring.issue(i + kStages);
   }
+
+  // Sum the warps of each column half in order (the ring is free now),
+  // then the CTA's partial. o[nn][j]: head gid, column half * 64 +
+  // (2 tig + j) * 8 + nn.
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][MG][kD]
+  if (gid < G) {
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
+    for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][g][lane * 4 + j] = acc[g][j];
+      for (int j = 0; j < 2; ++j)
+        red[(warp * MG + gid) * kD + half * 64 + (tig * 2 + j) * 8 + nn] = o[nn][j];
   }
   __syncthreads();
-  float* part = ws.part + (bh * nsplit + split) * G * kD;
-  for (int i = tid; i < G * kD; i += kThreads) {
-    const int g = i / kD, d = i % kD;
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][g][d];
-    part[i] = s;
+  for (int e = tid; e < G * kD; e += kThreads) {
+    const int dh = (e >> 6) & 1;  // the column's half
+    float sum = 0.f;
+    for (int w = dh; w < kWarps; w += 2) sum += red[w * MG * kD + e];
+    part[e] = sum;
   }
+
+  // ---- 3. column slice `rank` of the output, summed over the cluster ----
+  cluster.sync();
+  const int E = G * kD;
+  const int chunk = (E + nc - 1) / nc;
+  const int e1 = min(E, (rank + 1) * chunk);
+  for (int e = rank * chunk + tid; e < e1; e += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < nc; ++r) s += cluster.map_shared_rank(part, r)[e];
+    if (out_bf16)
+      reinterpret_cast<__nv_bfloat16*>(out)[bh * E + e] = __float2bfloat16(s);
+    else
+      reinterpret_cast<float*>(out)[bh * E + e] = s;
+  }
+  // Peers may still read this CTA's statistics and partials.
+  cluster.sync();
 }
 
-// ---- 3. sum of the partial outputs over the chunks, in order ----
-__global__ void reduce_kernel(Workspace ws, float* __restrict__ out,  // [B, H, D]
-                              int KVH, int G, int nsplit) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t bh = (size_t)b * KVH + h;
-  const int i = threadIdx.x;  // g * kD + d, one block of G * kD threads
-  const float* part = ws.part + bh * nsplit * G * kD;
-  float s = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) s += part[(size_t)sp * G * kD + i];
-  out[bh * G * kD + i] = s;
+template <int BITS, bool NEED_ATTN, int MG>
+const void* kernel_fn() {
+  return (const void*)decode_attn_kernel<BITS, NEED_ATTN, MG>;
 }
 
-template <int BITS, bool NEED_ATTN>
-int launch(const void* q, const void* kc, const void* vc, const void* ks, const void* kz,
-           const void* vs, const void* vz, const void* mask, void* out, void* pooled,
-           void* workspace, int B, int KVH, int C, int G, float scale, cudaStream_t st) {
-  const int nsplit = (C + kChunk - 1) / kChunk;
-  Workspace ws;
-  workspace_floats(B, KVH, C, G, nsplit, &ws, (float*)workspace);
-  const dim3 grid(nsplit, KVH, B);
-  scores_kernel<BITS><<<grid, kThreads, 0, st>>>(
-      (const __nv_bfloat16*)q, (const uint8_t*)kc, (const float*)ks, (const float*)kz,
-      (const uint8_t*)mask, ws, KVH, C, G, scale);
-  cudaError_t e = cudaGetLastError();
+// Shared memory the kernel may ask for at most, set once per variant; 16-CTA
+// clusters are above the portable size of 8.
+template <int BITS, bool NEED_ATTN, int MG>
+cudaError_t prepare() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const void* fn = kernel_fn<BITS, NEED_ATTN, MG>();
+  const size_t most = layout<BITS>(MG, MG, kSmemScoreBytes / (MG * 4), true).total;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  done = true;
+  return cudaSuccess;
+}
+
+struct Call {
+  const void *q, *kc, *vc, *ks, *kz, *vs, *vz, *mask;
+  void *out, *pooled, *ws;
+  int B, KVH, C, G, nc, out_bf16;
+  float scale;
+};
+
+template <int BITS, bool NEED_ATTN, int MG>
+void config(const Call& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+            cudaStream_t st) {
+  const int per = cta_slots(a.C, a.nc);
+  const bool fit = scores_fit(a.G, per);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(a.nc, a.KVH, a.B);
+  cfg->blockDim = dim3(kThreads, 1, 1);
+  cfg->dynamicSmemBytes = layout<BITS>(MG, a.G, per, fit).total;
+  cfg->stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <int BITS, bool NEED_ATTN, int MG>
+int launch(const Call& a, cudaStream_t st) {
+  cudaError_t e = prepare<BITS, NEED_ATTN, MG>();
   if (e != cudaSuccess) return (int)e;
-  pv_kernel<BITS, NEED_ATTN><<<grid, kThreads, 0, st>>>(
-      (const uint8_t*)vc, (const float*)vs, (const float*)vz, (float*)pooled, ws, KVH, C, G);
-  e = cudaGetLastError();
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config<BITS, NEED_ATTN, MG>(a, &cfg, attr, st);
+  const int per = cta_slots(a.C, a.nc);
+  e = cudaLaunchKernelEx(&cfg, decode_attn_kernel<BITS, NEED_ATTN, MG>,
+                         (const __nv_bfloat16*)a.q, (const uint8_t*)a.kc, (const uint8_t*)a.vc,
+                         (const float*)a.ks, (const float*)a.kz, (const float*)a.vs,
+                         (const float*)a.vz, (const uint8_t*)a.mask, a.out, (float*)a.pooled,
+                         (float*)a.ws, a.KVH, a.C, a.G, per, (int)scores_fit(a.G, per),
+                         a.out_bf16, a.scale * 1.4426950408889634f);
   if (e != cudaSuccess) return (int)e;
-  reduce_kernel<<<dim3(KVH, B), G * kD, 0, st>>>(ws, (float*)out, KVH, G, nsplit);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Floats of workspace that decode_attention needs for these shapes.
-extern "C" size_t decode_attention_workspace(int B, int KVH, int C, int G) {
-  const int nsplit = (C + kChunk - 1) / kChunk;
-  return workspace_floats(B, KVH, C, G, nsplit, nullptr, nullptr);
+template <int BITS, bool NEED_ATTN, int MG>
+int max_clusters(const Call& a) {
+  cudaError_t e = prepare<BITS, NEED_ATTN, MG>();
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config<BITS, NEED_ATTN, MG>(a, &cfg, attr, 0);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, decode_attn_kernel<BITS, NEED_ATTN, MG>, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
-// bits: 16 (bf16 rows; scale/zero pointers unused), 8, 4 or 2.
-// need_attn: write pooled [B, KVH, C] (else pooled is unused).
-extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
-                                const void* ks, const void* kz, const void* vs,
-                                const void* vz, const void* mask, void* out, void* pooled,
-                                void* workspace, int B, int KVH, int C, int G, int bits,
-                                int need_attn, float scale, void* stream) {
-  if (G < 1 || G > kMaxG || C < 1 || B < 1 || KVH < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define CCT_DECODE_CASE(BITS_)                                                              \
-  case BITS_:                                                                               \
-    return need_attn ? launch<BITS_, true>(q, kc, vc, ks, kz, vs, vz, mask, out, pooled,    \
-                                           workspace, B, KVH, C, G, scale, st)              \
-                     : launch<BITS_, false>(q, kc, vc, ks, kz, vs, vz, mask, out, pooled,   \
-                                            workspace, B, KVH, C, G, scale, st);
+// Runs F<BITS, NEED_ATTN, MG>(a) for the call's variant (MG: 4 for G <= 4,
+// else 8); cudaErrorInvalidValue for a variant it does not have.
+template <template <int, bool, int> class F>
+int dispatch(const Call& a, int bits, int need_attn) {
+  const bool g4 = a.G <= 4;
+#define CCT_DECODE_CASE(BITS_)                                                   \
+  case BITS_:                                                                    \
+    if (need_attn)                                                               \
+      return g4 ? F<BITS_, true, 4>::run(a) : F<BITS_, true, 8>::run(a);         \
+    return g4 ? F<BITS_, false, 4>::run(a) : F<BITS_, false, 8>::run(a);
   switch (bits) {
     CCT_DECODE_CASE(16)
     CCT_DECODE_CASE(8)
@@ -447,4 +720,61 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
       return (int)cudaErrorInvalidValue;
   }
 #undef CCT_DECODE_CASE
+}
+
+cudaStream_t g_stream;
+
+template <int BITS, bool NEED_ATTN, int MG>
+struct Launch {
+  static int run(const Call& a) { return launch<BITS, NEED_ATTN, MG>(a, g_stream); }
+};
+
+template <int BITS, bool NEED_ATTN, int MG>
+struct MaxClusters {
+  static int run(const Call& a) { return max_clusters<BITS, NEED_ATTN, MG>(a); }
+};
+
+bool valid(int B, int KVH, int C, int G, int nc) {
+  return G >= 1 && G <= kMaxG && C >= 1 && B >= 1 && KVH >= 1 && nc >= 1 &&
+         nc <= kMaxCluster && nc <= C;
+}
+
+}  // namespace
+
+// Floats of global workspace for these shapes and cluster size: 0 where
+// each CTA's scores fit in its shared memory, else the scores [B, KVH, G, C].
+extern "C" size_t decode_attention_workspace(int B, int KVH, int C, int G, int nc) {
+  if (!valid(B, KVH, C, G, nc)) return 0;
+  return scores_fit(G, cta_slots(C, nc)) ? 0 : (size_t)B * KVH * G * C;
+}
+
+// Clusters of `nc` CTAs of this variant that fit on the card at once
+// (cudaOccupancyMaxActiveClusters); negative on a CUDA error.
+extern "C" int decode_attention_max_clusters(int B, int KVH, int C, int G, int nc, int bits,
+                                             int need_attn) {
+  if (!valid(B, KVH, C, G, nc)) return -(int)cudaErrorInvalidValue;
+  Call a{};
+  a.B = B;
+  a.KVH = KVH;
+  a.C = C;
+  a.G = G;
+  a.nc = nc;
+  return dispatch<MaxClusters>(a, bits, need_attn);
+}
+
+// bits: 16 (bf16 rows; scale/zero pointers unused), 8, 4 or 2.
+// need_attn: write pooled [B, KVH, C] (else pooled is unused).
+// nc: CTAs per cluster, 1..16, at most C. out: [B, H, D] in bf16 when
+// out_bf16, else f32. workspace: decode_attention_workspace floats.
+extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
+                                const void* ks, const void* kz, const void* vs,
+                                const void* vz, const void* mask, void* out, void* pooled,
+                                void* workspace, int B, int KVH, int C, int G, int nc,
+                                int bits, int need_attn, int out_bf16, float scale,
+                                void* stream) {
+  if (!valid(B, KVH, C, G, nc)) return (int)cudaErrorInvalidValue;
+  Call a{q, kc, vc, ks, kz, vs, vz, mask, out, pooled, workspace,
+         B, KVH, C, G, nc, out_bf16, scale};
+  g_stream = (cudaStream_t)stream;
+  return dispatch<Launch>(a, bits, need_attn);
 }

@@ -18,11 +18,15 @@ TPU's ``i8dot`` (int8 query and probabilities on the MXU) is a TPU-specific
 trick and stays a later option.
 
 Bound on the H100: bytes (K and V of every KV head, 2*C*D*bits/8 bytes
-each, plus the per-slot scale/zero/mask). Design: the cache is split over C
-into 128-slot chunks, one block each, so that batch 1 still fills the card;
-three launches per call (scores and per-chunk softmax statistics; the final
-(m, l), pooled probabilities and partial P.V; the sum of the partials over
-the chunks), all sums in a fixed order.
+each, plus the per-slot scale/zero/mask). Design: one launch per call. Each
+(batch, KV head) is a thread-block cluster of up to 16 CTAs that split C
+into contiguous ranges (``cluster_size``, ``cta_ranges``); each CTA streams
+its rows through a three-stage ``cp.async`` ring of padded rows, takes
+scores and P.V on the tensor cores, keeps its scores in shared memory
+(``scores_in_smem``; else a global workspace, still in the same launch),
+and the cluster folds its softmax statistics and its partial outputs
+through distributed shared memory in CTA order, so every sum has a fixed
+order.
 """
 
 from __future__ import annotations
@@ -51,6 +55,34 @@ def variant(bits: int, need_attn: bool) -> str:
 #: Launch count of the CUDA kernel per variant (incremented only where it
 #: launches).
 LAUNCHES = {variant(b, a): 0 for b in BITS for a in (True, False)}
+
+
+#: CTAs of one cluster: at most 16 (above the portable 8, where the card
+#: fits them), one per 128 cache slots.
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+SLOTS_PER_CTA = 128
+#: A CTA's scores (G * slots * 4 bytes) above this go to a global workspace.
+SMEM_SCORE_BYTES = 64 * 1024
+
+
+def cluster_size(C: int, cap: int = MAX_CLUSTER) -> int:
+    """CTAs per cluster for a cache of C slots: ceil(C / 128), at most
+    ``cap``."""
+    return max(1, min(cap, -(-C // SLOTS_PER_CTA)))
+
+
+def cta_ranges(C: int, nc: int):
+    """The contiguous slot range [begin, end) of each CTA of an ``nc``-CTA
+    cluster, as the kernel cuts it: ceil(C / nc) slots each, the last one
+    ragged."""
+    per = -(-C // nc)
+    return [(min(C, i * per), min(C, (i + 1) * per)) for i in range(nc)]
+
+
+def scores_in_smem(C: int, G: int, nc: int) -> bool:
+    """Whether each CTA keeps its G heads' scores in shared memory."""
+    return G * -(-C // nc) * 4 <= SMEM_SCORE_BYTES
 
 
 def decode_attn_supported(q_shape, n_kv_head: int) -> bool:
@@ -113,19 +145,51 @@ def _lib():
     fn, ws = lib.decode_attention, lib.decode_attention_workspace
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        ws.argtypes = [ctypes.c_int] * 4
+        ws.argtypes = [ctypes.c_int] * 5
         ws.restype = ctypes.c_size_t
+        fits = lib.decode_attention_max_clusters
+        fits.argtypes = [ctypes.c_int] * 7
+        fits.restype = ctypes.c_int
     return fn, ws
 
 
+#: cudaOccupancyMaxActiveClusters per (B, KVH, C, G, nc, bits, need_attn).
+_MAX_CLUSTERS = {}
+
+
+def max_active_clusters(B, KVH, C, G, nc, bits, need_attn) -> int:
+    """Clusters of ``nc`` CTAs of this variant that the card holds at once."""
+    key = (B, KVH, C, G, nc, bits, bool(need_attn))
+    if key not in _MAX_CLUSTERS:
+        _lib()
+        n = _build.library("decode_attn").decode_attention_max_clusters(*key[:6], int(need_attn))
+        _build.check(max(0, -n), "decode_attention_max_clusters")
+        _MAX_CLUSTERS[key] = n
+    return _MAX_CLUSTERS[key]
+
+
+def default_cluster(B, KVH, C, G, bits, need_attn) -> int:
+    """CTAs per cluster the wrapper takes: ``cluster_size(C)``, or above 8
+    the largest size whose B * KVH clusters all fit on the card at once
+    (16-CTA clusters need a GPC of 16 free SMs, which not every GPC has),
+    else 8."""
+    nc = cluster_size(C)
+    while nc > PORTABLE_CLUSTER and max_active_clusters(B, KVH, C, G, nc, bits,
+                                                        need_attn) < B * KVH:
+        nc -= 1
+    return nc
+
+
 def decode_attention(q, k, v, k_scales, k_zeros, v_scales, v_zeros, mask, *,
-                     bits: int, need_attn: bool):
+                     bits: int, need_attn: bool, cluster: Optional[int] = None):
     """Returns (out [B, H, 1, D], pooled attn [B, KVH, 1, C] or None), the
     contract of gqa_attention's decode path. ``bits`` is the cache's
     precision (16 for a bf16 cache, whose scale/zero arguments are None).
+    ``cluster`` fixes the CTAs per cluster (1..16, at most C); by default
+    ``default_cluster``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
     any input it does not take raises."""
@@ -159,15 +223,24 @@ def decode_attention(q, k, v, k_scales, k_zeros, v_scales, v_zeros, mask, *,
             raise ValueError(f"{name}: {n} on another device")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name}: cache rows must be 16-byte aligned")
+    if cluster is None:
+        nc = default_cluster(B, KVH, C, G, bits, need_attn)
+    elif not 1 <= cluster <= min(MAX_CLUSTER, C):
+        raise ValueError(f"{name}: cluster {cluster} (takes 1..{min(MAX_CLUSTER, C)})")
+    else:
+        nc = cluster
     qb = q.to(torch.bfloat16).contiguous()  # the TPU kernel casts q too
     launch, workspace_floats = _lib()
-    out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
+    # The kernel writes bf16 itself; another query dtype gets f32 and a cast.
+    out_bf16 = q.dtype == torch.bfloat16
+    out = torch.empty((B, H, 1, D), dtype=torch.bfloat16 if out_bf16 else torch.float32,
+                      device=q.device)
     pooled = (torch.empty((B, KVH, 1, C), dtype=torch.float32, device=q.device)
               if need_attn else None)
-    # Scores, per-chunk statistics and partial outputs between the launches,
-    # sized for this call's C.
-    workspace = torch.empty(workspace_floats(B, KVH, C, G), dtype=torch.float32,
-                            device=q.device)
+    # Scores that do not fit in the CTAs' shared memory (none at C <= 32768
+    # for G <= 4).
+    n_ws = workspace_floats(B, KVH, C, G, nc)
+    workspace = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -175,9 +248,9 @@ def decode_attention(q, k, v, k_scales, k_zeros, v_scales, v_zeros, mask, *,
     status = launch(
         qb.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scales), ptr(k_zeros),
         ptr(v_scales), ptr(v_zeros), mask.data_ptr(), out.data_ptr(), ptr(pooled),
-        workspace.data_ptr(), B, KVH, C, G, bits, int(need_attn), 1.0 / math.sqrt(D),
-        _build.stream_ptr(q.device),
+        ptr(workspace), B, KVH, C, G, nc, bits, int(need_attn), int(out_bf16),
+        1.0 / math.sqrt(D), _build.stream_ptr(q.device),
     )
     _build.check(status, name)
     LAUNCHES[variant(bits, need_attn)] += 1
-    return out.to(q.dtype), pooled
+    return (out if out_bf16 else out.to(q.dtype)), pooled

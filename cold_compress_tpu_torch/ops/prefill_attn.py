@@ -4,25 +4,25 @@ FastGen hybrid profile (kernel K6): wrappers and plain versions.
 Counterpart of ``cold_compress_tpu/ops/pallas_prefill.py``. The CUDA kernel
 (``csrc/flash_prefill.cu``) replaces ``flash_prefill`` (pallas_prefill.py:167,
 ``_kernel``): pass 1 is causal GQA flash attention with the G query heads
-folded into the rows (K/V never repeated), bf16 operands on the tensor cores,
-p cast to bf16 before P.V, y in bf16; it keeps each row's softmax statistics
-(m, l). Pass 2 gives each block one 64-key block and loops over the query
-rows that see it, recomputing and normalising the scores and summing them
+folded into the rows (K/V never repeated), bf16 operands on the tensor cores
+(``mma.sync`` fed by ``ldmatrix``, 128 rows per CTA, K/V tiles in a
+three-stage ``cp.async`` ring, the longest causal row blocks first), the unnormalised
+probabilities cast to bf16 before P.V, y in bf16; it keeps each row's
+softmax statistics. Pass 2 cuts the work into items of one 128-key block
+against one segment of at most ``seg_rows`` query rows
+(``colsum_segments``), recomputes and normalises the scores and sums them
 per key, weighted by validity / G (``cum``) and by the last ``obs_len``
-positions / G (``obs``). Each key is written by one block, with no atomics,
-so the sums are deterministic.
+positions / G (``obs``), into a per-segment workspace that a third small
+launch sums in segment order: no atomics, so the sums are deterministic.
 
 Bound on the H100: operations (~0.55 TFLOP of causal QK^T and PV per layer
-at P = 8192, plus the pass-2 recompute, against ~100 MB of inputs). Design:
-bf16 ``mma.sync`` tensor-core tiles from shared memory; no copy pipelining
-yet.
+at P = 8192, plus the pass-2 recompute, against ~100 MB of inputs).
 
 K6 (``flash_profile``, the second entry point of the same source) replaces
-``flash_profile`` (pallas_prefill.py:281): the same pass 1, and a pass 2
-that sums the normalised probabilities into the raw hybrid profile
-accumulators ``cum`` and ``wcols`` (``profile_partial`` below is their
-plain version) instead of ``cum``/``obs``. The hybrid prefill runs it in
-place of K4.
+``flash_profile`` (pallas_prefill.py:281): the same pass 1, and pass 2
+instantiated over the raw hybrid profile accumulators ``cum`` and
+``wcols`` (``profile_partial`` below is their plain version) instead of
+``cum``/``obs``. The hybrid prefill runs it in place of K4.
 """
 
 from __future__ import annotations
@@ -64,16 +64,99 @@ def flash_prefill_plain(q, k, v, prompt_len, need_summary=True, obs_len=16):
     return y, finalize_summary(cum, obs, plen, k.shape[2], obs_len)
 
 
-def _lib():
-    fn = _build.library("flash_prefill").flash_prefill_summary
+#: Pass 2 cuts the P*G folded query rows into at most this many segments,
+#: and the keys into blocks of this many (the last one may reach past P).
+MAX_SEGMENTS = 32
+KEYS_PER_ITEM = 128
+
+
+def colsum_segments(P: int, G: int):
+    """(seg_rows, n_seg) of pass 2: segments of ``seg_rows`` folded rows (a
+    multiple of 64), at most ``MAX_SEGMENTS`` of them, covering P * G."""
+    rows = P * G
+    seg_rows = -(-rows // (MAX_SEGMENTS * BLOCK)) * BLOCK
+    return seg_rows, -(-rows // seg_rows)
+
+
+def colsum_items(P: int, G: int, prompt_len: int):
+    """Pass 2's non-empty work items as the kernel cuts them: (key block,
+    segment, first row, end row) for every 128-key block and segment whose
+    valid rows see the block."""
+    seg_rows, n_seg = colsum_segments(P, G)
+    row_end = min(prompt_len, P) * G
+    items = []
+    for kb in range(-(-P // KEYS_PER_ITEM)):
+        for s in range(n_seg):
+            r0 = max(s * seg_rows, kb * KEYS_PER_ITEM * G)
+            r1 = min((s + 1) * seg_rows, row_end)
+            if r0 < r1:
+                items.append((kb, s, r0, r1))
+    return items
+
+
+def _fn(name, n_int_args):
+    fn = getattr(_build.library("flash_prefill"), name)
     if fn.argtypes is None:
+        n_ptr = 6 if name == "flash_fwd" else 7
         fn.argtypes = (
-            [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_float]
+            + [ctypes.c_int] * n_int_args + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_inputs(name, q, k, v):
+    B, H, P, D = q.shape
+    KVH = k.shape[1]
+    if not flash_prefill_supported(q.shape) or H % KVH:
+        raise ValueError(f"{name}: unsupported q {tuple(q.shape)}")
+    if tuple(k.shape) != (B, KVH, P, D) or tuple(v.shape) != (B, KVH, P, D):
+        raise ValueError(f"{name}: k/v shape does not match q")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: inputs on different devices")
+    return (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+
+
+def flash_pass1(q, k, v):
+    """Pass 1 alone on bf16 CUDA tensors (no launch count): y [B, H, P, D]
+    bf16 and each folded row's softmax max (base 2) and 1 / sum, [B, KVH,
+    P*G] f32."""
+    B, H, P, D = q.shape
+    KVH = k.shape[1]
+    dev = q.device
+    y = torch.empty((B, H, P, D), dtype=torch.bfloat16, device=dev)
+    mbuf = torch.empty((B, KVH, P * (H // KVH)), dtype=torch.float32, device=dev)
+    ilbuf = torch.empty_like(mbuf)
+    status = _fn("flash_fwd", 0)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), mbuf.data_ptr(),
+        ilbuf.data_ptr(), B, H, KVH, P, math.log2(math.e) / math.sqrt(D), _build.stream_ptr(dev),
+    )
+    _build.check(status, "flash_fwd")
+    return y, mbuf, ilbuf
+
+
+def flash_pass2(q, k, mbuf, ilbuf, plen, obs_len: int = 16, window_lens=None):
+    """Pass 2 and its reduction alone (no launch count): [2, B, KVH, P] f32
+    (cum, obs) for K4, or with ``window_lens`` [1 + W, B, KVH, P] (cum, one
+    sum per window) for K6."""
+    B, H, P, D = q.shape
+    KVH = k.shape[1]
+    G = H // KVH
+    dev = q.device
+    seg_rows, n_seg = colsum_segments(P, G)
+    n_acc = 2 if window_lens is None else 1 + len(window_lens)
+    ws = torch.empty((n_acc, n_seg, B, KVH, P), dtype=torch.float32, device=dev)
+    out = torch.empty((n_acc, B, KVH, P), dtype=torch.float32, device=dev)
+    wl = list(window_lens or ()) + [1] * (MAX_WINDOWS - len(window_lens or ()))
+    status = _fn("flash_colsum", 9)(
+        q.data_ptr(), k.data_ptr(), mbuf.data_ptr(), ilbuf.data_ptr(), plen.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), B, H, KVH, P, math.log2(math.e) / math.sqrt(D),
+        seg_rows, n_seg, int(window_lens is not None), obs_len,
+        len(window_lens or ()), *wl, _build.stream_ptr(dev),
+    )
+    _build.check(status, "flash_colsum")
+    return out
 
 
 def flash_prefill(q, k, v, prompt_len, need_summary: bool = True, obs_len: int = 16):
@@ -85,37 +168,16 @@ def flash_prefill(q, k, v, prompt_len, need_summary: bool = True, obs_len: int =
     any input it does not take raises."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, prompt_len, need_summary, obs_len)
-    B, H, P, D = q.shape
-    KVH = k.shape[1]
-    if not flash_prefill_supported(q.shape) or H % KVH:
-        raise ValueError(f"flash_prefill: unsupported q {tuple(q.shape)}")
-    if tuple(k.shape) != (B, KVH, P, D) or tuple(v.shape) != (B, KVH, P, D):
-        raise ValueError("flash_prefill: k/v shape does not match q")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_prefill: inputs on different devices")
-    qb = q.to(torch.bfloat16).contiguous()
-    kb = k.to(torch.bfloat16).contiguous()
-    vb = v.to(torch.bfloat16).contiguous()
+    qb, kb, vb = _check_inputs("flash_prefill", q, k, v)
+    B, P = q.shape[0], q.shape[2]
     plen = _plen(prompt_len, B, q.device).contiguous()
-    dev = q.device
-    G = H // KVH
-    y = torch.empty((B, H, P, D), dtype=torch.bfloat16, device=dev)
-    mbuf = torch.empty((B, KVH, P * G), dtype=torch.float32, device=dev)
-    lbuf = torch.empty_like(mbuf)
-    cum = torch.empty((B, KVH, P), dtype=torch.float32, device=dev)
-    obs = torch.empty_like(cum)
-    status = _lib()(
-        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), y.data_ptr(),
-        mbuf.data_ptr(), lbuf.data_ptr(), plen.data_ptr(), cum.data_ptr(),
-        obs.data_ptr(), B, H, KVH, P, 1.0 / math.sqrt(D), obs_len,
-        int(need_summary), _build.stream_ptr(dev),
-    )
-    _build.check(status, "flash_prefill_summary")
+    y, mbuf, ilbuf = flash_pass1(qb, kb, vb)
+    sums = flash_pass2(qb, kb, mbuf, ilbuf, plen, obs_len) if need_summary else None
     LAUNCHES["flash_prefill_summary"] += 1
     y = y.to(q.dtype)
     if not need_summary:
         return y, None
-    summary: AttnSummary = finalize_summary(cum, obs, plen, P, obs_len)
+    summary: AttnSummary = finalize_summary(sums[0], sums[1], plen, P, obs_len)
     return y, summary
 
 
@@ -172,20 +234,6 @@ def flash_profile_plain(q, k, v, prompt_len, window_lens=()):
     return y, cum, wcols
 
 
-def _lib_profile():
-    fn = _build.library("flash_prefill").flash_profile
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 4
-            + [ctypes.c_float]
-            + [ctypes.c_int] * 5
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def flash_profile(q, k, v, prompt_len, window_lens=()):
     """Causal attention plus the FastGen profile: returns (y [B, H, P, D],
     cum [B, KVH, P], wcols [W, B, KVH, P]) with cum and wcols RAW (not
@@ -197,34 +245,12 @@ def flash_profile(q, k, v, prompt_len, window_lens=()):
     window_lens = tuple(int(w) for w in window_lens)
     if q.device.type == "cpu":
         return flash_profile_plain(q, k, v, prompt_len, window_lens)
-    B, H, P, D = q.shape
-    KVH = k.shape[1]
-    if not flash_prefill_supported(q.shape) or H % KVH:
-        raise ValueError(f"flash_profile: unsupported q {tuple(q.shape)}")
-    if tuple(k.shape) != (B, KVH, P, D) or tuple(v.shape) != (B, KVH, P, D):
-        raise ValueError("flash_profile: k/v shape does not match q")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_profile: inputs on different devices")
+    qb, kb, vb = _check_inputs("flash_profile", q, k, v)
     if len(window_lens) > MAX_WINDOWS or any(w < 1 for w in window_lens):
         raise ValueError(f"flash_profile: window lengths {window_lens} (at most "
                          f"{MAX_WINDOWS}, each at least 1)")
-    qb = q.to(torch.bfloat16).contiguous()
-    kb = k.to(torch.bfloat16).contiguous()
-    vb = v.to(torch.bfloat16).contiguous()
-    plen = _plen(prompt_len, B, q.device).contiguous()
-    dev = q.device
-    G = H // KVH
-    y = torch.empty((B, H, P, D), dtype=torch.bfloat16, device=dev)
-    mbuf = torch.empty((B, KVH, P * G), dtype=torch.float32, device=dev)
-    lbuf = torch.empty_like(mbuf)
-    cum = torch.empty((B, KVH, P), dtype=torch.float32, device=dev)
-    wcols = torch.empty((len(window_lens), B, KVH, P), dtype=torch.float32, device=dev)
-    wl = list(window_lens) + [1] * (MAX_WINDOWS - len(window_lens))
-    status = _lib_profile()(
-        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), y.data_ptr(), mbuf.data_ptr(),
-        lbuf.data_ptr(), plen.data_ptr(), cum.data_ptr(), wcols.data_ptr(), B, H, KVH, P,
-        1.0 / math.sqrt(D), len(window_lens), *wl, _build.stream_ptr(dev),
-    )
-    _build.check(status, "flash_profile")
+    plen = _plen(prompt_len, q.shape[0], q.device).contiguous()
+    y, mbuf, ilbuf = flash_pass1(qb, kb, vb)
+    sums = flash_pass2(qb, kb, mbuf, ilbuf, plen, window_lens=window_lens)
     LAUNCHES["flash_profile"] += 1
-    return y.to(q.dtype), cum, wcols
+    return y.to(q.dtype), sums[0], sums[1:]

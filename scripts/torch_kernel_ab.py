@@ -1,0 +1,241 @@
+#!/usr/bin/env python3
+"""Decode attention (K3/K5) and flash prefill (K4/K6) of the PyTorch/CUDA
+port against an earlier version of their CUDA sources, on one card, in one
+process, in turns (earlier, current, current, earlier).
+
+    python3 scripts/torch_kernel_ab.py --earlier <csrc directory>
+
+``--earlier`` names a ``csrc`` directory whose ``decode_attn.cu`` and
+``flash_prefill.cu`` keep the C interfaces of the three-launch decode
+kernel and the first flash prefill (``decode_attention`` with a
+``decode_attention_workspace``; ``flash_prefill_summary`` and
+``flash_profile``). They are built by ``nvcc`` into ``build/ab/``. At the
+8B shapes (B = 1, 32 query heads over 8 KV heads, D = 128) it prints, and
+writes to ``chiprun_out/kernel_ab.json``:
+
+- K4 at P = 8192 (prompt 7928): each pass alone and both, earlier and
+  current; K6 at one and two windows;
+- decode attention at C = 2048 and 32768 for the cache precisions the
+  paths run, earlier and current, beside ``scaled_dot_product_attention``
+  on the bf16 cache; the current kernel at clusters of 8 and 16 CTAs at
+  C = 32768, with how many of each fit on the card at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (time_ms, bound, copies_for, the decode inputs)
+from cold_compress_tpu_torch.bench import card_line  # noqa: E402
+from cold_compress_tpu_torch.ops import _build, decode_attn, prefill_attn  # noqa: E402
+
+
+def build_earlier(csrc: Path):
+    """The earlier decode and prefill sources as shared libraries."""
+    h = hashlib.sha256()
+    for name in ("decode_attn", "flash_prefill"):
+        h.update((csrc / f"{name}.cu").read_bytes())
+    out = ROOT / "build" / "ab" / h.hexdigest()[:16]
+    out.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, {}
+    for name in ("decode_attn", "flash_prefill"):
+        so = out / f"lib{name}.so"
+        if not so.exists():
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
+                   str(csrc / f"{name}.cu")]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True)
+        libs[name] = so
+    for name, p in procs.items():
+        text, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for the earlier {name}:\n{text}")
+    return {n: ctypes.CDLL(str(p)) for n, p in libs.items()}
+
+
+def earlier_decode(lib):
+    fn, ws = lib.decode_attention, lib.decode_attention_workspace
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ws.argtypes = [ctypes.c_int] * 4
+    ws.restype = ctypes.c_size_t
+
+    def run(q, kc, vc, ks, kz, vs, vz, mask, bits, need_attn):
+        B, H, _, D = q.shape
+        KVH, C = kc.shape[1], kc.shape[2]
+        G = H // KVH
+        out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
+        pooled = torch.empty((B, KVH, 1, C), dtype=torch.float32, device=q.device)
+        work = torch.empty(ws(B, KVH, C, G), dtype=torch.float32, device=q.device)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        _build.check(fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ptr(ks), ptr(kz), ptr(vs),
+                        ptr(vz), mask.data_ptr(), out.data_ptr(), pooled.data_ptr(),
+                        work.data_ptr(), B, KVH, C, G, bits, int(need_attn), 1 / math.sqrt(D),
+                        _build.stream_ptr(q.device)), "earlier decode_attention")
+        return out.to(q.dtype), pooled
+    return run
+
+
+def earlier_prefill(lib):
+    k4, k6 = lib.flash_prefill_summary, lib.flash_profile
+    k4.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    k6.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    k4.restype = k6.restype = ctypes.c_int
+
+    def bufs(q, k, n_acc):
+        B, H, P, D = q.shape
+        KVH = k.shape[1]
+        dev = q.device
+        y = torch.empty_like(q)
+        ml = torch.empty((2, B, KVH, P * (H // KVH)), dtype=torch.float32, device=dev)
+        acc = torch.empty((n_acc, B, KVH, P), dtype=torch.float32, device=dev)
+        return y, ml, acc
+
+    def summary(q, k, v, plen, need_summary=True):
+        B, H, P, D = q.shape
+        y, ml, acc = bufs(q, k, 2)
+        _build.check(k4(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), ml[0].data_ptr(),
+                        ml[1].data_ptr(), plen.data_ptr(), acc[0].data_ptr(), acc[1].data_ptr(),
+                        B, H, k.shape[1], P, 1 / math.sqrt(D), 16, int(need_summary),
+                        _build.stream_ptr(q.device)), "earlier flash_prefill_summary")
+        return y, acc
+
+    def profile(q, k, v, plen, windows):
+        B, H, P, D = q.shape
+        y, ml, acc = bufs(q, k, 1 + len(windows))
+        wl = list(windows) + [1] * (4 - len(windows))
+        _build.check(k6(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), ml[0].data_ptr(),
+                        ml[1].data_ptr(), plen.data_ptr(), acc[0].data_ptr(), acc[1].data_ptr(),
+                        B, H, k.shape[1], P, 1 / math.sqrt(D), len(windows), *wl,
+                        _build.stream_ptr(q.device)), "earlier flash_profile")
+        return y, acc
+    return summary, profile
+
+
+def turns(fa, fb, iters, warmup=1):
+    """(earlier ms, current ms): each the mean of two timings, in the order
+    earlier, current, current, earlier."""
+    a1 = chip_smoke.time_ms(fa, iters, warmup)
+    b1 = chip_smoke.time_ms(fb, iters, warmup)
+    b2 = chip_smoke.time_ms(fb, iters, warmup)
+    a2 = chip_smoke.time_ms(fa, iters, warmup)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def prefill_ab(dev, summary, profile, rows):
+    B, H, KVH, P, D, plen_n = 1, 32, 8, 8192, 128, 7928
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((B, H, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    plen = torch.full((B,), plen_n, dtype=torch.int32, device=dev)
+    y_old, acc_old = summary(q, k, v, plen)
+    y_new, s_new = prefill_attn.flash_prefill(q, k, v, plen_n)
+    torch.cuda.synchronize()
+    same_y = float((y_old.float() - y_new.float()).abs().max())
+    y, ml0, il0 = prefill_attn.flash_pass1(q, k, v)
+    old_p1, new_p1 = turns(lambda i: summary(q, k, v, plen, False),
+                           lambda i: prefill_attn.flash_pass1(q, k, v), 5)
+    old_all, new_all = turns(lambda i: summary(q, k, v, plen),
+                             lambda i: prefill_attn.flash_prefill(q, k, v, plen_n), 5)
+    new_p2 = chip_smoke.time_ms(lambda i: prefill_attn.flash_pass2(q, k, ml0, il0, plen), 5, 1)
+    rows.append(dict(kernel="flash_prefill_summary", P=P, earlier_pass1_ms=old_p1,
+                     earlier_pass2_ms=old_all - old_p1, earlier_ms=old_all, pass1_ms=new_p1,
+                     pass2_ms=new_p2, ms=new_all, y_max_abs_diff_vs_earlier=same_y))
+    for windows in ((2457,), (819, 2457)):
+        old, new = turns(lambda i: profile(q, k, v, plen, windows),
+                         lambda i: prefill_attn.flash_profile(q, k, v, plen_n, windows), 5)
+        new_p2 = chip_smoke.time_ms(
+            lambda i: prefill_attn.flash_pass2(q, k, ml0, il0, plen, window_lens=windows), 5, 1)
+        rows.append(dict(kernel=f"flash_profile.w{len(windows)}", P=P, earlier_ms=old, ms=new,
+                         pass1_ms=new_p1, pass2_ms=new_p2))
+
+
+def decode_ab(dev, earlier, rows):
+    B, H, KVH, D = 1, 32, 8, 128
+    G = H // KVH
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for bits, need_attn, C in ((16, False, 2048), (8, True, 2048), (4, False, 2048),
+                               (16, False, 32768), (8, False, 32768), (4, False, 32768)):
+        gen = torch.Generator(device=dev).manual_seed(2 + bits + C)
+        one = chip_smoke._decode_inputs(dev, gen, bits, B, KVH, C, D)
+        nbytes = sum(t.numel() * t.element_size() for t in one if t is not None)
+        n = chip_smoke.copies_for(nbytes)
+        layers = [one] + [chip_smoke._decode_inputs(dev, gen, bits, B, KVH, C, D)
+                          for _ in range(n - 1)]
+        q = (torch.randn((B, H, 1, D), device=dev, generator=gen) / 4).to(torch.bfloat16)
+
+        def args(i):
+            kc, vc, ks, kz, vs, vz, mask = layers[i % n]
+            return (q, kc, vc, ks, kz, vs, vz, mask)
+
+        iters = 200 if C <= 4096 else 50
+        old, new = turns(lambda i: earlier(*args(i), bits, need_attn),
+                         lambda i: decode_attn.decode_attention(*args(i), bits=bits,
+                                                                need_attn=need_attn), iters, 2)
+        row = dict(kernel=decode_attn.variant(bits, need_attn), C=C, earlier_ms=old, ms=new,
+                   bound_ms=chip_smoke.bound(nbytes, 4 * B * H * C * D, "bf16")[0])
+        if bits == 16:
+            masks = [layers[i][-1].repeat_interleave(G, dim=1)[:, :, None, :] for i in range(n)]
+            row["sdpa_ms"] = chip_smoke.time_ms(
+                lambda i: sdpa(q, layers[i % n][0], layers[i % n][1], attn_mask=masks[i % n],
+                               enable_gqa=True), iters, 2)
+        row["cluster"] = decode_attn.default_cluster(B, KVH, C, G, bits, need_attn)
+        if C == 32768:
+            for nc in (8, 16):
+                row[f"cluster{nc}_ms"] = chip_smoke.time_ms(
+                    lambda i: decode_attn.decode_attention(*args(i), bits=bits,
+                                                           need_attn=need_attn, cluster=nc),
+                    iters, 2)
+                row[f"cluster{nc}_max_active"] = decode_attn.max_active_clusters(
+                    B, KVH, C, G, nc, bits, need_attn)
+        rows.append(row)
+        del layers
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--earlier", required=True, type=Path,
+                    help="csrc directory of the earlier decode_attn.cu and flash_prefill.cu")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    dev = "cuda"
+    card = card_line()
+    libs = build_earlier(args.earlier.resolve())
+    _build.build_all()
+    rows = []
+    summary, profile = earlier_prefill(libs["flash_prefill"])
+    decode_ab(dev, earlier_decode(libs["decode_attn"]), rows)
+    torch.cuda.empty_cache()
+    prefill_ab(dev, summary, profile, rows)
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    out = ROOT / "chiprun_out"
+    os.makedirs(out, exist_ok=True)
+    (out / "kernel_ab.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -142,6 +142,69 @@ def test_decode_attention_matches_plain(dev, bits, need_attn, C, G):
         assert pooled is None and ref_pooled is None
 
 
+def _decode_case(dev, seed, bits, B, KVH, C, G):
+    g = _gen(dev, seed)
+    kc, ks, kz = _cache(dev, g, bits, B, KVH, C)
+    vc, vs, vz = _cache(dev, g, bits, B, KVH, C)
+    mask = torch.rand((B, KVH, C), device=dev, generator=g) > 0.3
+    if C > 1:
+        mask[0, 0, : C // 2] = False  # a CTA range or more with no valid slot
+    q = (torch.randn((B, KVH * G, 1, 128), device=dev, generator=g) / 4).to(torch.bfloat16)
+    return (q, kc, vc, ks, kz, vs, vz, mask)
+
+
+def _assert_decode_matches_plain(args, bits, need_attn, cluster=None):
+    out, pooled = decode_attn.decode_attention(*args, bits=bits, need_attn=need_attn,
+                                               cluster=cluster)
+    ref_out, ref_pooled = decode_attn.decode_attention_plain(*args, bits, need_attn)
+    assert out.dtype == args[0].dtype
+    _assert_bf16_out_close(out, ref_out, 2**-8)
+    if need_attn:
+        torch.testing.assert_close(pooled, ref_pooled, rtol=1e-5, atol=1e-7)
+    return out, pooled
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("C", [1, 127, 129, 300, 1024, 1025, 2048, 2049, 4093, 32768])
+def test_decode_attention_cluster_shapes(dev, C, G, bits):
+    """One launch over every cluster size the cache lengths give (1, 2, 3,
+    8, 9 and 16 CTAs, ragged ranges, C = 1), at B = 2; pooled where the
+    cache is kv8."""
+    args = _decode_case(dev, C + 10 * G + bits, bits, 2, 2, C, G)
+    _assert_decode_matches_plain(args, bits, need_attn=bits == 8)
+
+
+@pytest.mark.parametrize("bits,need_attn", [(16, False), (8, True), (4, True), (2, False)])
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+def test_decode_attention_explicit_cluster(dev, bits, need_attn, cluster):
+    """The same answer whatever the cluster size; one CTA over 4096 slots
+    of 8 heads keeps its scores in the global workspace."""
+    C, G = 4096, 8
+    assert decode_attn.scores_in_smem(C, G, cluster) == (cluster > 1)
+    args = _decode_case(dev, 77 + cluster, bits, 2, 2, C, G)
+    _assert_decode_matches_plain(args, bits, need_attn, cluster=cluster)
+
+
+def test_decode_attention_global_workspace_by_default(dev):
+    """C = 131072 at G = 8: 16 CTAs of 8192 slots, scores in the workspace."""
+    C, G = 131072, 8
+    assert not decode_attn.scores_in_smem(C, G, decode_attn.cluster_size(C))
+    args = _decode_case(dev, 5, 16, 1, 1, C, G)
+    _assert_decode_matches_plain(args, 16, True)
+
+
+@pytest.mark.parametrize("bits,need_attn", [(16, False), (8, True), (4, False), (2, True)])
+def test_decode_attention_is_deterministic(dev, bits, need_attn):
+    """Two calls on the same inputs give the same bits (fixed sum order)."""
+    args = _decode_case(dev, 3, bits, 1, 8, 32768, 4)
+    a = decode_attn.decode_attention(*args, bits=bits, need_attn=need_attn)
+    b = decode_attn.decode_attention(*args, bits=bits, need_attn=need_attn)
+    assert torch.equal(a[0], b[0])
+    if need_attn:
+        assert torch.equal(a[1], b[1])
+
+
 def test_decode_attention_rejects_what_it_does_not_take(dev):
     B, KVH, C = 1, 2, 256
     g = _gen(dev, 5)
@@ -255,6 +318,37 @@ def test_flash_prefill_matches_plain(dev, P, plen, G):
     torch.testing.assert_close(y2, y, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("G", [2, 4, 8])
+@pytest.mark.parametrize("P,plen,B,KVH", [(64, 50, 2, 2), (1024, 1000, 2, 2),
+                                          (8192, 7928, 1, 1)])
+def test_flash_prefill_shapes_and_determinism(dev, P, plen, B, KVH, G):
+    """K4 over pass 2's segment cuts (one segment at P = 64, 32 at 8192),
+    against its plain version; a second call gives the same bits."""
+    g = _gen(dev, 3 * P + G)
+    q = torch.randn((B, KVH * G, P, 128), device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn((B, KVH, P, 128), device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn((B, KVH, P, 128), device=dev, generator=g).to(torch.bfloat16)
+    y, s = prefill_attn.flash_prefill(q, k, v, plen, need_summary=True)
+    ref_y, ref_s = prefill_attn.flash_prefill_plain(q, k, v, plen, need_summary=True)
+    _assert_bf16_out_close(y, ref_y, 2**-7)
+    for key in ("obs_mean", "cum_mean"):
+        tol = 1e-4 * float(ref_s[key].abs().max()) + 1e-7
+        torch.testing.assert_close(s[key], ref_s[key], rtol=0, atol=tol)
+    y2, s2 = prefill_attn.flash_prefill(q, k, v, plen, need_summary=True)
+    assert torch.equal(y, y2)
+    assert all(torch.equal(s[key], s2[key]) for key in s)
+
+
+def test_flash_profile_is_deterministic(dev):
+    g = _gen(dev, 11)
+    q = torch.randn((1, 8, 2048, 128), device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn((1, 2, 2048, 128), device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn((1, 2, 2048, 128), device=dev, generator=g).to(torch.bfloat16)
+    a = prefill_attn.flash_profile(q, k, v, 2000, window_lens=(100, 600))
+    b = prefill_attn.flash_profile(q, k, v, 2000, window_lens=(100, 600))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_generate_on_card_matches_cpu(dev):
     """TestKernel, int4 weights and head, kv8 heavy-hitter, teacher-forced:
     the port on the card (kernels) against the port on the CPU (plain)."""
@@ -291,7 +385,7 @@ def test_generate_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("P,plen,G,windows", [
     (256, 200, 4, (51,)), (512, 475, 2, (51, 128)), (1024, 77, 8, ()),
-    (512, 512, 4, (1, 30, 200, 512)),
+    (512, 512, 4, (1, 30, 200, 512)), (2048, 1900, 4, (7, 64, 1000)),
 ])
 def test_flash_profile_matches_plain(dev, P, plen, G, windows):
     """K6 against its plain version: y as K4's; the raw profile sums to
