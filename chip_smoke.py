@@ -18,9 +18,11 @@ Phases; any failure raises and the script exits non-zero:
    eviction (K7), the W8A8 head (K9), flash prefill (K4), flash prefill
    with the FastGen profile (K6) at one and two windows, and the W4A8
    prefill matmul (K8) at L = 8192 for the four layer projections;
-   decode attention and K4 also bit-equal across two calls, decode
+   decode attention, K1/K2 and K4 also bit-equal across two calls, decode
    attention one device kernel per call (``torch.profiler``), K4 and K6
-   with each pass timed alone;
+   with each pass timed alone, K7 also at rows off a 16-byte boundary,
+   each K1 shape's column tile, and the launch floor (one
+   one-element ``add_``) beside K1/K2/K10 and K7;
 3. small in-situ parity: the port on the card against the port on the CPU
    (plain versions), TestKernel with int4 weights, teacher-forced, over
    several cache strategies and precisions (heavy_hitter at kv8, bf16, kv4
@@ -44,7 +46,8 @@ Phases; any failure raises and the script exits non-zero:
      (the same widths and weights, its own rope table), a 32504-token
      prompt, 64 tokens;
    with ``--profile``, after each run, the wall and device time of a few
-   more decode steps.
+   more decode steps, and ``generate()``'s decode time per step without and
+   with the per-step read of the stop flags (a terminator never emitted).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing every kernel, and the result line.
@@ -143,6 +146,15 @@ def device_kernels_per_call(fn, own, calls: int = 5, warmup: int = 2):
     return total, mine
 
 
+@functools.cache
+def launch_floor_ms() -> float:
+    """``time_ms`` of one elementwise PyTorch op on a one-element tensor: the
+    least a launch costs under this timer. A yardstick only; the port never
+    calls it."""
+    t = torch.zeros(1, device="cuda")
+    return time_ms(lambda i: t.add_(1), 200)
+
+
 def copies_for(nbytes: int) -> int:
     """Distinct input buffers to cycle through so that every timed call
     reads its inputs from device memory, as the main path does (each layer
@@ -220,13 +232,18 @@ def check_w4a8(dev, records):
         log(f"[check] {name} IN={IN} OUT={OUT}: max_abs_err={err:.3e} tol={tol:.3e}")
         assert err <= tol, f"{name}: kernel disagrees with its plain version"
 
+        again = qmm.w4a8_gemv(x, ws[0], szs[0], gs, counter=name)
+        assert torch.equal(y, again), f"{name}: two launches on the same inputs differ"
         ms = time_ms(lambda i: qmm.w4a8_gemv(x, ws[i % n], szs[i % n], gs, counter=name), 50)
         plain_ms = time_ms(lambda i: qmm.w4a8_gemv_plain(x, ws[i % n], szs[i % n], gs), 5, 1)
         b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
+        cols = qmm.gemv_partition(1, OUT, qmm.sm_count(dev))
         log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-            f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none")
+            f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none; "
+            f"{cols} columns per tile, launch floor {launch_floor_ms():.4f} ms")
         record(records, name, name, "w4a8_gemv.cu", replaces, err, "1e-4*max|ref| + 1e-6",
-               err / tol, ms, plain_ms, b_ms, b_by, None)
+               err / tol, ms, plain_ms, b_ms, b_by, None, cols=cols,
+               launch_floor_ms=launch_floor_ms())
         del ws, szs
 
 
@@ -365,13 +382,30 @@ def check_hh_evict(dev, records):
         if empty:
             assert bool((idx >= C - 5).all()), "an empty slot must be evicted first"
 
+    # Rows off a 16-byte boundary (C % 4 != 0, B = 2): the scalar head and
+    # tail inside the kernel.
+    for Cm in (2047, 301):
+        num = torch.randint(1, 64, (2, H, Cm), device=dev, generator=gen).float() / 4
+        denom = torch.randint(0, 9, (2, H, Cm), device=dev, generator=gen, dtype=torch.int32)
+        pos = torch.stack([torch.randperm(Cm, device=dev, generator=gen) for _ in range(2 * H)])
+        pos = pos.reshape(2, H, Cm).to(torch.int32)
+        ip = torch.full((2, 1, 1), Cm + 3, dtype=torch.int32, device=dev)
+        n1, d1, n2, d2 = num.clone(), denom.clone(), num.clone(), denom.clone()
+        idx = evict.hh_evict(n1, d1, pos, ip, global_tokens=g_tok, recent_window=recent)
+        ref = evict.hh_evict_plain(n2, d2, pos, ip, g_tok, recent)
+        torch.cuda.synchronize()
+        same = (torch.equal(idx, ref) and torch.equal(n1.view(torch.int32), n2.view(torch.int32))
+                and torch.equal(d1, d2))
+        log(f"[check] hh_evict B=2 H={H} C={Cm}: idx, num and denom bit-equal: {same}")
+        assert same, f"hh_evict at C={Cm} disagrees with its plain version"
+
     ms = time_ms(run, 200)
     plain_ms = time_ms(lambda i: evict.hh_evict_plain(*rows[i % n], ipos, g_tok, recent), 20)
     b_ms, b_by = bound(nbytes, 4 * B * H * C, "bf16")
     log(f"[time] hh_evict: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
-        f"{plain_ms:.4f} ms, library: none")
+        f"{plain_ms:.4f} ms, library: none; launch floor {launch_floor_ms():.4f} ms")
     record(records, "hh_evict", "hh_evict", "hh_evict.cu", "ops/pallas_evict.py:57", 0.0,
-           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None)
+           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, launch_floor_ms=launch_floor_ms())
 
 
 #: K9's shapes: the int8 vocab head, and the four fused layer projections
@@ -488,10 +522,13 @@ def check_k10(dev, records):
         ms = time_ms(lambda i: qmm.w4a8_gemv(x, *packed[i % n], gs, counter=counter), 50)
         plain_ms = time_ms(lambda i: qmm.w4a8_gemv_plain(x, *packed[i % n], gs), 5, 1)
         b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
+        cols = qmm.gemv_partition(1, OUT, qmm.sm_count(dev))
         log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-            f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none")
+            f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none; "
+            f"{cols} columns per tile, launch floor {launch_floor_ms():.4f} ms")
         record(records, name, counter, "w4a8_gemv.cu", "ops/pallas_qmm.py:294", max(err, err_rp),
                "1e-4*max|ref| + 1e-6", max(err, err_rp) / tol, ms, plain_ms, b_ms, b_by, None,
+               cols=cols, launch_floor_ms=launch_floor_ms(),
                from_run=CLI_RUN, also_replaces=[f"{REPO_TPU}/ops/pallas_qmm.py:215",
                                                 f"{REPO_TPU}/ops/pallas_qmm.py:407 (flat)",
                                                 f"{REPO_TPU}/ops/pallas_qmm.py:890"])
@@ -845,7 +882,7 @@ def in_situ_parity(dev, runs: list):
             if strategy == "hybrid":
                 kw["min_recovery_frac"] = HYBRID_IN_SITU_RECOVERY
                 forced_s = forced_punc
-            out = {}
+            out, steps = {}, {}
             for device in (dev, "cpu"):
                 model = sharp[device] if strategy == "hybrid" else models[weights][device]
                 caches = make_caches(cfg, kw, 512, device)
@@ -858,7 +895,8 @@ def in_situ_parity(dev, runs: list):
                 seq, info, caches = generate(model, caches, prompt, 8, prefill_bucket=512,
                                              next_tokens=forced_s)
                 launches = kernel_launches()
-                assert seq == prompt + forced_s
+                steps[device] = info["perf_stats"]["decode_steps"]
+                assert seq == prompt + forced_s and steps[device] == len(forced_s) - 1
                 extra = {key: np.stack([c.extra[key].cpu().numpy() for c in caches])
                          for key in ("strategy_idx", "attention_losses") if key in caches[0].extra}
                 extra["scores"] = [s.numpy() for s in scores]
@@ -872,7 +910,8 @@ def in_situ_parity(dev, runs: list):
             assert not any(cpu_launches.values()), "CPU tensors must take the plain versions"
             layer_kernel, head_kernel = WEIGHT_KERNELS[weights]
             witness(run_name, caches[0].spec.max_cache_length, launches,
-                    expected_launches(cfg, kw, 7, head_kernel, layers=layer_kernel), runs)
+                    expected_launches(cfg, kw, steps[dev], head_kernel, layers=layer_kernel),
+                    runs)
             if strategy == "hybrid":
                 check_hybrid_policies(run_name, x_g, x_c, kw["min_recovery_frac"])
             if "attention_losses" in x_c:
@@ -1079,6 +1118,26 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
             expected_launches(cfg, kw, steps, head_counter, layers=layers), runs)
     if profile:
         profile_decode(model, caches, seq[-1], len(seq), 8, card, run_name)
+        stop_read_cost(model, caches, prompt, cfg.vocab_size, card, run_name)
+
+
+def stop_read_cost(model, caches, prompt, never: int, card: str, run_name: str, tokens=16):
+    """Decode ms per step of ``generate()`` without terminators (no read of
+    the stop flags inside the loop) and with one that is never emitted (one
+    read per step, ``never`` being out of the vocabulary), in turns: the
+    host-side cost of stopping where the reference stops."""
+    from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
+
+    ms = {False: [], True: []}
+    for stop in (False, True, True, False):
+        reset_caches(caches)
+        _, info, _ = generate(model, caches, prompt, tokens,
+                              terminator_ids=[never] if stop else None)
+        perf = info["perf_stats"]
+        assert perf["decode_steps"] == tokens - 1, run_name
+        ms[stop].append(perf["decode_seconds"] * 1e3 / perf["decode_steps"])
+    log(f"[profile] {run_name}: generate() decode ms per step without a stop read "
+        f"{ms[False]}, with one read per step {ms[True]}  [{card}]")
 
 
 def prefill_w4a8_run(cfg, model, dev, card, runs):
@@ -1110,6 +1169,7 @@ def prefill_w4a8_run(cfg, model, dev, card, runs):
         launches = kernel_launches()
     finally:
         set_prefill_w4a8(model, False)
+    steps = info["perf_stats"]["decode_steps"]
     ref, got = logits[False], logits[True]
     cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=0))
     gap = max_err(got, ref)
@@ -1120,9 +1180,9 @@ def prefill_w4a8_run(cfg, model, dev, card, runs):
         f"run {time.perf_counter() - t0:.2f} s  [{card}]")
     log(f"[e2e] {run_name}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
     assert bool(torch.isfinite(got).all()) and cos >= 0.99, run_name
-    assert len(seq) == prompt_len + 8, run_name
+    assert len(seq) == prompt_len + 8 and steps == 7, run_name
     witness(run_name, caches[0].spec.max_cache_length, launches,
-            expected_launches(cfg, kw, 7, prefill_w4a8=True), runs)
+            expected_launches(cfg, kw, steps, prefill_w4a8=True), runs)
 
 
 def check_outputs(run_name, cfg, seq, info, caches, prompt_len, new_tokens, hybrid=False):

@@ -12,7 +12,8 @@ version.
 
 Bound on the H100: bytes, far below a microsecond at the main path's sizes;
 the kernel replaces about ten eager launches per layer per decode step with
-one. One block per (batch, head) row.
+one. One block per (batch, head) row, whose 512 threads issue all their loads
+(16-byte vectors, a scalar head and tail where C % 4 != 0) before computing.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ def hh_evict(num, denom, pos, input_pos, *, global_tokens: int,
             raise ValueError(f"hh_evict: bad {n} {tuple(t.shape)} {t.dtype}")
         if t.device != num.device:
             raise ValueError(f"hh_evict: {n} on another device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"hh_evict: {n} must start on a 16-byte boundary")
     ipos = torch.as_tensor(input_pos, dtype=torch.int32, device=num.device)
     if ipos.numel() not in (1, B):
         raise ValueError(f"hh_evict: input_pos {tuple(ipos.shape)} for batch {B}")

@@ -14,8 +14,10 @@ z_g * xs_g)`` in f32. This is W4A8, as on the TPU, not W4A16.
 
 Bound on the H100: bytes (the weight stream at batch 1). The layout is the
 port's own ("gemv", see the kernel source): each output column's nibbles
-contiguous, repacked once from the checkpoint's rowpack. That repack also
-ports K10, the TPU's older layouts of the same function: ``qmm_w4a8`` and
+contiguous, repacked once from the checkpoint's rowpack. The kernel's CTAs
+walk tiles of output columns over all of IN; ``gemv_partition`` chooses the
+tile width for each shape. That repack also ports K10, the TPU's older
+layouts of the same function: ``qmm_w4a8`` and
 ``qmm_w4a8_stacked`` (pallas_qmm.py:294, :215; rowpack, which the JAX
 package's unstacked path runs, e.g. under per-layer cache budgets), the
 flat branch of ``qmm_w4a8_cp_stacked`` (:407) and ``qmm_w4a8_cpt_split``
@@ -42,6 +44,8 @@ bytes (IN*OUT weight bytes at batch 1).
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional
 
 import torch
 
@@ -69,6 +73,47 @@ PLAIN_ROW_CHUNK = 256
 #: Inputs per f32 partial dot in the W8A8 plain version: 1024 * 127 * 127 <
 #: 2**24, so every partial sum of integer products is exact in f32.
 W8A8_EXACT_DEPTH = 1024
+
+
+#: K1's CTA: activation rows (at most) and the column tiles it takes (16
+#: warps of 4, 2 or 1 columns). One CTA fills an SM (its shared memory).
+GEMV_ROWS = 4
+GEMV_COLS = (64, 32, 16)
+
+
+def gemv_partition(L: int, OUT: int, sm_count: int) -> int:
+    """Columns per tile for K1 at these shapes.
+
+    The kernel's grid holds at most one CTA per SM, each walking its tiles
+    of all of IN in turn, so a tile width is judged by how evenly its tiles
+    share the card: the busy fraction of the last round of tiles. The widest
+    tile within 2% of the best is taken; a width whose tiles leave an SM
+    without one is not, unless even the narrowest tiles do. IN is not split:
+    on the card a split over a cluster lost at every shape of the 8B
+    configurations (PERF.md, section 6). Pure Python: the CPU tests check
+    it."""
+    row_blocks = -(-L // GEMV_ROWS)
+    best, best_eff = GEMV_COLS[-1], 0.0
+    for cols in GEMV_COLS:
+        n = -(-OUT // cols) * row_blocks
+        if n < sm_count:
+            continue
+        rounds = n / sm_count
+        eff = rounds / math.ceil(rounds)
+        if best_eff == 0.0 or eff > best_eff + 0.02:
+            best, best_eff = cols, eff
+    return best
+
+
+_SM_COUNT = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    device = torch.device(device)
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SM_COUNT[device]
 
 
 def rowpack_to_gemv(w: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor):
@@ -206,16 +251,18 @@ def _lib():
     lib = _build.library("w4a8_gemv")
     fn = lib.w4a8_gemv
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def w4a8_gemv(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
-              group_size: int, counter: str) -> torch.Tensor:
+              group_size: int, counter: str, *, cols: Optional[int] = None) -> torch.Tensor:
     """x [L, IN] @ int4 weight in the kernel layout -> [L, OUT] f32.
 
     ``counter`` is the key of ``LAUNCHES`` that a launch increments.
+    ``cols`` (16, 32 or 64) fixes the kernel's column tile; by default
+    ``gemv_partition`` chooses it.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel; any
     input it does not take raises."""
@@ -234,14 +281,18 @@ def w4a8_gemv(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
         raise ValueError(f"unsupported IN={IN} / group size {gs}")
     if not (x.is_contiguous() and wg.is_contiguous() and sz.is_contiguous()):
         raise ValueError("w4a8_gemv needs contiguous inputs")
-    if wg.data_ptr() % 16:
-        raise ValueError("weight bytes must be 16-byte aligned")
+    if wg.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("weight bytes and activations must be 16-byte aligned")
     if not (x.device == wg.device == sz.device):
         raise ValueError("inputs on different devices")
+    if cols is None:
+        cols = gemv_partition(L, OUT, sm_count(x.device))
+    if cols not in GEMV_COLS:
+        raise ValueError(f"w4a8_gemv: cols {cols} not one of {GEMV_COLS}")
     y = torch.empty((L, OUT), dtype=torch.float32, device=x.device)
     status = _lib()(
         x.data_ptr(), wg.data_ptr(), sz.data_ptr(), y.data_ptr(),
-        L, IN, OUT, gs, _build.stream_ptr(x.device),
+        L, IN, OUT, gs, cols, _build.stream_ptr(x.device),
     )
     _build.check(status, "w4a8_gemv")
     LAUNCHES[counter] += 1

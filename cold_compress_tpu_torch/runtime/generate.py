@@ -4,11 +4,11 @@ Counterpart of ``cold_compress_tpu/runtime/generate.py`` (single-prompt
 ``generate`` and ``reset_caches``). The JAX package runs the decode loop as
 one jitted ``lax.while_loop``; here it is a Python loop over
 ``decode_step`` whose tokens, probabilities and stop flags stay on the
-device: the host never waits on the card inside the loop and reads the
-results once at the end. Without that read the loop cannot stop early at a
-terminator, so it runs all ``max_new_tokens - 1`` steps and records nothing
-for a finished lane (``-1`` tokens, ``0`` probabilities), which is what
-the JAX loop returns.
+device, read once at the end. With terminators given, the host also reads
+whether every lane is done after each step that was not teacher-forced (one
+sync per step) and stops there, as the JAX loop's ``cond`` does: the caches
+then hold what the reference's hold. A finished lane records nothing more
+(``-1`` tokens, ``0`` probabilities), which is what the JAX loop returns.
 """
 
 from __future__ import annotations
@@ -144,34 +144,33 @@ def generate(
     # ---- decode loop -----------------------------------------------------
     max_steps = max(max_new_tokens - 1, 0)
     if max_steps > 0:
-        tokens_buf, probs_buf, last_probs = _decode_loop(
+        tokens_buf, probs_buf, last_probs, steps = _decode_loop(
             model, caches, first_token, prompt_length, prefix, terminator_ids,
             max_steps, attn_top_k,
         )
         tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
         t2 = time.perf_counter()
         gen = [int(t) for t in tokens_np[:, 0] if int(t) != -1]
-        n_steps = len(gen) - 1
         emitted_probs = [first_prob] + [
-            float(p) for p in probs_buf[:n_steps, 0].cpu().numpy()
+            float(p) for p in probs_buf[:steps, 0].cpu().numpy()
         ]
         final_probs = last_probs[0].cpu().numpy()
     else:
         t2 = t1
         gen = [first_id]
-        n_steps = 0
+        steps = 0
         emitted_probs = [first_prob]
         final_probs = prefill_probs_np[0]
 
     seq = prompt + gen
     prefill_seconds = t1 - t0
     decode_seconds = max(t2 - t1, 1e-9)
-    decode_tokens = n_steps + 1
+    decode_tokens = steps + 1
     total_seconds = t2 - t0
     perf_stats = {
         "prefill_tokens": prompt_length,
         "decode_tokens": decode_tokens,
-        "decode_steps": max_steps,
+        "decode_steps": steps,
         "prefill_toks_per_sec": prompt_length / max(prefill_seconds, 1e-9),
         "decode_toks_per_sec": decode_tokens / decode_seconds,
         "total_toks_per_sec": decode_tokens / max(total_seconds, 1e-9),
@@ -201,7 +200,9 @@ def _decode_loop(model: Transformer, caches, first_token: torch.Tensor, start_po
 
     Returns (tokens [max_steps + 1, B] with slot 0 the first token and -1
     after a lane finished, emitted probabilities [max_steps, B], the last
-    distribution [B, vocab] of each lane while it was running)."""
+    distribution [B, vocab] of each lane while it was running, the number
+    of steps run). With terminators, the loop ends after the first step
+    that is not teacher-forced and leaves every lane done."""
     device = first_token.device
     B = first_token.shape[0]
     V = model.cfg.vocab_size
@@ -214,6 +215,7 @@ def _decode_loop(model: Transformer, caches, first_token: torch.Tensor, start_po
     last_probs = torch.zeros((B, V), dtype=torch.float32, device=device)
     done = torch.zeros((B,), dtype=torch.bool, device=device)
     cur = first_token
+    steps = 0
     with torch.inference_mode():
         for i in range(max_steps):
             logits = decode_step(model, caches, cur, start_pos + i, attn_top_k)
@@ -230,7 +232,10 @@ def _decode_loop(model: Transformer, caches, first_token: torch.Tensor, start_po
             last_probs = torch.where(done[:, None], last_probs, probs)
             done = done | is_term
             cur = next_tok
-    return tokens_buf, probs_buf, last_probs
+            steps = i + 1
+            if terminator_ids and forced[i] < 0 and bool(done.all()):
+                break
+    return tokens_buf, probs_buf, last_probs, steps
 
 
 def reset_caches(caches):

@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""Decode attention (K3/K5) and flash prefill (K4/K6) of the PyTorch/CUDA
-port against an earlier version of their CUDA sources, on one card, in one
-process, in turns (earlier, current, current, earlier).
+"""Kernels of the PyTorch/CUDA port against an earlier version of their CUDA
+sources, on one card, in one process, in turns (earlier, current, current,
+earlier).
 
-    python3 scripts/torch_kernel_ab.py --earlier <csrc directory>
+    python3 scripts/torch_kernel_ab.py --earlier <csrc directory> [--kernels gemv,evict]
 
-``--earlier`` names a ``csrc`` directory whose ``decode_attn.cu`` and
-``flash_prefill.cu`` keep the C interfaces of the three-launch decode
-kernel and the first flash prefill (``decode_attention`` with a
-``decode_attention_workspace``; ``flash_prefill_summary`` and
-``flash_profile``). They are built by ``nvcc`` into ``build/ab/``. At the
-8B shapes (B = 1, 32 query heads over 8 KV heads, D = 128) it prints, and
-writes to ``chiprun_out/kernel_ab.json``:
+``--earlier`` names an earlier ``csrc`` directory; the sources of the
+chosen kernel groups are built from it by ``nvcc`` into ``build/ab/``. At
+the 8B shapes it prints one JSON row per case, and writes them to
+``chiprun_out/kernel_ab.json`` with the card's name and power limit:
 
-- K4 at P = 8192 (prompt 7928): each pass alone and both, earlier and
-  current; K6 at one and two windows;
-- decode attention at C = 2048 and 32768 for the cache precisions the
-  paths run, earlier and current, beside ``scaled_dot_product_attention``
-  on the bf16 cache; the current kernel at clusters of 8 and 16 CTAs at
-  C = 32768, with how many of each fit on the card at once.
+- ``gemv`` (``w4a8_gemv.cu``; the earlier one with the C interface
+  ``w4a8_gemv(x, w, sz, y, L, IN, OUT, gs, stream)``): K1's four layer
+  projections, K2's int4 head and K10's four unfused rowpack shapes at
+  L = 1, earlier and current, each also launched after an RMS norm's few
+  small kernels (as inside a decode step; the norm's own time subtracted),
+  the largest difference between their outputs, and the current kernel at
+  every column tile beside the one ``gemv_partition`` takes;
+- ``evict`` (``hh_evict.cu``, same C interface): K7 at the main path's
+  8 x 2048 and at C = 2047, B = 2;
+- ``decode`` and ``prefill`` (``decode_attn.cu``, ``flash_prefill.cu``; the
+  earlier ones with the C interfaces of the three-launch decode kernel and
+  the first flash prefill: ``decode_attention`` with a
+  ``decode_attention_workspace``; ``flash_prefill_summary`` and
+  ``flash_profile``): decode attention at C = 2048 and 32768 for the cache
+  precisions the paths run, beside ``scaled_dot_product_attention`` on the
+  bf16 cache, and the current kernel at clusters of 8 and 16 CTAs at
+  C = 32768; K4 at P = 8192 (prompt 7928), each pass alone and both, and K6
+  at one and two windows.
+
+Every group also reports the launch floor (``chip_smoke.launch_floor_ms``).
 """
 
 from __future__ import annotations
@@ -40,18 +51,24 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (time_ms, bound, copies_for, the decode inputs)
 from cold_compress_tpu_torch.bench import card_line  # noqa: E402
-from cold_compress_tpu_torch.ops import _build, decode_attn, prefill_attn  # noqa: E402
+from cold_compress_tpu_torch.ops import _build, decode_attn, evict, prefill_attn, qmm  # noqa: E402
+
+#: The earlier source each kernel group needs.
+SOURCES = {"gemv": "w4a8_gemv", "evict": "hh_evict", "decode": "decode_attn",
+           "prefill": "flash_prefill"}
 
 
-def build_earlier(csrc: Path):
-    """The earlier decode and prefill sources as shared libraries."""
+def build_earlier(csrc: Path, names):
+    """The earlier sources ``names`` as shared libraries."""
     h = hashlib.sha256()
-    for name in ("decode_attn", "flash_prefill"):
+    for name in names:
         h.update((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.read_bytes())
     out = ROOT / "build" / "ab" / h.hexdigest()[:16]
     out.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, {}
-    for name in ("decode_attn", "flash_prefill"):
+    for name in names:
         so = out / f"lib{name}.so"
         if not so.exists():
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
@@ -128,6 +145,129 @@ def earlier_prefill(lib):
                         _build.stream_ptr(q.device)), "earlier flash_profile")
         return y, acc
     return summary, profile
+
+
+def earlier_gemv(lib):
+    fn = lib.w4a8_gemv
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, wg, sz, gs):
+        L, IN = x.shape
+        OUT = wg.shape[0]
+        y = torch.empty((L, OUT), dtype=torch.float32, device=x.device)
+        _build.check(fn(x.data_ptr(), wg.data_ptr(), sz.data_ptr(), y.data_ptr(), L, IN, OUT, gs,
+                        _build.stream_ptr(x.device)), "earlier w4a8_gemv")
+        return y
+    return run
+
+
+def earlier_evict(lib):
+    fn = lib.hh_evict
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(num, denom, pos, ipos, global_tokens, recent_window):
+        B, H, C = pos.shape
+        idx = torch.empty((B, H), dtype=torch.int32, device=num.device)
+        _build.check(fn(num.data_ptr(), denom.data_ptr(), pos.data_ptr(), ipos.data_ptr(),
+                        idx.data_ptr(), B, H, C, global_tokens, recent_window,
+                        _build.stream_ptr(num.device)), "earlier hh_evict")
+        return idx
+    return run
+
+
+#: (kernel, IN, OUT) at L = 1: K1's four layer projections, K2's int4 head
+#: and K10's unfused rowpack projections of Llama-3-8B.
+GEMV_CASES = [
+    ("w4a8_gemv.wqkv", 4096, 6144),
+    ("w4a8_gemv.wo", 4096, 4096),
+    ("w4a8_gemv.w13", 4096, 28672),
+    ("w4a8_gemv.w2", 14336, 4096),
+    ("w4a8_gemv.head", 4096, 128256),
+    ("k10.wq", 4096, 4096),
+    ("k10.wk_wv", 4096, 1024),
+    ("k10.w1_w3", 4096, 14336),
+    ("k10.w2", 14336, 4096),
+]
+
+
+def gemv_ab(dev, earlier, rows):
+    gs = 128
+    h = torch.randn(1, 4096, device=dev).to(torch.bfloat16)
+
+    def small(i):
+        """An RMS norm's few small kernels, as between two projections of a
+        decode step: after them the kernel's instructions are not cached."""
+        hf = h.float()
+        return (hf * torch.rsqrt(hf.pow(2).mean(-1, keepdim=True) + 1e-5)).to(torch.bfloat16)
+
+    small_ms = chip_smoke.time_ms(small, 100)
+    for name, IN, OUT in GEMV_CASES:
+        gen = torch.Generator(device=dev).manual_seed(IN + OUT)
+        ng = IN // gs
+        nbytes = IN * OUT // 2 + OUT * ng * 4 + 2 * IN + 4 * OUT
+        n = chip_smoke.copies_for(nbytes)
+        ws = [torch.randint(0, 256, (OUT, IN // 2), dtype=torch.uint8, device=dev,
+                            generator=gen) for _ in range(n)]
+        szs = []
+        for _ in range(n):
+            sc = torch.rand((OUT, ng), device=dev, generator=gen) * 3e-3 + 1e-3
+            z = (torch.rand((OUT, ng), device=dev, generator=gen) - 0.5) * 2e-2
+            szs.append(torch.stack([sc, z], -1).to(torch.bfloat16).contiguous())
+        x = torch.randn((1, IN), device=dev, generator=gen).to(torch.bfloat16)
+        y_old = earlier(x, ws[0], szs[0], gs)
+        y_new = qmm.w4a8_gemv(x, ws[0], szs[0], gs, counter="w4a8_gemv.wo")
+        ref = qmm.w4a8_gemv_plain(x, ws[0], szs[0], gs)
+        torch.cuda.synchronize()
+        tol = 1e-4 * float(ref.abs().max()) + 1e-6
+        old, new = turns(lambda i: earlier(x, ws[i % n], szs[i % n], gs),
+                         lambda i: qmm.w4a8_gemv(x, ws[i % n], szs[i % n], gs,
+                                                 counter="w4a8_gemv.wo"), 50, 2)
+        old_s, new_s = turns(lambda i: (earlier(x, ws[i % n], szs[i % n], gs), small(i)),
+                             lambda i: (qmm.w4a8_gemv(x, ws[i % n], szs[i % n], gs,
+                                                      counter="w4a8_gemv.wo"), small(i)), 50, 2)
+        cols = qmm.gemv_partition(1, OUT, qmm.sm_count(dev))
+        row = dict(kernel=name, IN=IN, OUT=OUT, earlier_ms=old, ms=new,
+                   earlier_after_small_ms=old_s - small_ms, after_small_ms=new_s - small_ms,
+                   bound_ms=chip_smoke.bound(nbytes, 2 * IN * OUT, "int8")[0],
+                   cols=cols, max_abs_diff_vs_earlier=chip_smoke.max_err(y_old, y_new),
+                   max_abs_err_vs_plain=chip_smoke.max_err(y_new, ref), tol=tol)
+        if name.startswith("w4a8_gemv.") or name == "k10.wk_wv":
+            row["cols_ms"] = {
+                c: chip_smoke.time_ms(lambda i: qmm.w4a8_gemv(
+                    x, ws[i % n], szs[i % n], gs, counter="w4a8_gemv.wo", cols=c), 50, 2)
+                for c in qmm.GEMV_COLS}
+        rows.append(row)
+        del ws, szs
+
+
+def evict_ab(dev, earlier, rows):
+    g_tok, recent = 4, 10
+    for B, H, C in ((1, 8, 2048), (2, 8, 2047)):
+        gen = torch.Generator(device=dev).manual_seed(4 + C)
+        nbytes = 3 * 4 * B * H * C + 4 * B + 4 * B * H + 2 * 4 * B * H
+        n = chip_smoke.copies_for(nbytes)
+        cases = []
+        for _ in range(n):
+            num = torch.randint(1, 64, (B, H, C), device=dev, generator=gen).float() / 4
+            denom = torch.randint(0, 9, (B, H, C), device=dev, generator=gen, dtype=torch.int32)
+            pos = torch.stack([torch.randperm(C, device=dev, generator=gen)
+                               for _ in range(B * H)]).reshape(B, H, C).to(torch.int32)
+            cases.append((num, denom, pos))
+        ipos = torch.full((B, 1, 1), C + 3, dtype=torch.int32, device=dev)
+        ipos_flat = ipos.reshape(-1).contiguous()
+        a = [t.clone() for t in cases[0]]
+        b = [t.clone() for t in cases[0]]
+        same = torch.equal(earlier(a[0], a[1], a[2], ipos_flat, g_tok, recent),
+                           evict.hh_evict(b[0], b[1], b[2], ipos, global_tokens=g_tok,
+                                          recent_window=recent))
+        old, new = turns(lambda i: earlier(*cases[i % n], ipos_flat, g_tok, recent),
+                         lambda i: evict.hh_evict(*cases[i % n], ipos, global_tokens=g_tok,
+                                                  recent_window=recent), 200, 2)
+        rows.append(dict(kernel="hh_evict", B=B, H=H, C=C, earlier_ms=old, ms=new,
+                         bound_ms=chip_smoke.bound(nbytes, 4 * B * H * C, "bf16")[0],
+                         same_idx_as_earlier=same))
 
 
 def turns(fa, fb, iters, warmup=1):
@@ -214,20 +354,31 @@ def decode_ab(dev, earlier, rows):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--earlier", required=True, type=Path,
-                    help="csrc directory of the earlier decode_attn.cu and flash_prefill.cu")
+                    help="csrc directory of the earlier sources")
+    ap.add_argument("--kernels", default="gemv,evict",
+                    help=f"comma-separated groups of {sorted(SOURCES)}")
     args = ap.parse_args()
+    groups = [g for g in args.kernels.split(",") if g]
+    if not set(groups) <= set(SOURCES):
+        ap.error(f"--kernels: {groups} (takes {sorted(SOURCES)})")
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = "cuda"
     card = card_line()
-    libs = build_earlier(args.earlier.resolve())
+    libs = build_earlier(args.earlier.resolve(), [SOURCES[g] for g in groups])
     _build.build_all()
-    rows = []
-    summary, profile = earlier_prefill(libs["flash_prefill"])
-    decode_ab(dev, earlier_decode(libs["decode_attn"]), rows)
-    torch.cuda.empty_cache()
-    prefill_ab(dev, summary, profile, rows)
+    rows = [dict(kernel="launch_floor", ms=chip_smoke.launch_floor_ms())]
+    if "gemv" in groups:
+        gemv_ab(dev, earlier_gemv(libs["w4a8_gemv"]), rows)
+    if "evict" in groups:
+        evict_ab(dev, earlier_evict(libs["hh_evict"]), rows)
+    if "decode" in groups:
+        decode_ab(dev, earlier_decode(libs["decode_attn"]), rows)
+    if "prefill" in groups:
+        torch.cuda.empty_cache()
+        summary, profile = earlier_prefill(libs["flash_prefill"])
+        prefill_ab(dev, summary, profile, rows)
     for r in rows:
         print(json.dumps(r), flush=True)
     out = ROOT / "chiprun_out"

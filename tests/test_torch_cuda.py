@@ -66,6 +66,66 @@ def test_w4a8_gemv_matches_plain(dev, L, IN, OUT, gs):
     torch.testing.assert_close(y, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
+def _gemv_inputs(dev, seed, L, IN, OUT, gs):
+    g = _gen(dev, seed)
+    wg = torch.randint(0, 256, (OUT, IN // 2), dtype=torch.uint8, device=dev, generator=g)
+    s = torch.rand((OUT, IN // gs), device=dev, generator=g) * 3e-3 + 1e-3
+    z = (torch.rand((OUT, IN // gs), device=dev, generator=g) - 0.5) * 2e-2
+    sz = torch.stack([s, z], -1).to(torch.bfloat16).contiguous()
+    x = torch.randn((L, IN), device=dev, generator=g).to(torch.bfloat16)
+    return x, wg, sz
+
+
+@pytest.mark.parametrize("cols", qmm.GEMV_COLS)
+@pytest.mark.parametrize("L,gs", [(1, 64), (3, 128), (32, 64), (32, 128)])
+def test_w4a8_gemv_every_tile_matches_plain(dev, cols, L, gs):
+    """Every column tile, with a ragged OUT, group size 64 and up to 32
+    rows."""
+    IN, OUT = 2048, 1000
+    x, wg, sz = _gemv_inputs(dev, cols + L + gs, L, IN, OUT, gs)
+    y = qmm.w4a8_gemv(x, wg, sz, gs, counter="w4a8_gemv.wo", cols=cols)
+    ref = qmm.w4a8_gemv_plain(x, wg, sz, gs)
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-4 * float(ref.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("L", [1, 5])
+@pytest.mark.parametrize("gs", [32, 256, 512, 1024])
+@pytest.mark.parametrize("IN,OUT", [(4096, 1000), (14336, 1000)])
+def test_w4a8_gemv_every_group_size_matches_plain(dev, IN, OUT, gs, L):
+    """The group sizes the wrapper takes beyond the 8B configurations' 64 and
+    128: four groups per lane (32), and groups over 2, 4 or 8 lanes whose
+    sums span warps in the prologue (256 to 1024; 14336 = 14 * 1024), at one
+    row and at two row blocks, with a ragged OUT."""
+    x, wg, sz = _gemv_inputs(dev, IN + gs + L, L, IN, OUT, gs)
+    y = qmm.w4a8_gemv(x, wg, sz, gs, counter="w4a8_gemv.wo")
+    ref = qmm.w4a8_gemv_plain(x, wg, sz, gs)
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-4 * float(ref.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("L,IN", [(1, 18432), (2, 18432), (1, 16384)])
+def test_w4a8_gemv_long_rows_match_plain(dev, L, IN):
+    """Rows longer than the kernel holds in registers (above 16384 inputs,
+    or more than one row) take its loading prologue."""
+    x, wg, sz = _gemv_inputs(dev, L + IN, L, IN, 1000, 128)
+    y = qmm.w4a8_gemv(x, wg, sz, 128, counter="w4a8_gemv.wo")
+    ref = qmm.w4a8_gemv_plain(x, wg, sz, 128)
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-4 * float(ref.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("IN,OUT", [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                                    (4096, 1024), (4096, 128256)])
+def test_w4a8_gemv_is_deterministic(dev, IN, OUT):
+    """Two launches on the same inputs give the same bits, at the main
+    path's shapes and their default partition."""
+    x, wg, sz = _gemv_inputs(dev, IN ^ OUT, 1, IN, OUT, 128)
+    a = qmm.w4a8_gemv(x, wg, sz, 128, counter="w4a8_gemv.wo")
+    b = qmm.w4a8_gemv(x, wg, sz, 128, counter="w4a8_gemv.wo")
+    assert torch.equal(a, b)
+    # More tiles than CTAs at these shapes: each CTA walks several.
+    ref = qmm.w4a8_gemv_plain(x, wg, sz, 128)
+    torch.testing.assert_close(a, ref, rtol=0, atol=1e-4 * float(ref.abs().max()) + 1e-6)
+
+
 def test_activation_quantization_matches_cpu(dev):
     """The plain version's int8 activations are the same bits on the card
     as on the CPU: ``sx`` is a multiplication by the f32 reciprocal of 127
@@ -239,6 +299,33 @@ def test_hh_evict_matches_plain_bit_for_bit(dev, B, H, C):
     assert torch.equal(n1.cpu(), n2) and torch.equal(d1.cpu(), d2)
 
 
+@pytest.mark.parametrize("C", [2047, 2048, 301, 3, 1])
+def test_hh_evict_any_row_alignment_bit_for_bit(dev, C):
+    """B = 2: with C % 4 != 0 every row but the first starts off a 16-byte
+    boundary, so the kernel's scalar head and tail take part; ties, empty
+    and protected slots included, and the minimum put at the row's edges."""
+    B, H = 2, 8
+    g = _gen(dev, C)
+    num = (torch.randint(1, 8, (B, H, C), device=dev, generator=g) / 4.0).float()
+    denom = torch.randint(0, 5, (B, H, C), device=dev, generator=g, dtype=torch.int32)
+    pos = torch.stack([torch.randperm(C, device=dev, generator=g) for _ in range(B * H)])
+    pos = pos.reshape(B, H, C).to(torch.int32) + 8  # nothing global, every average > 0
+    if C > 8:
+        num[0, 1, 0] = -1.0   # the first slot of a misaligned row
+        num[1, 2, -1] = -1.0  # the last slot of another
+        pos[1, 3, C // 2] = -1
+    ipos = torch.full((B, 1, 1), C + 64, dtype=torch.int32, device=dev)
+    n1, d1 = num.clone(), denom.clone()
+    n2, d2 = num.cpu(), denom.cpu()
+    idx = evict.hh_evict(n1, d1, pos, ipos, global_tokens=4, recent_window=10)
+    ref = evict.hh_evict_plain(n2, d2, pos.cpu(), ipos.cpu(), 4, 10)
+    assert torch.equal(idx.cpu(), ref)
+    assert torch.equal(n1.cpu().view(torch.int32), n2.view(torch.int32))
+    assert torch.equal(d1.cpu(), d2)
+    if C > 8:
+        assert int(idx[0, 1]) == 0 and int(idx[1, 2]) == C - 1 and int(idx[1, 3]) == C // 2
+
+
 @pytest.mark.parametrize("thresholding", [False, True])
 def test_heavy_hitter_one_slot_history_evicts_through_kernel(dev, thresholding):
     """A one-slot heavy-hitter history evicts through K7, thresholded or
@@ -381,6 +468,49 @@ def test_generate_on_card_matches_cpu(dev):
     assert launches["decode_attention.kv8"] == cfg.n_layer * 7
     assert launches["hh_evict"] == cfg.n_layer * 7
     assert launches["w4a8_gemv.head"] == 8
+
+
+def test_generate_stops_at_terminator_on_card_as_on_cpu(dev):
+    """TestKernel, int4 weights and head, kv8 heavy-hitter, greedy on the
+    card with its own third token declared a terminator: it stops after the
+    step that emits it, and the CPU, forced through the same tokens, runs
+    as many steps and leaves the same cache_ct in every layer (the CPU is
+    forced because random weights give near-ties that may flip a greedy
+    token between the two)."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
+    from cold_compress_tpu_torch.runtime.generate import generate
+
+    cfg = ModelConfig.from_name("TestKernel")
+    flat = random_quantized_params(cfg, seed=0)
+    specs = build_cache_specs(cfg, {
+        "cache_strategy": ["heavy_hitter"], "max_cache_length": [0.25],
+        "prompt_compression_strategy": ["heavy_hitter"], "global_tokens": 4,
+        "recent_window": 10, "cache_bits": 8}, 512)
+    prompt = np.random.RandomState(0).randint(2, 500, size=300).tolist()
+    models = {d: build_model(cfg, params_from_flat(flat, d), d, max_positions=512)
+              for d in ("cuda", "cpu")}
+
+    def caches(device):
+        return init_caches(cfg, specs, 1, torch.bfloat16, device=device)
+
+    seq, _, _ = generate(models["cuda"], caches("cuda"), prompt, 8, prefill_bucket=512)
+    gen = seq[len(prompt):]
+    k = gen.index(gen[2], 1)  # the first decode step that emits it
+    reset_kernel_launches()
+    seq_g, info_g, caches_g = generate(models["cuda"], caches("cuda"), prompt, 8,
+                                       prefill_bucket=512, terminator_ids=[gen[2]])
+    launches = kernel_launches()
+    assert seq_g == prompt + gen[:k + 1] and info_g["perf_stats"]["decode_steps"] == k
+    assert launches["hh_evict"] == cfg.n_layer * k and launches["w4a8_gemv.head"] == k + 1
+    _, info_c, caches_c = generate(models["cpu"], caches("cpu"), prompt, 8, prefill_bucket=512,
+                                   next_tokens=gen[:k + 1])
+    assert info_c["perf_stats"]["decode_steps"] == k
+    assert all(torch.equal(g.cache_ct.cpu(), c.cache_ct) for g, c in zip(caches_g, caches_c))
+    assert all(torch.equal(g.pos.cpu() >= 0, c.pos >= 0) for g, c in zip(caches_g, caches_c))
 
 
 @pytest.mark.parametrize("P,plen,G,windows", [

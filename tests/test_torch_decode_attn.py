@@ -70,6 +70,42 @@ def test_plain_matches_tpu_kernel(seed):
     assert np.all(pooled.numpy()[~a["mask"][:, :, None, :]] == 0.0)
 
 
+# The JAX package's default for kv8 caches is the i8dot branch
+# (pallas_decode_attn.py:938-942): q quantized per row to int8, integer
+# scores, p * s_v quantized per row to int8 for P.V. The port keeps the
+# dequantizing branch by design. Measured against i8dot=True on these draws
+# (seeds 0 and 1): out off by up to 8.43e-3 and 7.35e-3 of each head's
+# largest |out|, pooled probabilities by up to 1.23e-3 and 1.34e-3 of
+# themselves. The bounds are under twice the larger of each.
+I8DOT_OUT_SHARE = 1.6e-2
+I8DOT_POOLED_RTOL = 2.6e-3
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_within_bound_of_tpu_i8dot_kernel(seed):
+    """Against the TPU one-shot kernel in interpret mode with i8dot=True:
+    out within ``I8DOT_OUT_SHARE`` of each head's largest |out|, pooled
+    probabilities within ``I8DOT_POOLED_RTOL`` of themselves, and zero
+    exactly where the reference's are (empty slots)."""
+    a = _inputs(seed)
+    ref_out, ref_attn = quantized_decode_attention(
+        jnp.asarray(a["q"], jnp.bfloat16), jnp.asarray(a["kq"]), jnp.asarray(a["vq"]),
+        jnp.asarray(a["ks"]), jnp.asarray(a["kz"]), jnp.asarray(a["vs"]),
+        jnp.asarray(a["vz"]), jnp.asarray(a["mask"]),
+        bits=8, need_attn=True, chunked=False, i8dot=True, interpret=True,
+    )
+    out, pooled = _port(a)
+    ref = np.asarray(ref_out, np.float32)
+    scale = np.abs(ref).max(axis=-1, keepdims=True)
+    err = np.abs(out.float().numpy() - ref)
+    assert np.all(err <= I8DOT_OUT_SHARE * scale), float((err / scale).max())
+    ref_p, p = np.asarray(ref_attn), pooled.numpy()
+    assert np.all((p == 0) == (ref_p == 0))
+    live = ref_p > 0
+    rel = np.abs(p[live] - ref_p[live]) / ref_p[live]
+    assert float(rel.max()) <= I8DOT_POOLED_RTOL, float(rel.max())
+
+
 def test_plain_matches_xla_path():
     """Against the JAX XLA path (materialize_kv + gqa_attention), which
     keeps the probabilities in f32 for P.V: out differs by the bf16

@@ -1,11 +1,14 @@
 """How the kernels' wrappers cut their work: decode attention's cluster of
-CTAs over the cache slots (K3/K5) and the prefill pass 2's work items of one
-128-key block against one segment of query rows (K4/K6). Pure Python, so it
-runs here; the kernels compute their ranges with the same formulas."""
+CTAs over the cache slots (K3/K5), the prefill pass 2's work items of one
+128-key block against one segment of query rows (K4/K6), and the W4A8 decode
+matmul's column tiles (K1/K2/K10). Pure Python, so it runs
+here; the kernels compute their ranges with the same formulas."""
+
+import math
 
 import pytest
 
-from cold_compress_tpu_torch.ops import decode_attn, prefill_attn
+from cold_compress_tpu_torch.ops import decode_attn, prefill_attn, qmm
 
 
 @pytest.mark.parametrize("C", [1, 2, 127, 128, 129, 300, 1024, 1025, 2048, 2049, 4093,
@@ -71,3 +74,54 @@ def test_colsum_workspace_bytes(P, bytes_):
     (B = 1, KVH = 8, G = 4): 32 segments at either length."""
     n_seg = prefill_attn.colsum_segments(P, 4)[1]
     assert n_seg == prefill_attn.MAX_SEGMENTS and 4 * 2 * n_seg * 1 * 8 * P == bytes_
+
+
+#: K1/K2/K10's output widths at the 8B shapes: wqkv, wo (and K10's wq and
+#: w2's output), w13, K10's wk/wv and w1/w3, the int4 head, and a ragged OUT.
+GEMV_OUTS = [6144, 4096, 28672, 1024, 14336, 128256, 1000]
+H100_SMS = 132
+
+
+def _last_round_busy(L, OUT, cols):
+    """The busy fraction of the last round of K1's tiles on the card."""
+    rounds = -(-OUT // cols) * -(-L // qmm.GEMV_ROWS) / H100_SMS
+    return rounds / math.ceil(rounds)
+
+
+@pytest.mark.parametrize("L", [1, 5, 32])
+@pytest.mark.parametrize("OUT", GEMV_OUTS)
+def test_gemv_partition_fills_the_card(OUT, L):
+    """Every shape whose narrowest tiles number at least one per SM gets a
+    tile on every SM, at a width whose last round of tiles is within 2% as
+    busy as the best width's; narrower outputs get the narrowest tiles."""
+    cols = qmm.gemv_partition(L, OUT, H100_SMS)
+    assert cols in qmm.GEMV_COLS
+    row_blocks = -(-L // qmm.GEMV_ROWS)
+    fill = [c for c in qmm.GEMV_COLS if -(-OUT // c) * row_blocks >= H100_SMS]
+    if not fill:
+        assert cols == qmm.GEMV_COLS[-1]
+        return
+    assert cols in fill
+    best = max(_last_round_busy(L, OUT, c) for c in fill)
+    assert _last_round_busy(L, OUT, cols) >= best - 0.02
+
+
+@pytest.mark.parametrize("OUT,L,want", [
+    (128256, 1, 32),  # the int4 head: 4008 tiles, 30.4 rounds of 132
+    (28672, 1, 32),   # w13: 896 tiles, 6.8 rounds
+    (6144, 1, 16),    # wqkv: 384 tiles, 2.9 rounds (32 columns: 1.45)
+    (4096, 1, 16),    # wo, w2: 32 columns would leave 4 SMs without a tile
+    (1024, 1, 16),    # K10's wk/wv: 64 tiles, half the card
+    (14336, 1, 16),   # K10's w1/w3: 896 tiles, 6.8 rounds (32 columns: 3.4)
+    (4096, 32, 64),   # 8 row blocks fill the card alone
+    (1000, 5, 16),    # ragged OUT, two row blocks: 126 tiles
+])
+def test_gemv_partition_of_the_main_path(OUT, L, want):
+    assert qmm.gemv_partition(L, OUT, H100_SMS) == want
+
+
+def test_gemv_partition_takes_the_widest_of_equals():
+    """Where widths share the card equally well, the widest is taken (fewer
+    tiles, each CTA's activations serve more columns)."""
+    assert qmm.gemv_partition(1, 132 * 64, H100_SMS) == 64
+    assert qmm.gemv_partition(1, 132 * 32, H100_SMS) == 32
