@@ -15,9 +15,12 @@ Phases; any failure raises and the script exits non-zero:
    W4A8 projections and head (K1/K2), decode attention at every cache
    precision with and without pooled probabilities at C = 2048 and, for
    bf16/int8/int4 without, at C = 32768 (K3/K5), the fused heavy-hitter
-   eviction (K7), the W8A8 head (K9), flash prefill (K4), flash prefill
-   with the FastGen profile (K6) at one and two windows, and the W4A8
-   prefill matmul (K8) at L = 8192 for the four layer projections;
+   eviction (K7), the W8A8 head and layer projections (K9, at one and five
+   rows, also after an RMS norm's small kernels), flash prefill (K4), flash
+   prefill with the FastGen profile (K6) at one and two windows, and the
+   W4A8 prefill matmul (K8) at L = 8192 for the four layer projections
+   (TOP/s, its quantization launch alone, bit-equal across two launches,
+   beside ``torch._int_mm``'s int8 rate);
    decode attention, K1/K2 and K4 also bit-equal across two calls, decode
    attention one device kernel per call (``torch.profiler``), K4 and K6
    with each pass timed alone, K7 also at rows off a 16-byte boundary,
@@ -153,6 +156,25 @@ def launch_floor_ms() -> float:
     calls it."""
     t = torch.zeros(1, device="cuda")
     return time_ms(lambda i: t.add_(1), 200)
+
+
+@functools.cache
+def _norm_input() -> torch.Tensor:
+    return torch.randn(1, 4096, device="cuda").to(torch.bfloat16)
+
+
+def small_kernels(i=0) -> torch.Tensor:
+    """An RMS norm's few small kernels, as between two projections of a
+    decode step: after them a kernel's instructions are not cached."""
+    hf = _norm_input().float()
+    return (hf * torch.rsqrt(hf.pow(2).mean(-1, keepdim=True) + 1e-5)).to(torch.bfloat16)
+
+
+def after_small_ms(fn, iters: int) -> float:
+    """``time_ms`` of ``fn(i)`` launched after ``small_kernels``, their own
+    time subtracted: a kernel's time as a decode step meets it, cold."""
+    both = time_ms(lambda i: (fn(i), small_kernels(i)), iters)
+    return both - time_ms(small_kernels, iters)
 
 
 def copies_for(nbytes: int) -> int:
@@ -420,6 +442,8 @@ W8A8_SHAPES = [  # (counter, IN, OUT)
 
 
 def check_w8a8(dev, records, name, IN, OUT):
+    """K9 at one row (decode) and five (two row blocks), bit-equal to its
+    plain version, timed back to back and after small kernels."""
     from cold_compress_tpu_torch.ops import qmm
 
     gen = torch.Generator(device=dev).manual_seed(5 + IN + OUT)
@@ -432,20 +456,30 @@ def check_w8a8(dev, records, name, IN, OUT):
         layers.append(qmm.int8_to_gemv(w, s))
         del w
     wt, st = layers[0]
-    x = torch.randn((1, IN), device=dev, generator=gen).to(torch.bfloat16)
-    y = qmm.w8a8_gemv(x, wt, st, counter=name)
-    ref = qmm.w8a8_gemv_plain(x, wt, st)
-    torch.cuda.synchronize()
-    err = max_err(y, ref)
-    # Exact int32 dots on both sides, the same f32 epilogue in the same
-    # order: the same bits.
-    same = torch.equal(y, ref)
-    log(f"[check] {name} IN={IN} OUT={OUT}: bit-equal {same}, max_abs_err={err:.3e}")
-    assert same and bool(torch.isfinite(y).all()), f"{name} disagrees with its plain version"
-
-    ms = time_ms(lambda i: qmm.w8a8_gemv(x, *layers[i % n], counter=name), 50)
+    by_rows = {}
+    for L in (1, 5):
+        x = torch.randn((L, IN), device=dev, generator=gen).to(torch.bfloat16)
+        y = qmm.w8a8_gemv(x, wt, st, counter=name)
+        ref = qmm.w8a8_gemv_plain(x, wt, st)
+        torch.cuda.synchronize()
+        err = max_err(y, ref)
+        # Exact int32 dots on both sides, the same f32 epilogue in the same
+        # order: the same bits.
+        same = torch.equal(y, ref)
+        log(f"[check] {name} L={L} IN={IN} OUT={OUT}: bit-equal {same}, max_abs_err={err:.3e}")
+        assert same and bool(torch.isfinite(y).all()), f"{name} disagrees with its plain version"
+        nb = IN * OUT + 4 * OUT + 2 * L * IN + 4 * L * OUT
+        ms = time_ms(lambda i: qmm.w8a8_gemv(x, *layers[i % n], counter=name), 50)
+        cold = after_small_ms(lambda i: qmm.w8a8_gemv(x, *layers[i % n], counter=name), 50)
+        cols = qmm.w8a8_partition(L, OUT, qmm.sm_count(dev))
+        b_ms, b_by = bound(nb, 2 * L * IN * OUT, "int8")
+        log(f"[time] {name} L={L}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+            f"{nb / ms / 1e6:.1f} GB/s), after small kernels {cold:.4f} ms, {cols} columns "
+            f"per tile, launch floor {launch_floor_ms():.4f} ms")
+        by_rows[L] = dict(x=x, err=err, ms=ms, cold=cold, cols=cols, b_ms=b_ms, b_by=b_by)
+    one = by_rows[1]
+    x = one["x"]
     plain_ms = time_ms(lambda i: qmm.w8a8_gemv_plain(x, *layers[i % n]), 3, 1)
-    b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
     # The library's int8 GEMM: cuBLASLt takes at least 17 rows, so the
     # activations are quantized and padded to 32 rows beforehand.
     xq, sx = qmm.quantize_activations(x)
@@ -459,16 +493,19 @@ def check_w8a8(dev, records, name, IN, OUT):
         return (torch._int_mm(xq32, wt_i.t()).float() * st_i) * sx32
 
     try:
-        lib_same = torch.equal(lib(0)[:1], ref)
+        lib_same = torch.equal(lib(0)[:1], qmm.w8a8_gemv_plain(x, wt, st))
         library_ms = time_ms(lib, 50)
         lib_text = (f"{library_ms:.4f} ms (torch._int_mm on 32 padded rows plus scaling, "
                     f"bit-equal to the plain version: {lib_same})")
     except RuntimeError as e:  # the library call is a yardstick, not a check
         library_ms, lib_text = None, f"none (torch._int_mm failed: {e})"
-    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-        f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library {lib_text}")
-    record(records, name, name, "w8a8_gemv.cu", "ops/pallas_qmm.py:1293", err, "bit-equal",
-           0.0, ms, plain_ms, b_ms, b_by, library_ms)
+    log(f"[time] {name}: plain {plain_ms:.3f} ms, library {lib_text}")
+    five = by_rows[5]
+    record(records, name, name, "w8a8_gemv.cu", "ops/pallas_qmm.py:1293",
+           max(one["err"], five["err"]), "bit-equal", 0.0, one["ms"], plain_ms, one["b_ms"],
+           one["b_by"], library_ms, cols=one["cols"], after_small_ms=one["cold"],
+           ms_l5=five["ms"], bound_ms_l5=five["b_ms"], cols_l5=five["cols"],
+           after_small_ms_l5=five["cold"], launch_floor_ms=launch_floor_ms())
     del layers
 
 
@@ -659,7 +696,12 @@ def check_flash_profile(dev, records, windows):
 
 
 def check_w4a8_gemm(dev, records):
-    """K8 at L = 8192 for the four 8B layer projections."""
+    """K8 at L = 8192 for the four 8B layer projections: against K1's plain
+    version, bit-equal across two launches, its activation quantization
+    (the first of its two launches) timed alone, and beside two asides that
+    are not the same function: the default path's dequantize + bf16
+    ``torch.matmul``, and ``torch._int_mm`` on int8 [L, IN] x [IN, OUT] (the
+    rate the library gets from the int8 tensor cores)."""
     from cold_compress_tpu_torch.ops import qmm
 
     gs, L = 128, 8192
@@ -681,23 +723,36 @@ def check_w4a8_gemm(dev, records):
         err = max_err(y, ref)
         # K1's tolerance: exact integer group dots, only f32 order differs.
         tol = 1e-4 * float(ref.abs().max()) + 1e-6
-        log(f"[check] {name} L={L} IN={IN} OUT={OUT}: max_abs_err={err:.3e} tol={tol:.3e}")
+        same = torch.equal(y, qmm.w4a8_gemm(x, wg, sz, gs, counter=name))
+        log(f"[check] {name} L={L} IN={IN} OUT={OUT}: max_abs_err={err:.3e} tol={tol:.3e}, "
+            f"two launches bit-equal {same}")
         assert err <= tol, f"{name}: kernel disagrees with its plain version"
+        assert same, f"{name}: two launches on the same inputs differ"
         del ref
 
         ms = time_ms(lambda i: qmm.w4a8_gemm(x, wg, sz, gs, counter=name), 5, 1)
+        quant_ms = time_ms(lambda i: qmm.w4a8_gemm_quantize(x, gs), 5, 1)
         plain_ms = time_ms(lambda i: qmm.w4a8_gemv_plain(x, wg, sz, gs), 1, 1)
         dense_ms = time_ms(lambda i: torch.matmul(x, qmm.dequantize_gemv(wg, sz, gs)), 5, 1)
+        xq = qmm.w4a8_gemm_quantize(x, gs)[0]
+        w8 = torch.randint(-8, 8, (OUT, IN), dtype=torch.int8, device=dev, generator=gen)
+        int_mm_ms = time_ms(lambda i: torch._int_mm(xq, w8.t()), 5, 1)
+        del xq, w8
         nbytes = IN * OUT // 2 + OUT * ng * 4 + 2 * L * IN + 4 * L * OUT
         nops = 2 * L * IN * OUT
         b_ms, b_by = bound(nbytes, nops, "int8")
+        q_ms, _ = bound(2 * L * IN + L * IN + 4 * L + 4 * L * ng, 0, "int8")
         log(f"[time] {name}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; "
-            f"{nops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} ms, library: none (no PyTorch "
-            f"call computes W4A8; the default path's dequantize + torch.matmul in bf16: "
-            f"{dense_ms:.3f} ms)")
+            f"{nops / ms / 1e9:.1f} TOP/s), of which the activation quantization "
+            f"{quant_ms:.4f} ms (its bound {q_ms:.4f} ms by bytes), plain {plain_ms:.3f} ms, "
+            f"library: none (no PyTorch call computes W4A8). Asides: the default path's "
+            f"dequantize + torch.matmul in bf16 {dense_ms:.3f} ms; torch._int_mm int8 "
+            f"[{L}, {IN}] x [{IN}, {OUT}] {int_mm_ms:.3f} ms ({nops / int_mm_ms / 1e9:.1f} TOP/s)")
         record(records, name, name, "w4a8_gemm.cu", "ops/pallas_qmm.py:1177", err,
                "1e-4*max|ref| + 1e-6", err / tol, ms, plain_ms, b_ms, b_by, None,
-               dense_matmul_ms=dense_ms, also_replaces=f"{REPO_TPU}/ops/pallas_qmm.py:1100")
+               tops=nops / ms / 1e9, quant_ms=quant_ms, quant_bound_ms=q_ms,
+               bit_equal_across_launches=same, dense_matmul_ms=dense_ms, int_mm_ms=int_mm_ms,
+               also_replaces=f"{REPO_TPU}/ops/pallas_qmm.py:1100")
         del wg, sz, x, y
 
 

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
+
 namespace {
 
 constexpr int kWarps = 16;
@@ -109,20 +111,6 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// act_quant.cuh's per-element quantization, clip(rint(v / s)) with an IEEE
-// division, from rs = 1/s (rounded): |v / s| < 127.0001, so v * rs is within
-// 2.3e-5 of the division's result, and the two can round to different
-// integers only within that distance of a half-integer. There (rarely) the
-// division is done.
-__device__ __noinline__ float rint_div(float v, float s) { return rintf(__fdiv_rn(v, s)); }
-
-__device__ __forceinline__ int quant_int8(float v, float s, float rs) {
-  const float p = v * rs;
-  float q = rintf(p);
-  if (fabsf(p - q) > 0.5f - 1e-4f) q = rint_div(v, s);
-  return (int)fminf(fmaxf(q, -127.f), 127.f);
-}
-
 // Position of input i among the CTA's int8 activations: for
 // each piece, lane L's 16-byte run j (inputs L*128 + 16j .. +15) at
 // (j * 32 + L) * 16, so that a warp reads 512 consecutive bytes.
@@ -141,33 +129,6 @@ __device__ __forceinline__ int dot32(const int4& xa, const int4& xb, const uint4
   d = __dp4a(xb.y, (int)((w.z >> 4) & m), d);
   d = __dp4a(xb.z, (int)(w.w & m), d);
   return __dp4a(xb.w, (int)((w.w >> 4) & m), d);
-}
-
-__device__ __forceinline__ float absmax8(const uint4& v) {
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-  float m = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    m = fmaxf(m, fabsf(__uint_as_float(u[e] << 16)));
-    m = fmaxf(m, fabsf(__uint_as_float(u[e] & 0xFFFF0000u)));
-  }
-  return m;
-}
-
-// Quantizes 8 inputs to int8 (packed little-endian); returns their sum.
-__device__ __forceinline__ int quant8(const uint4& v, float s, float rs, uint2* out) {
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-  uint32_t packed[2] = {0u, 0u};
-  int sum = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int a = quant_int8(__uint_as_float(u[e] << 16), s, rs);
-    const int b = quant_int8(__uint_as_float(u[e] & 0xFFFF0000u), s, rs);
-    sum += a + b;
-    packed[e >> 1] |= ((uint32_t)(a & 0xFF) | ((uint32_t)(b & 0xFF) << 8)) << (16 * (e & 1));
-  }
-  *out = make_uint2(packed[0], packed[1]);
-  return sum;
 }
 
 // s * (d - 8 * xs) + z * xs for one group, d = sum xq * q over the group.

@@ -79,6 +79,9 @@ W8A8_EXACT_DEPTH = 1024
 #: warps of 4, 2 or 1 columns). One CTA fills an SM (its shared memory).
 GEMV_ROWS = 4
 GEMV_COLS = (64, 32, 16)
+#: K9's CTA: the same 16 warps of 4, 2 or 1 columns, up to 8 activation
+#: rows (a decode step's few rows stream the int8 weights once).
+W8A8_ROWS = 8
 
 
 def gemv_partition(L: int, OUT: int, sm_count: int) -> int:
@@ -103,6 +106,29 @@ def gemv_partition(L: int, OUT: int, sm_count: int) -> int:
         if best_eff == 0.0 or eff > best_eff + 0.02:
             best, best_eff = cols, eff
     return best
+
+
+#: The share of the SMs K9's tiles must occupy for a tile width to be taken.
+W8A8_MIN_FILL = 0.7
+
+
+def w8a8_partition(L: int, OUT: int, sm_count: int) -> int:
+    """Columns per tile for K9 at these shapes: the widest of ``GEMV_COLS``
+    whose tiles (times the row blocks of ``W8A8_ROWS``) occupy at least
+    ``W8A8_MIN_FILL`` of the SMs, else the narrowest.
+
+    An int8 column is twice an int4 column's bytes, so K9's stream is bound
+    by the card's memory rate once about 70% of the SMs pull on it, and each
+    further tile a CTA walks adds its fixed costs (the wait for its first
+    pieces, the closing reduction): on the card the widest such tile was
+    the fastest or within 2% of it at L = 1 (wqkv 64 columns, wo and w2 32;
+    PERF.md section 6), where K1's rule (every SM busy) takes 16. Pure
+    Python: the CPU tests check it."""
+    row_blocks = -(-L // W8A8_ROWS)
+    for cols in GEMV_COLS:
+        if -(-OUT // cols) * row_blocks >= W8A8_MIN_FILL * sm_count:
+            return cols
+    return GEMV_COLS[-1]
 
 
 _SM_COUNT = {}
@@ -304,12 +330,84 @@ def w4a8_gemv(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
+#: K8's output tile: weight columns (two consumer warpgroups of 64) by
+#: activation rows (the wgmma's N).
+GEMM_TILE_OUT = 128
+GEMM_TILE_ROWS = 128
+
+
+def gemm_schedule(L: int, OUT: int, sm_count: int):
+    """(CTAs, group width) of K8's persistent grid at these shapes.
+
+    At most one CTA per SM, each walking tiles ``blockIdx.x``, ``+ CTAs``, ...
+    in the order of ``gemm_tile``: groups of ``group`` weight-column tiles,
+    the activation-row tiles in order within a group. The tiles in flight at
+    once then span about ``group`` column tiles by ``CTAs / group`` row
+    tiles, whose bytes (IN/2 per weight column, IN per activation row, 128
+    of each per tile) are least near ``group = sqrt(2 CTAs)``: 16 on 132
+    SMs. Pure Python: the CPU tests check it."""
+    n_out = -(-OUT // GEMM_TILE_OUT)
+    tiles = n_out * -(-L // GEMM_TILE_ROWS)
+    ctas = min(tiles, sm_count)
+    group = max(1, min(n_out, round(math.sqrt(2 * ctas))))
+    return ctas, group
+
+
+def gemm_tile(t: int, L: int, OUT: int, group: int):
+    """Tile ``t`` of K8's schedule -> (weight-column tile, activation-row
+    tile); ``csrc/w4a8_gemm.cu::tile_coords`` computes the same."""
+    n_out = -(-OUT // GEMM_TILE_OUT)
+    n_rows = -(-L // GEMM_TILE_ROWS)
+    per = group * n_rows
+    g, i = divmod(t, per)
+    width = min(group, n_out - g * group)
+    return g * group + i % width, i // width
+
+
 def _lib_gemm():
-    fn = _build.library("w4a8_gemm").w4a8_gemm
+    lib = _build.library("w4a8_gemm")
+    fn, quant = lib.w4a8_gemm, lib.w4a8_gemm_quant
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        quant.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        quant.restype = ctypes.c_int
+    return fn, quant
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def gemm_zero_term_on_tensor_cores(IN: int, group_size: int) -> bool:
+    """Whether K8 takes its instance with the zero term on the tensor cores
+    (group size 128 with IN a multiple of 1024: whole blocks of eight
+    groups), which reads the group sums' bf16 halves."""
+    return group_size == 128 and IN % 1024 == 0
+
+
+def w4a8_gemm_quantize(x: torch.Tensor, group_size: int):
+    """K8's first launch alone (CUDA tensors): x [L, IN] bf16 -> (xq int8
+    [L, IN], sx f32 [L], xs, xsb): the per-row int8 activations, their
+    scales and their group sums, where ``gemm_zero_term_on_tensor_cores``
+    as xsb int32 [L, IN/gs] (each sum's bf16 halves ``(sum >> 7, sum &
+    127)`` packed in one word; xs None), else as xs f32 [IN/gs, Lp],
+    transposed and padded to whole tiles of rows (the columns past L are
+    not written; xsb None)."""
+    L, IN = x.shape
+    Lp = -(-L // GEMM_TILE_ROWS) * GEMM_TILE_ROWS
+    dev = x.device
+    xq = torch.empty((L, IN), dtype=torch.int8, device=dev)
+    sx = torch.empty((L,), dtype=torch.float32, device=dev)
+    xs = xsb = None
+    if gemm_zero_term_on_tensor_cores(IN, group_size):
+        xsb = torch.empty((L, IN // group_size), dtype=torch.int32, device=dev)
+    else:
+        xs = torch.empty((IN // group_size, Lp), dtype=torch.float32, device=dev)
+    status = _lib_gemm()[1](x.data_ptr(), xq.data_ptr(), sx.data_ptr(), _ptr(xs), _ptr(xsb),
+                            L, IN, group_size, Lp, _build.stream_ptr(dev))
+    _build.check(status, "w4a8_gemm_quant")
+    return xq, sx, xs, xsb
 
 
 def w4a8_gemm(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor, group_size: int,
@@ -318,7 +416,8 @@ def w4a8_gemm(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor, group_size: i
     prefill-sized L: K1's function (its plain version is ``w4a8_gemv_plain``)
     on the int8 tensor cores, reading the same stored bytes.
 
-    ``counter`` is the key of ``LAUNCHES`` that a launch increments.
+    ``counter`` is the key of ``LAUNCHES`` that a call increments (once: the
+    activation quantization and the matmul are its two launches).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel; any
     input it does not take raises."""
@@ -344,13 +443,13 @@ def w4a8_gemm(x: torch.Tensor, wg: torch.Tensor, sz: torch.Tensor, group_size: i
     if not (x.device == wg.device == sz.device):
         raise ValueError("inputs on different devices")
     dev = x.device
-    xq = torch.empty((L, IN), dtype=torch.int8, device=dev)
-    sx = torch.empty((L,), dtype=torch.float32, device=dev)
-    xs = torch.empty((L, IN // gs), dtype=torch.int32, device=dev)
+    xq, sx, xs, xsb = w4a8_gemm_quantize(x, gs)
     y = torch.empty((L, OUT), dtype=torch.float32, device=dev)
-    status = _lib_gemm()(
-        x.data_ptr(), wg.data_ptr(), sz.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-        xs.data_ptr(), y.data_ptr(), L, IN, OUT, gs, _build.stream_ptr(dev),
+    ctas, group = gemm_schedule(L, OUT, sm_count(dev))
+    Lp = -(-L // GEMM_TILE_ROWS) * GEMM_TILE_ROWS
+    status = _lib_gemm()[0](
+        xq.data_ptr(), sx.data_ptr(), _ptr(xs), _ptr(xsb), wg.data_ptr(), sz.data_ptr(),
+        y.data_ptr(), L, IN, OUT, gs, Lp, ctas, group, _build.stream_ptr(dev),
     )
     _build.check(status, "w4a8_gemm")
     LAUNCHES[counter] += 1
@@ -402,15 +501,18 @@ def w8a8_gemv_plain(x: torch.Tensor, wt: torch.Tensor, s: torch.Tensor) -> torch
 def _lib8():
     fn = _build.library("w8a8_gemv").w8a8_gemv
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def w8a8_gemv(x: torch.Tensor, wt: torch.Tensor, s: torch.Tensor, counter: str) -> torch.Tensor:
+def w8a8_gemv(x: torch.Tensor, wt: torch.Tensor, s: torch.Tensor, counter: str, *,
+              cols: Optional[int] = None) -> torch.Tensor:
     """x [L, IN] @ int8 weight in the kernel layout -> [L, OUT] f32.
 
     ``counter`` is the key of ``LAUNCHES`` that a launch increments.
+    ``cols`` (16, 32 or 64) fixes the kernel's column tile; by default
+    ``w8a8_partition`` chooses it.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel; any
     input it does not take raises."""
@@ -430,9 +532,13 @@ def w8a8_gemv(x: torch.Tensor, wt: torch.Tensor, s: torch.Tensor, counter: str) 
         raise ValueError("weight bytes must be 16-byte aligned")
     if not (x.device == wt.device == s.device):
         raise ValueError("inputs on different devices")
+    if cols is None:
+        cols = w8a8_partition(L, OUT, sm_count(x.device))
+    if cols not in GEMV_COLS:
+        raise ValueError(f"w8a8_gemv: cols {cols} not one of {GEMV_COLS}")
     y = torch.empty((L, OUT), dtype=torch.float32, device=x.device)
     status = _lib8()(
-        x.data_ptr(), wt.data_ptr(), s.data_ptr(), y.data_ptr(), L, IN, OUT,
+        x.data_ptr(), wt.data_ptr(), s.data_ptr(), y.data_ptr(), L, IN, OUT, cols,
         _build.stream_ptr(x.device),
     )
     _build.check(status, "w8a8_gemv")

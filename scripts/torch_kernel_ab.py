@@ -19,6 +19,16 @@ the 8B shapes it prints one JSON row per case, and writes them to
   every column tile beside the one ``gemv_partition`` takes;
 - ``evict`` (``hh_evict.cu``, same C interface): K7 at the main path's
   8 x 2048 and at C = 2047, B = 2;
+- ``gemm`` (``w4a8_gemm.cu``; the earlier one with the one-call C interface
+  ``w4a8_gemm(x, w, sz, xq, sx, xs, y, L, IN, OUT, gs, stream)``): K8's four
+  layer projections at L = 8192, group size 128, earlier and current, the
+  current activation quantization alone, TOP/s, and wqkv at group sizes 32,
+  64 and 256;
+- ``w8a8`` (``w8a8_gemv.cu``; the earlier one with the C interface
+  ``w8a8_gemv(x, w, s, y, L, IN, OUT, stream)``): K9's head and four layer
+  projections at L = 1 and 5, earlier and current, back to back and after
+  an RMS norm's small kernels, bit-equality between the two, and the
+  current kernel at every column tile;
 - ``decode`` and ``prefill`` (``decode_attn.cu``, ``flash_prefill.cu``; the
   earlier ones with the C interfaces of the three-launch decode kernel and
   the first flash prefill: ``decode_attention`` with a
@@ -55,7 +65,7 @@ from cold_compress_tpu_torch.ops import _build, decode_attn, evict, prefill_attn
 
 #: The earlier source each kernel group needs.
 SOURCES = {"gemv": "w4a8_gemv", "evict": "hh_evict", "decode": "decode_attn",
-           "prefill": "flash_prefill"}
+           "prefill": "flash_prefill", "gemm": "w4a8_gemm", "w8a8": "w8a8_gemv"}
 
 
 def build_earlier(csrc: Path, names):
@@ -147,17 +157,21 @@ def earlier_prefill(lib):
     return summary, profile
 
 
-def earlier_gemv(lib):
+def earlier_gemv(lib, with_cols: bool):
+    """The earlier K1: the first C interface, or the later one with the
+    column tile (``with_cols``; the tile ``gemv_partition`` takes)."""
     fn = lib.w4a8_gemv
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (5 if with_cols else 4) + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def run(x, wg, sz, gs):
         L, IN = x.shape
         OUT = wg.shape[0]
         y = torch.empty((L, OUT), dtype=torch.float32, device=x.device)
+        cols = [qmm.gemv_partition(L, OUT, qmm.sm_count(x.device))] if with_cols else []
         _build.check(fn(x.data_ptr(), wg.data_ptr(), sz.data_ptr(), y.data_ptr(), L, IN, OUT, gs,
-                        _build.stream_ptr(x.device)), "earlier w4a8_gemv")
+                        *cols, _build.stream_ptr(x.device)), "earlier w4a8_gemv")
         return y
     return run
 
@@ -194,14 +208,7 @@ GEMV_CASES = [
 
 def gemv_ab(dev, earlier, rows):
     gs = 128
-    h = torch.randn(1, 4096, device=dev).to(torch.bfloat16)
-
-    def small(i):
-        """An RMS norm's few small kernels, as between two projections of a
-        decode step: after them the kernel's instructions are not cached."""
-        hf = h.float()
-        return (hf * torch.rsqrt(hf.pow(2).mean(-1, keepdim=True) + 1e-5)).to(torch.bfloat16)
-
+    small = chip_smoke.small_kernels
     small_ms = chip_smoke.time_ms(small, 100)
     for name, IN, OUT in GEMV_CASES:
         gen = torch.Generator(device=dev).manual_seed(IN + OUT)
@@ -268,6 +275,134 @@ def evict_ab(dev, earlier, rows):
         rows.append(dict(kernel="hh_evict", B=B, H=H, C=C, earlier_ms=old, ms=new,
                          bound_ms=chip_smoke.bound(nbytes, 4 * B * H * C, "bf16")[0],
                          same_idx_as_earlier=same))
+
+
+def earlier_gemm(lib):
+    fn = lib.w4a8_gemm
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, wg, sz, gs):
+        L, IN = x.shape
+        OUT = wg.shape[0]
+        dev = x.device
+        xq = torch.empty((L, IN), dtype=torch.int8, device=dev)
+        sx = torch.empty((L,), dtype=torch.float32, device=dev)
+        xs = torch.empty((L, IN // gs), dtype=torch.int32, device=dev)
+        y = torch.empty((L, OUT), dtype=torch.float32, device=dev)
+        _build.check(fn(x.data_ptr(), wg.data_ptr(), sz.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                        xs.data_ptr(), y.data_ptr(), L, IN, OUT, gs,
+                        _build.stream_ptr(dev)), "earlier w4a8_gemm")
+        return y
+    return run
+
+
+def earlier_w8a8(lib):
+    fn = lib.w8a8_gemv
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, wt, s):
+        L, IN = x.shape
+        OUT = wt.shape[0]
+        y = torch.empty((L, OUT), dtype=torch.float32, device=x.device)
+        _build.check(fn(x.data_ptr(), wt.data_ptr(), s.data_ptr(), y.data_ptr(), L, IN, OUT,
+                        _build.stream_ptr(x.device)), "earlier w8a8_gemv")
+        return y
+    return run
+
+
+#: K8's four 8B layer projections (IN, OUT) at a prefill of L = 8192.
+GEMM_CASES = [("w4a8_gemm.wqkv", 4096, 6144), ("w4a8_gemm.wo", 4096, 4096),
+              ("w4a8_gemm.w13", 4096, 28672), ("w4a8_gemm.w2", 14336, 4096)]
+
+
+def gemm_ab(dev, earlier, rows):
+    """K8 at L = 8192, group size 128, earlier and current in turns; the
+    current kernel's activation quantization alone; and wqkv at the other
+    group sizes each instance takes (32, 64, 256)."""
+    L = 8192
+    for name, IN, OUT in GEMM_CASES:
+        gen = torch.Generator(device=dev).manual_seed(IN + OUT)
+        for gs in (128, 32, 64, 256) if name.endswith("wqkv") else (128,):
+            ng = IN // gs
+            wg = torch.randint(0, 256, (OUT, IN // 2), dtype=torch.uint8, device=dev,
+                               generator=gen)
+            sc = torch.rand((OUT, ng), device=dev, generator=gen) * 3e-3 + 1e-3
+            z = (torch.rand((OUT, ng), device=dev, generator=gen) - 0.5) * 2e-2
+            sz = torch.stack([sc, z], -1).to(torch.bfloat16).contiguous()
+            x = torch.randn((L, IN), device=dev, generator=gen).to(torch.bfloat16)
+            y_old = earlier(x, wg, sz, gs)
+            y_new = qmm.w4a8_gemm(x, wg, sz, gs, counter="w4a8_gemm.wo")
+            ref = qmm.w4a8_gemv_plain(x, wg, sz, gs)
+            torch.cuda.synchronize()
+            old, new = turns(lambda i: earlier(x, wg, sz, gs),
+                             lambda i: qmm.w4a8_gemm(x, wg, sz, gs, counter="w4a8_gemm.wo"), 5)
+            nops = 2 * L * IN * OUT
+            nbytes = IN * OUT // 2 + OUT * ng * 4 + 2 * L * IN + 4 * L * OUT
+            rows.append(dict(
+                kernel=name, L=L, IN=IN, OUT=OUT, gs=gs, earlier_ms=old, ms=new,
+                quant_ms=chip_smoke.time_ms(lambda i: qmm.w4a8_gemm_quantize(x, gs), 5, 1),
+                bound_ms=chip_smoke.bound(nbytes, nops, "int8")[0], tops=nops / new / 1e9,
+                earlier_tops=nops / old / 1e9,
+                max_abs_diff_vs_earlier=chip_smoke.max_err(y_old, y_new),
+                max_abs_err_vs_plain=chip_smoke.max_err(y_new, ref),
+                tol=1e-4 * float(ref.abs().max()) + 1e-6))
+            del wg, sz, x, y_old, y_new, ref
+
+
+#: K9's shapes (IN, OUT): the int8 head and the four fused layer projections.
+W8A8_CASES = [("w8a8_gemv.head", 4096, 128256), ("w8a8_gemv.wqkv", 4096, 6144),
+              ("w8a8_gemv.wo", 4096, 4096), ("w8a8_gemv.w13", 4096, 28672),
+              ("w8a8_gemv.w2", 14336, 4096)]
+
+
+def w8a8_ab(dev, earlier, rows):
+    """K9 at one row and five, earlier and current in turns, back to back
+    and after an RMS norm's small kernels (their time subtracted), and the
+    current kernel at every column tile."""
+    small = chip_smoke.small_kernels
+    small_ms = chip_smoke.time_ms(small, 100)
+    for name, IN, OUT in W8A8_CASES:
+        gen = torch.Generator(device=dev).manual_seed(IN + OUT)
+        n = chip_smoke.copies_for(IN * OUT)
+        layers = []
+        for _ in range(n):
+            w = torch.randint(-127, 128, (IN, OUT), dtype=torch.int8, device=dev, generator=gen)
+            layers.append(qmm.int8_to_gemv(w, torch.rand((OUT,), device=dev, generator=gen) * 1e-4
+                                           + 1e-4))
+            del w
+        for L in (1, 5):
+            x = torch.randn((L, IN), device=dev, generator=gen).to(torch.bfloat16)
+            same = torch.equal(earlier(x, *layers[0]),
+                               qmm.w8a8_gemv(x, *layers[0], counter="w8a8_gemv.wo"))
+            old, new = turns(lambda i: earlier(x, *layers[i % n]),
+                             lambda i: qmm.w8a8_gemv(x, *layers[i % n], counter="w8a8_gemv.wo"),
+                             50, 2)
+            old_s, new_s = turns(
+                lambda i: (earlier(x, *layers[i % n]), small(i)),
+                lambda i: (qmm.w8a8_gemv(x, *layers[i % n], counter="w8a8_gemv.wo"), small(i)),
+                50, 2)
+            nbytes = IN * OUT + 4 * OUT + 2 * L * IN + 4 * L * OUT
+            rows.append(dict(
+                kernel=name, L=L, IN=IN, OUT=OUT, earlier_ms=old, ms=new,
+                earlier_after_small_ms=old_s - small_ms, after_small_ms=new_s - small_ms,
+                bound_ms=chip_smoke.bound(nbytes, 2 * L * IN * OUT, "int8")[0],
+                cols=qmm.w8a8_partition(L, OUT, qmm.sm_count(dev)),
+                bit_equal_to_earlier=same,
+                cols_ms={c: chip_smoke.time_ms(lambda i: qmm.w8a8_gemv(
+                    x, *layers[i % n], counter="w8a8_gemv.wo", cols=c), 50, 2)
+                    for c in qmm.GEMV_COLS}))
+        del layers
+
+
+class Rows(list):
+    """The result rows, each printed as a JSON line as it comes (a run that
+    fails later keeps what it measured)."""
+
+    def append(self, row):
+        super().append(row)
+        print(json.dumps(row), flush=True)
 
 
 def turns(fa, fb, iters, warmup=1):
@@ -368,19 +503,23 @@ def main() -> int:
     card = card_line()
     libs = build_earlier(args.earlier.resolve(), [SOURCES[g] for g in groups])
     _build.build_all()
-    rows = [dict(kernel="launch_floor", ms=chip_smoke.launch_floor_ms())]
+    rows = Rows()
+    rows.append(dict(kernel="launch_floor", ms=chip_smoke.launch_floor_ms()))
     if "gemv" in groups:
-        gemv_ab(dev, earlier_gemv(libs["w4a8_gemv"]), rows)
+        with_cols = "int cols, void* stream" in (args.earlier / "w4a8_gemv.cu").read_text()
+        gemv_ab(dev, earlier_gemv(libs["w4a8_gemv"], with_cols), rows)
     if "evict" in groups:
         evict_ab(dev, earlier_evict(libs["hh_evict"]), rows)
     if "decode" in groups:
         decode_ab(dev, earlier_decode(libs["decode_attn"]), rows)
+    if "gemm" in groups:
+        gemm_ab(dev, earlier_gemm(libs["w4a8_gemm"]), rows)
+    if "w8a8" in groups:
+        w8a8_ab(dev, earlier_w8a8(libs["w8a8_gemv"]), rows)
     if "prefill" in groups:
         torch.cuda.empty_cache()
         summary, profile = earlier_prefill(libs["flash_prefill"])
         prefill_ab(dev, summary, profile, rows)
-    for r in rows:
-        print(json.dumps(r), flush=True)
     out = ROOT / "chiprun_out"
     os.makedirs(out, exist_ok=True)
     (out / "kernel_ab.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))

@@ -366,23 +366,29 @@ def test_heavy_hitter_one_slot_history_evicts_through_kernel(dev, thresholding):
     assert torch.equal(g.extra["attn_denom"].cpu(), c.extra["attn_denom"])
 
 
-@pytest.mark.parametrize("L", [1, 7, 32])
-@pytest.mark.parametrize("IN,OUT", [(4096, 1000), (256, 512), (1040, 333)])
-def test_w8a8_gemv_matches_plain_bit_for_bit(dev, L, IN, OUT):
+@pytest.mark.parametrize("cols", [None, *qmm.GEMV_COLS])
+@pytest.mark.parametrize("L", [1, 4, 5, 7, 32])
+@pytest.mark.parametrize("IN,OUT", [(4096, 1000), (256, 512), (1040, 333), (14336, 1000)])
+def test_w8a8_gemv_matches_plain_bit_for_bit(dev, L, IN, OUT, cols):
     """Exact int32 dots on both sides and the same f32 epilogue order: the
-    outputs are the same bits. Ragged OUT is masked."""
+    outputs are the same bits. Ragged OUT is masked; IN not a multiple of
+    the kernel's 2048-input piece (1040, 14336) ends in a partial piece;
+    every column tile (``cols``, or the partition's choice), at one row,
+    one row block, and several (with a partial last one)."""
     g = _gen(dev, L + IN + OUT)
     w = torch.randint(-127, 128, (IN, OUT), dtype=torch.int8, device=dev, generator=g)
     s = torch.rand((OUT,), device=dev, generator=g) * 1e-3
     wt, st = qmm.int8_to_gemv(w, s)
     x = torch.randn((L, IN), device=dev, generator=g).to(torch.bfloat16)
     before = qmm.LAUNCHES["w8a8_gemv.head"]
-    y = qmm.w8a8_gemv(x, wt, st, counter="w8a8_gemv.head")
+    y = qmm.w8a8_gemv(x, wt, st, counter="w8a8_gemv.head", cols=cols)
     assert qmm.LAUNCHES["w8a8_gemv.head"] == before + 1
     ref = qmm.w8a8_gemv_plain(x, wt, st)
     assert torch.equal(y, ref), float((y - ref).abs().max())
     with pytest.raises(ValueError):
         qmm.w8a8_gemv(x.float(), wt, st, counter="w8a8_gemv.head")
+    with pytest.raises(ValueError):  # a tile width the kernel has no instance of
+        qmm.w8a8_gemv(x, wt, st, counter="w8a8_gemv.head", cols=48)
 
 
 @pytest.mark.parametrize("P,plen,G", [(256, 200, 4), (512, 512, 2), (1024, 77, 8)])
@@ -538,12 +544,17 @@ def test_flash_profile_matches_plain(dev, P, plen, G, windows):
         prefill_attn.flash_profile(q, k, v, plen, window_lens=(1, 2, 3, 4, 5))
 
 
-@pytest.mark.parametrize("L", [33, 256, 1000])
+@pytest.mark.parametrize("L", [33, 256, 1000, 7928])
 @pytest.mark.parametrize("IN,OUT,gs", [(512, 1000, 128), (1024, 384, 64), (14336, 256, 128),
-                                       (256, 200, 32), (512, 136, 256)])
+                                       (256, 200, 32), (512, 136, 256), (2048, 1000, 128)])
 def test_w4a8_gemm_matches_plain(dev, L, IN, OUT, gs):
-    """K8 against K1's plain version: ragged rows and columns, every group
-    size it takes. Exact integer group dots: only f32 order differs."""
+    """K8 against K1's plain version: ragged rows (the main path's 7928-token
+    prompt among them) and columns (OUT not a multiple of the 128-column
+    tile), every group size it takes and so every instance (a flush every
+    32 or 64 inputs, every 128 with the zero term on the CUDA cores (IN =
+    512) or on the tensor cores (IN = 2048, 14336: blocks of eight groups),
+    every 256). Exact integer group dots: only f32 order differs. Two
+    launches give the same bits."""
     g = _gen(dev, 7 * L + IN + gs)
     wg = torch.randint(0, 256, (OUT, IN // 2), dtype=torch.uint8, device=dev, generator=g)
     s = torch.rand((OUT, IN // gs), device=dev, generator=g) * 3e-3 + 1e-3
@@ -556,6 +567,7 @@ def test_w4a8_gemm_matches_plain(dev, L, IN, OUT, gs):
     assert qmm.LAUNCHES["w4a8_gemm.w2"] == before + 1
     ref = qmm.w4a8_gemv_plain(x, wg, sz, gs)
     torch.testing.assert_close(y, ref, rtol=0, atol=1e-4 * float(ref.abs().max()) + 1e-6)
+    assert torch.equal(y, qmm.w4a8_gemm(x, wg, sz, gs, counter="w4a8_gemm.w2"))
     with pytest.raises(ValueError):  # a group size it does not take
         qmm.w4a8_gemm(x, wg[:, : IN // 2], sz, 48, counter="w4a8_gemm.w2")
 

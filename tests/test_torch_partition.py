@@ -1,7 +1,8 @@
 """How the kernels' wrappers cut their work: decode attention's cluster of
 CTAs over the cache slots (K3/K5), the prefill pass 2's work items of one
-128-key block against one segment of query rows (K4/K6), and the W4A8 decode
-matmul's column tiles (K1/K2/K10). Pure Python, so it runs
+128-key block against one segment of query rows (K4/K6), the W4A8 and W8A8
+decode matmuls' column tiles (K1/K2/K10, K9), and the W4A8 prefill matmul's
+persistent tile schedule (K8). Pure Python, so it runs
 here; the kernels compute their ranges with the same formulas."""
 
 import math
@@ -125,3 +126,85 @@ def test_gemv_partition_takes_the_widest_of_equals():
     tiles, each CTA's activations serve more columns)."""
     assert qmm.gemv_partition(1, 132 * 64, H100_SMS) == 64
     assert qmm.gemv_partition(1, 132 * 32, H100_SMS) == 32
+
+
+#: K8's shapes at prefill: the four 8B projections at the main path's prompt
+#: (7928 rows) and at 8192, and ragged sizes of the on-card tests.
+GEMM_SHAPES = [(7928, 6144), (7928, 4096), (7928, 28672), (8192, 6144), (8192, 28672),
+               (1000, 1000), (33, 136), (256, 200), (129, 4096), (7928, 128256)]
+
+
+@pytest.mark.parametrize("L,OUT", GEMM_SHAPES)
+def test_gemm_schedule_covers_every_tile_once(L, OUT):
+    """K8's persistent schedule visits every (weight-column, row) tile
+    exactly once, over CTAs that each take tiles t, t + CTAs, ..."""
+    ctas, group = qmm.gemm_schedule(L, OUT, H100_SMS)
+    n_out, n_rows = -(-OUT // qmm.GEMM_TILE_OUT), -(-L // qmm.GEMM_TILE_ROWS)
+    tiles = n_out * n_rows
+    seen = [qmm.gemm_tile(t, L, OUT, group) for b in range(ctas) for t in range(b, tiles, ctas)]
+    assert sorted(seen) == [(o, r) for o in range(n_out) for r in range(n_rows)]
+
+
+@pytest.mark.parametrize("L,OUT", GEMM_SHAPES)
+def test_gemm_schedule_keeps_every_sm_busy(L, OUT):
+    """One CTA per SM where the tiles allow, none idle: every CTA gets a
+    tile, and their counts differ by at most one."""
+    ctas, group = qmm.gemm_schedule(L, OUT, H100_SMS)
+    tiles = -(-OUT // qmm.GEMM_TILE_OUT) * -(-L // qmm.GEMM_TILE_ROWS)
+    assert ctas == min(tiles, H100_SMS)
+    counts = [len(range(b, tiles, ctas)) for b in range(ctas)]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    assert 1 <= group <= -(-OUT // qmm.GEMM_TILE_OUT)
+
+
+@pytest.mark.parametrize("L,OUT", [(8192, 6144), (7928, 28672), (8192, 4096)])
+def test_gemm_schedule_keeps_tiles_in_flight_compact(L, OUT):
+    """The tiles the card runs at once (the first CTAs' worth of the order)
+    span ``group`` weight-column tiles and few row tiles, so their weights
+    and activations stay in L2: at most 16 column tiles by 9 row tiles on
+    132 SMs, where row-major order would span all column tiles."""
+    ctas, group = qmm.gemm_schedule(L, OUT, H100_SMS)
+    assert group == 16
+    first = [qmm.gemm_tile(t, L, OUT, group) for t in range(ctas)]
+    assert len({o for o, _ in first}) <= group
+    assert len({r for _, r in first}) <= -(-ctas // group)
+
+
+#: K9's output widths: the int8 head, the four fused layer projections of an
+#: int8 checkpoint, K10's narrow wk/wv width and a ragged OUT.
+W8A8_OUTS = [128256, 6144, 4096, 28672, 1024, 1000]
+
+
+@pytest.mark.parametrize("L", [1, 4, 5, 8, 9, 32])
+@pytest.mark.parametrize("OUT", W8A8_OUTS)
+def test_w8a8_partition_covers_every_column_once_and_fills_the_card(OUT, L):
+    """K9's tiles of the chosen width hold every output column exactly once,
+    and occupy at least 70% of the SMs wherever the narrowest tiles could;
+    no wider width would also do so (the widest that does is taken)."""
+    cols = qmm.w8a8_partition(L, OUT, H100_SMS)
+    assert cols in qmm.GEMV_COLS
+    tiles = [(t * cols, min(OUT, t * cols + cols)) for t in range(-(-OUT // cols))]
+    assert [c for b, e in tiles for c in range(b, e)] == list(range(OUT))
+    row_blocks = -(-L // qmm.W8A8_ROWS)
+
+    def fills(c):
+        return -(-OUT // c) * row_blocks >= qmm.W8A8_MIN_FILL * H100_SMS
+
+    if not fills(qmm.GEMV_COLS[-1]):
+        assert cols == qmm.GEMV_COLS[-1]
+        return
+    assert fills(cols)
+    assert not any(fills(c) for c in qmm.GEMV_COLS if c > cols)
+
+
+@pytest.mark.parametrize("OUT,L,want", [
+    (128256, 1, 64),  # the int8 head: 2004 tiles
+    (6144, 1, 64),    # wqkv: 96 tiles, 73% of the SMs (fastest on the card)
+    (4096, 1, 32),    # wo, w2: 128 tiles (64 columns would leave half the card idle)
+    (28672, 1, 64),   # w13
+    (4096, 5, 32),    # five rows: one row block of up to 8
+    (4096, 9, 64),    # two row blocks: 128 tiles of 64 columns
+    (1000, 1, 16),    # narrow: 63 tiles even at 16 columns
+])
+def test_w8a8_partition_of_the_paths(OUT, L, want):
+    assert qmm.w8a8_partition(L, OUT, H100_SMS) == want
