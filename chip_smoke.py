@@ -26,19 +26,25 @@ Phases; any failure raises and the script exits non-zero:
    with each pass timed alone, K7 also at rows off a 16-byte boundary,
    each K1 shape's column tile, and the launch floor (one
    one-element ``add_``) beside K1/K2/K10 and K7;
-3. small in-situ parity: the port on the card against the port on the CPU
-   (plain versions), TestKernel with int4 weights, teacher-forced, over
+3. small in-situ parity: the port on the card (decoding through the
+   captured CUDA graph of one step) against the port on the CPU (plain
+   versions), TestKernel with int4 weights, teacher-forced, over
    several cache strategies and precisions (heavy_hitter at kv8, bf16, kv4
    and kv2; random kv2; keep_it_odd kv4; recent_global kv8; hybrid kv8 with
    bench.py's menu, one layer's attention sharpened so that the heads pick
    different policies; debug_heavy_hitter with a kv8 shadow), each with an
-   exact launch witness;
-4. end to end through ``generate()``, each run with an exact launch witness
-   (every count set to 0 just before it and read just after):
+   exact launch witness; the trained TinyByteLM128 fixture's teacher-forced
+   NLL in three configurations (int4, kv8 heavy_hitter, hybrid), card
+   against CPU;
+4. end to end through ``generate()``, decoding through the graph (a warm-up
+   run captures it, its seconds and pool bytes printed; the measured run
+   replays it), each run with an exact launch witness (every count set to
+   0 just before it and read just after):
    - the main path, Llama-3-8B (32 layers, random int4 weights and head
      from seed 0), kv8 heavy_hitter cache at 25% of an 8192 context with
      the heavy_hitter prompt compressor, a 7928-token prompt, 128 greedy
-     tokens;
+     tokens; then 16 steps from one prefilled state through the graph and
+     eagerly, bit-equal in tokens, probabilities and caches;
    - hybrid at bench.py's defaults (its FastGen menu and token classes,
      kv8, C = 8192), the same model and prompt, 64 tokens;
    - the main path's prefill with ``prefill_w4a8`` (K8): its logits against
@@ -48,9 +54,10 @@ Phases; any failure raises and the script exits non-zero:
    - full with a bf16 cache at a 32768 context on Meta-Llama-3.1-8B-Instruct
      (the same widths and weights, its own rope table), a 32504-token
      prompt, 64 tokens;
-   with ``--profile``, after each run, the wall and device time of a few
-   more decode steps, and ``generate()``'s decode time per step without and
-   with the per-step read of the stop flags (a terminator never emitted).
+   with ``--profile``, after each run, the wall and device time and the
+   device operations of a few more decode steps, eager and replayed, and
+   ``generate()``'s decode time per step without and with the per-step
+   read of the stop flags (a terminator never emitted).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing every kernel, and the result line.
@@ -1073,6 +1080,104 @@ def in_situ_cli(dev, runs: list):
     assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol, run_name
 
 
+#: The trained-weight check: ``tests/fixtures/TinyByteLM128-hf`` (a trained
+#: byte-level Llama, head_dim 128, G = 2: every kernel gate passes), the
+#: criterion of ``tests/test_quality_gates.py`` (the first 400 bytes of
+#: ``BENCHMARK.md``, a 256-byte prompt, 96 teacher-forced bytes, mean NLL
+#: over the forced bytes), in three configurations: int4 weights
+#: (``quantize_params``, group size 128, int4 head) over a full bf16
+#: cache, and the trained bf16 weights over a kv8 ``heavy_hitter`` cache at
+#: a quarter of 512 slots and over a kv8 ``hybrid`` cache (bench.py's
+#: FastGen menu, punctuation bytes as its punctuation class).
+#: ``tests/test_torch_trained.py`` holds the CPU run against the JAX package.
+TRAINED_CKPT = "tests/fixtures/TinyByteLM128-hf/model.npz"
+TRAINED_MAX_SEQ = 512
+TRAINED_CONFIGS = {  # name: (layer and head weights, cache options)
+    "int4": ("int4", {"cache_strategy": ["full"], "max_cache_length": [1.0],
+                      "prompt_compression_strategy": ["full"], "cache_bits": None}),
+    "kv8_heavy_hitter": ("bf16", {
+        "cache_strategy": ["heavy_hitter"], "max_cache_length": [0.25],
+        "prompt_compression_strategy": ["heavy_hitter"], "global_tokens": 4,
+        "recent_window": 10, "cache_bits": 8}),
+    "hybrid": ("bf16", {
+        "cache_strategy": ["hybrid"], "max_cache_length": [1.0],
+        "prompt_compression_strategy": ["full"], "global_tokens": 4, "recent_window": 10,
+        "cache_bits": 8,  # and bench.py's menu (trained_kw)
+        "token_ids": {"special": [[256], [257]],
+                      "punctuation": [ord(c) for c in ".,;:!?()`|-\n"]}}),
+}
+#: |card NLL - CPU NLL| (nats per byte): kernels against their plain
+#: versions, which differ in f32 summation order only.
+TRAINED_CARD_TOL = 5e-3
+
+
+def repo_path(rel: str) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def trained_tokens():
+    """(prompt, forced) byte tokens of the trained-weight check."""
+    with open(repo_path("BENCHMARK.md"), encoding="utf-8") as f:
+        tokens = list(f.read()[:400].encode("utf-8"))
+    return tokens[:256], tokens[256:352]
+
+
+def trained_kw(name: str) -> dict:
+    from cold_compress_tpu_torch.bench import HYBRID_MENU
+
+    kw = dict(TRAINED_CONFIGS[name][1])
+    if kw["cache_strategy"] == ["hybrid"]:
+        kw["hybrid_strategies"] = HYBRID_MENU
+    return kw
+
+
+def trained_nll(name: str, device: str, cuda_graph=None):
+    """The port's teacher-forced mean NLL on the trained fixture in
+    configuration ``name``: (NLL, decode steps)."""
+    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_params
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, load_model
+    from cold_compress_tpu_torch.runtime.generate import generate
+
+    prompt, forced = trained_tokens()
+    cfg, params = load_model(repo_path(TRAINED_CKPT), model_name="TinyByteLM128", device=device)
+    if TRAINED_CONFIGS[name][0] == "int4":
+        params = quantize_params(params, "int4", 128, output_mode="int4")
+    model = build_model(cfg, params, device, max_positions=TRAINED_MAX_SEQ)
+    caches = init_caches(cfg, build_cache_specs(cfg, trained_kw(name), TRAINED_MAX_SEQ), 1,
+                         torch.bfloat16, device=device)
+    seq, info, _ = generate(model, caches, prompt, len(forced), prefill_bucket=TRAINED_MAX_SEQ,
+                            next_tokens=forced, cuda_graph=cuda_graph)
+    assert seq == prompt + forced
+    probs = np.asarray(info["emitted_probs"], np.float64)
+    return float(np.mean(-np.log(np.maximum(probs, 1e-20)))), info["perf_stats"]["decode_steps"]
+
+
+def trained_parity(dev, runs: list):
+    """The trained-weight check on the card, decoding through the graph,
+    against the CPU: each configuration's NLL within ``TRAINED_CARD_TOL``,
+    with its exact launch witness."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    cfg = ModelConfig.from_name("TinyByteLM128")
+    for name, (weights, _) in TRAINED_CONFIGS.items():
+        reset_kernel_launches()
+        card, steps = trained_nll(name, dev, cuda_graph=True)
+        launches = kernel_launches()
+        cpu, _ = trained_nll(name, "cpu")
+        run_name = f"trained TinyByteLM128 {name}"
+        log(f"[parity] {run_name}: teacher-forced mean NLL card (graph) {card:.6f}, cpu "
+            f"{cpu:.6f} nats/byte, gap {abs(card - cpu):.2e} (tol {TRAINED_CARD_TOL})")
+        assert card < 3.0 and abs(card - cpu) <= TRAINED_CARD_TOL, run_name
+        layer_kernel, head_kernel = WEIGHT_KERNELS[weights]
+        witness(run_name, TRAINED_MAX_SEQ, launches,
+                expected_launches(cfg, trained_kw(name), steps, head_kernel,
+                                  layers=layer_kernel), runs)
+
+
 def check_hybrid_policies(run_name, on_card, on_cpu, min_recovery: float):
     """The policy of every head, on the card against the CPU: equal, but
     for heads whose recovery score lies within 1e-3 of the threshold (their
@@ -1089,57 +1194,86 @@ def check_hybrid_policies(run_name, on_card, on_cpu, min_recovery: float):
     assert bool(((sidx_g == sidx_c) | near).all()), f"{run_name}: policies differ"
 
 
-def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: str,
-                   run_name: str):
-    """Where a decode step's time goes: wall time per step without the
-    profiler, and device time per step by kernel from ``torch.profiler``."""
+def device_profile(fn, steps: int):
+    """(device busy ms per step, device operations per step, the rows by
+    time) of ``fn()`` run once over ``steps`` steps, from ``torch.profiler``'s
+    device-side events (kernels, copies, fills; the host-side aten rows
+    carry the same device time again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    return busy_ms, sum(e.count for e in rows) / steps, rows
+
+
+def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: str,
+                   run_name: str):
+    """Where a decode step's time goes, eager and replayed: wall time per
+    step without the profiler, and device time per step by kernel from
+    ``torch.profiler``, for ``decode_step`` run eagerly and for the model's
+    captured decode graph replayed (its own positions and tokens)."""
     from cold_compress_tpu_torch.models.transformer import decode_step
+    from cold_compress_tpu_torch.runtime.cuda_graph import model_decode_graph
 
     def run(tok, pos):
         for i in range(steps):
             tok = decode_step(model, caches, tok, pos + i).argmax(-1)
         return tok
 
+    graph = model_decode_graph(model)
+    assert graph is not None and graph.captured, f"{run_name}: no decode graph to replay"
+
+    def replay():
+        with graph.on_stream():
+            for _ in range(steps):
+                graph.replay()
+
     tok = torch.tensor([token], device="cuda")
     with torch.inference_mode():
         tok = run(tok, start_pos)  # warm
+        replay()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tok = run(tok, start_pos + steps)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(tok, start_pos + 2 * steps)
-            torch.cuda.synchronize()
-    # Device-side events only (kernels, copies, fills): the host-side aten
-    # rows carry the same device time again.
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-    n_kernels = sum(e.count for e in rows) / steps
-    log(f"[profile] {run_name}: decode step wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), {n_kernels:.0f} device launches "
-        f"per step  [{card}]")
-    for e in rows[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
-            f"{e.count / steps:6.1f}/step  {e.key[:90]}")
+        t1 = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        wall = {"eager": (t1 - t0) * 1e3 / steps,
+                "graph": (time.perf_counter() - t1) * 1e3 / steps}
+        prof = {"eager": device_profile(lambda: run(tok, start_pos + 2 * steps), steps),
+                "graph": device_profile(replay, steps)}
+    for kind in ("eager", "graph"):
+        busy_ms, n_ops, rows = prof[kind]
+        log(f"[profile] {run_name}, {kind} step: wall {wall[kind]:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall[kind]):.1f}%), {n_ops:.0f} "
+            f"device operations per step  [{card}]")
+        for e in rows[:12]:
+            log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
+                f"{e.count / steps:6.1f}/step  {e.key[:90]}")
 
 
 def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head_counter,
-            profile=False, layers="w4a8_gemv"):
-    """One ``generate()`` run at full width after a short warm-up, with its
-    launch witness and output checks; with ``profile``, then a profile of a
-    few more decode steps."""
+            profile=False, layers="w4a8_gemv", eager_check=False):
+    """One ``generate()`` run at full width, decoding through the captured
+    graph, after a short warm-up that captures it, with its launch witness
+    and output checks; with ``eager_check``, then the graph against eager
+    steps from one state; with ``profile``, then a profile of a few more
+    decode steps, eager and replayed."""
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
 
     caches = make_caches(cfg, kw, context, dev)
     prompt_len = context - 256 - 8  # bench.py's prompt length
     prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
-    generate(model, caches, prompt, 8)  # warm-up: cuBLAS, allocator
+    # Warm-up: cuBLAS, the allocator, and the capture of the decode graph.
+    _, warm, _ = generate(model, caches, prompt, 8)
+    log_capture(run_name, warm, card)
     reset_caches(caches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1149,11 +1283,12 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
     perf = info["perf_stats"]
     steps = perf["decode_steps"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert not info["decode_graph"]["captured"], f"{run_name}: the timed run captured again"
     log(f"[e2e] {run_name}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
     log(f"[e2e] {run_name}: C={caches[0].spec.max_cache_length}, prefill "
         f"{perf['prefill_seconds']:.4f} s for {prompt_len} tokens "
         f"({perf['prefill_toks_per_sec']:.1f} tok/s); decode {perf['decode_toks_per_sec']:.3f} "
-        f"tok/s over {steps} steps; peak memory {peak_gb:.3f} GB  [{card}]")
+        f"tok/s over {steps} steps (graph replays); peak memory {peak_gb:.3f} GB  [{card}]")
 
     hybrid = kw["cache_strategy"][0] == "hybrid"
     check_outputs(run_name, cfg, seq, info, caches, prompt_len, new_tokens, hybrid)
@@ -1171,9 +1306,53 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
               f"max {int(kept.max())} of C={spec.max_cache_length}")
     witness(run_name, caches[0].spec.max_cache_length, launches,
             expected_launches(cfg, kw, steps, head_counter, layers=layers), runs)
+    if eager_check:
+        graph_matches_eager(run_name, model, caches, prompt, dev)
     if profile:
         profile_decode(model, caches, seq[-1], len(seq), 8, card, run_name)
         stop_read_cost(model, caches, prompt, cfg.vocab_size, card, run_name)
+
+
+def log_capture(run_name, info, card):
+    """Print the decode graph that a ``generate()`` call captured (its info)."""
+    graph = info["decode_graph"]
+    assert graph is not None and graph["captured"], f"{run_name}: no decode graph captured"
+    log(f"[e2e] {run_name}: decode graph captured in {graph['capture_seconds']:.3f} s, pool "
+        f"{graph['pool_bytes']} bytes, {sum(graph['launches_per_replay'].values())} kernel "
+        f"launches per replay  [{card}]")
+
+
+def graph_matches_eager(run_name, model, caches, prompt, dev, steps: int = 16):
+    """From one prefilled state, ``steps`` greedy steps through the decode
+    graph and the same steps eagerly (``decode_loop_core``): the same
+    tokens, probabilities, last distribution, every cache tensor and kernel
+    launches, bit for bit."""
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import decode_loop_core, generate, reset_caches
+
+    reset_caches(caches)
+    seq, _, caches = generate(model, caches, prompt, 1)  # prefill and the first token only
+    tensors = [t for c in caches for t in c.tensors()]
+    start = [t.clone() for t in tensors]
+    first = torch.tensor([seq[-1]], device=dev)
+    out = {}
+    for graph in (True, False):
+        for t, t0 in zip(tensors, start):
+            t.copy_(t0)
+        reset_kernel_launches()
+        tokens, probs, last, n, record = decode_loop_core(model, caches, first, len(prompt), [],
+                                                          [], steps, cuda_graph=graph)
+        out[graph] = ([tokens.cpu(), probs.cpu(), last.cpu()], [t.cpu() for t in tensors],
+                      kernel_launches(), n, record)
+    (g_out, g_cache, g_launch, g_n, record), (e_out, e_cache, e_launch, e_n, _) = (
+        out[True], out[False])
+    same_out = all(torch.equal(a, b) for a, b in zip(g_out, e_out))
+    same_cache = all(torch.equal(a, b) for a, b in zip(g_cache, e_cache))
+    log(f"[e2e] {run_name}: {steps} steps from one prefilled state, graph (capture in this "
+        f"call: {record['captured']}) against eager: tokens, probabilities bit-equal "
+        f"{same_out}; all {len(tensors)} cache tensors bit-equal {same_cache}; launches equal "
+        f"{g_launch == e_launch}; tokens {g_out[0][:, 0].tolist()}")
+    assert same_out and same_cache and g_launch == e_launch and g_n == e_n == steps, run_name
 
 
 def stop_read_cost(model, caches, prompt, never: int, card: str, run_name: str, tokens=16):
@@ -1234,6 +1413,7 @@ def prefill_w4a8_run(cfg, model, dev, card, runs):
         f"same argmax {same_top}; prefill {info['perf_stats']['prefill_seconds']:.4f} s, "
         f"run {time.perf_counter() - t0:.2f} s  [{card}]")
     log(f"[e2e] {run_name}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    log_capture(run_name, info, card)
     assert bool(torch.isfinite(got).all()) and cos >= 0.99, run_name
     assert len(seq) == prompt_len + 8 and steps == 7, run_name
     witness(run_name, caches[0].spec.max_cache_length, launches,
@@ -1273,8 +1453,7 @@ def scratch_dir(need_bytes: int) -> str:
     import shutil
     import tempfile
 
-    for base in (tempfile.gettempdir(), os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                                     "build")):
+    for base in (tempfile.gettempdir(), repo_path("build")):
         os.makedirs(base, exist_ok=True)
         free = shutil.disk_usage(base).free
         log(f"[e2e] {base}: {free / 1e9:.1f} GB free, {need_bytes / 1e9:.1f} GB needed")
@@ -1344,6 +1523,7 @@ def cli_full_run(dev, card, runs):
         f"tok/s); decode {perf['decode_toks_per_sec']:.3f} tok/s over {perf['decode_steps']} "
         f"steps; peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB  [{card}]")
     log(f"[e2e] {CLI_RUN}: generation {info['generation'][:80]!r}")
+    log_capture(CLI_RUN, info, card)
     assert P == 8064, f"{CLI_RUN}: prompt of {P} tokens, want 8192 - 128"
     assert len(set(lengths)) > 1 and any(n % 128 for n in lengths), lengths
     check_outputs(CLI_RUN, cfg, seq, info, caches, P, 128)
@@ -1384,7 +1564,7 @@ def end_to_end(dev, card, runs, profile=False):
 
     # The main path: bench.py's default configuration.
     e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model, cache_kw("heavy_hitter", 8),
-            8192, 128, dev, card, runs, "w4a8_gemv.head", profile)
+            8192, 128, dev, card, runs, "w4a8_gemv.head", profile, eager_check=True)
 
     # FastGen hybrid at bench.py's defaults (its menu and token classes).
     e2e_run("hybrid kv8 (bench's FastGen menu)", cfg, model, cache_kw("hybrid", 8), 8192, 64,
@@ -1474,6 +1654,7 @@ def main() -> int:
     in_situ = []
     in_situ_parity(dev, in_situ)
     in_situ_cli(dev, in_situ)
+    trained_parity(dev, in_situ)
     quantize_on_card_matches_cpu(dev)
     log(f"[phase3] done at {time.perf_counter() - t_start:.1f} s")
     end_to_end(dev, card, runs, profile=args.profile)

@@ -20,7 +20,9 @@ default there too; int4 layers only), and ``--weight_bits 8/16``: int8
 layers (``random_quantized_params(mode="int8")``, whose head is int8 at
 either ``--head_bits``, as in the JAX package) through the W8A8 kernel, or
 dense bf16 layers and head (``init_params``, seed 0) through
-``torch.matmul``. ``--batch`` above 1 is not ported yet and raises.
+``torch.matmul``. ``--batch`` above 1 is not ported yet and raises. Decode
+replays a captured CUDA graph of one step on the card (the warm-up run
+captures it, the measured run replays it).
 """
 
 from __future__ import annotations
@@ -150,7 +152,8 @@ def run(args: argparse.Namespace) -> dict:
     prompt_len = args.context - args.decode_tokens - 8
     prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
     bucket = bucket_length(prompt_len)
-    generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)  # warm-up
+    # The warm-up run builds the kernels and, on the card, captures the decode graph.
+    generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)
     reset_caches(caches)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()

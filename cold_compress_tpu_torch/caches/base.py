@@ -292,12 +292,13 @@ def store_kv_prefix(state: CacheState, k: torch.Tensor, v: torch.Tensor) -> Cach
 
 
 def input_pos_b11(input_pos, B: int, device) -> torch.Tensor:
-    """A decode position (int or [B]) as a [B, 1, 1] int32 tensor. An int
-    is written by a fill on the device: a host-to-device copy would
-    synchronise the host with the card at every layer of every step."""
-    if isinstance(input_pos, int):
-        return torch.full((B, 1, 1), input_pos, dtype=torch.int32, device=device)
-    p = torch.as_tensor(input_pos, dtype=torch.int32, device=device).reshape(-1)
+    """A decode position (a 0-d or [B] tensor on the device, or an int) as
+    a [B, 1, 1] int32 tensor. ``decode_step`` passes a device tensor, which
+    a captured step reads at every replay; an int is written by a fill, for
+    callers outside the decode loop."""
+    if not isinstance(input_pos, torch.Tensor):
+        return torch.full((B, 1, 1), int(input_pos), dtype=torch.int32, device=device)
+    p = input_pos.to(device=device, dtype=torch.int32).reshape(-1)
     return p.expand(B)[:, None, None]
 
 

@@ -443,24 +443,25 @@ size_t static_smem() {
 }
 
 // CTAs of this variant that one SM holds at `dyn` bytes of dynamic shared
-// memory, cached per size (a decode step alternates a few sizes).
+// memory, cached per size (a decode step alternates a few sizes). The cache
+// replaces its oldest entry, so the sizes that a decode loop's eager first
+// step queried are still there when the step is captured right after (a
+// CUDA graph): the capture queries nothing.
 template <int CPW, int ROWS>
 int per_sm(size_t dyn) {
-  constexpr int kCache = 8;
+  constexpr int kCache = 32;
   static size_t keys[kCache] = {};
   static int vals[kCache] = {};
+  static int next = 0;
   for (int i = 0; i < kCache; ++i)
     if (vals[i] > 0 && keys[i] == dyn) return vals[i];
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, w4a8_gemv_kernel<CPW, ROWS>, kThreads, dyn) !=
       cudaSuccess)
     return 0;
-  for (int i = 0; i < kCache; ++i)
-    if (vals[i] == 0 || i == kCache - 1) {
-      keys[i] = dyn;
-      vals[i] = n;
-      break;
-    }
+  keys[next] = dyn;
+  vals[next] = n;
+  next = (next + 1) % kCache;
   return n;
 }
 

@@ -18,6 +18,7 @@ cold_compress_tpu_torch.quantize`` writes one); its parent directory names
 the architecture, and a path containing ``byte`` selects the byte-level
 tokenizer, which needs no tokenizer file. ``--random_weights <model>`` runs
 ``init_params`` weights (seed 0, bf16) with the byte tokenizer.
+On the card, decode replays a captured CUDA graph of one step.
 ``--profile PATH`` writes a ``torch.profiler`` trace of the run;
 ``--compile`` is accepted and does nothing. ``run(args)`` returns
 ``(sequence, info, caches)`` for programs that drive the CLI.

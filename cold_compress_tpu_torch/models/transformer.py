@@ -301,16 +301,18 @@ def prefill(model: Transformer, caches: Sequence[CacheState], tokens: torch.Tens
 
 def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.Tensor,
                 input_pos, attn_top_k: float = 1.0):
-    """One decode step for token [B] at position ``input_pos`` (an int, or a
-    0-d/[B] tensor). Returns logits [B, vocab] f32; caches update in place.
-    ``attn_top_k < 1`` keeps only that share of the top-scored cache slots
-    in the value sum (ops/attention.py::gqa_attention)."""
+    """One decode step for token [B] at position ``input_pos`` (a 0-d or [B]
+    int tensor on the model's device, or an int). Returns logits [B, vocab]
+    f32; caches update in place. The position stays a device tensor down to
+    the caches and the rope rows, so one captured step serves every position
+    (``runtime/generate.py::decode_loop_core``); an int is written to one
+    by a fill. ``attn_top_k < 1`` keeps only that share of the top-scored
+    cache slots in the value sum (ops/attention.py::gqa_attention)."""
     cfg = model.cfg
-    if isinstance(input_pos, int):
-        freqs = model.rope[input_pos : input_pos + 1][None]  # [1, 1, hd/2, 2]
-    else:
-        ipos = input_pos.reshape(-1).long()
-        freqs = model.rope[ipos][:, None]
+    B = token.shape[0]
+    if not isinstance(input_pos, torch.Tensor):
+        input_pos = torch.full((B,), int(input_pos), dtype=torch.int32, device=token.device)
+    freqs = model.rope[input_pos.reshape(-1).long()][:, None]  # [1 or B, 1, hd/2, 2]
     x = _embed(model, token[:, None])
     for layer, cache in zip(model.layers, caches):
         attn_out = attention_decode(

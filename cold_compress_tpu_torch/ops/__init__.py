@@ -21,3 +21,11 @@ def reset_kernel_launches() -> None:
     for counts in _COUNTS:
         for key in counts:
             counts[key] = 0
+
+
+def add_kernel_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (launches by name, possibly negative) to the counts: a
+    replayed CUDA graph adds the launches its capture recorded."""
+    for key, n in delta.items():
+        counts = next(c for c in _COUNTS if key in c)
+        counts[key] += n

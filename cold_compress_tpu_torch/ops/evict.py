@@ -69,7 +69,10 @@ def hh_evict(num, denom, pos, input_pos, *, global_tokens: int,
             raise ValueError(f"hh_evict: {n} on another device")
         if t.data_ptr() % 16:
             raise ValueError(f"hh_evict: {n} must start on a 16-byte boundary")
-    ipos = torch.as_tensor(input_pos, dtype=torch.int32, device=num.device)
+    if not isinstance(input_pos, torch.Tensor):  # a fill, not a copy from the host
+        ipos = torch.full((1,), int(input_pos), dtype=torch.int32, device=num.device)
+    else:
+        ipos = input_pos.to(device=num.device, dtype=torch.int32)
     if ipos.numel() not in (1, B):
         raise ValueError(f"hh_evict: input_pos {tuple(ipos.shape)} for batch {B}")
     ipos = ipos.reshape(-1).expand(B).contiguous()

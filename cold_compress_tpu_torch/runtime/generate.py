@@ -1,18 +1,25 @@
 """Generation runtime: prefill, then a greedy decode loop on the device.
 
 Counterpart of ``cold_compress_tpu/runtime/generate.py`` (single-prompt
-``generate`` and ``reset_caches``). The JAX package runs the decode loop as
-one jitted ``lax.while_loop``; here it is a Python loop over
-``decode_step`` whose tokens, probabilities and stop flags stay on the
-device, read once at the end. With terminators given, the host also reads
-whether every lane is done after each step that was not teacher-forced (one
-sync per step) and stops there, as the JAX loop's ``cond`` does: the caches
-then hold what the reference's hold. A finished lane records nothing more
-(``-1`` tokens, ``0`` probabilities), which is what the JAX loop returns.
+``generate``, ``decode_loop_core`` and ``reset_caches``). The JAX package
+runs the decode loop as one jitted ``lax.while_loop``. Here one step of it
+(``_decode_body``, the JAX ``body``: ``decode_step`` over every layer, the
+softmax, greedy or teacher-forced selection, the recorded token and
+probability, ``last_probs`` and ``done``) writes every result in place into
+static device buffers (``cuda_graph.LoopBuffers``). On the card the step is
+captured once as a CUDA graph and replayed once per token
+(``runtime/cuda_graph.py``; ``generate(..., cuda_graph=False)`` runs it
+eagerly instead); on the CPU it runs eagerly. The host reads the tokens
+once at the end. With terminators given, it also reads whether every lane
+is done after each step that was not teacher-forced (one sync per step) and
+stops there, as the JAX loop's ``cond`` does: the caches then hold what the
+reference's hold. A finished lane records nothing more (``-1`` tokens,
+``0`` probabilities), which is what the JAX loop returns.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -21,6 +28,7 @@ import torch
 from ..caches import reset_state
 from ..models.transformer import Transformer, decode_step, prefill
 from . import engine
+from .cuda_graph import LoopBuffers, decode_graph
 
 
 def bucket_length(n: int, minimum: int = 16) -> int:
@@ -50,6 +58,7 @@ def generate(
     pad_id: int = 0,
     prefill_bucket: Optional[int] = None,
     attn_top_k: float = 1.0,
+    cuda_graph: Optional[bool] = None,
 ) -> Tuple[List[int], Dict[str, Any], Any]:
     """Generate greedily from a prompt; returns ``(sequence, info, caches)``.
 
@@ -69,13 +78,23 @@ def generate(
     * ``terminator_ids``: a lane records nothing after emitting one.
     * ``attn_top_k < 1``: decode attention sums values over only that share
       of the top-scored cache slots (``decode_step``).
+    * ``cuda_graph``: decode through a captured CUDA graph of one step
+      (the default on the card; ``False`` runs the same step eagerly). A
+      capture or replay that fails raises.
 
     ``info`` holds ``perf_stats`` (seconds and tokens per second, timed
-    with the device synchronised), ``emitted_probs`` (the probability of
-    each emitted or forced token) and ``final_probs`` (the last step's
-    distribution over the vocabulary).
+    with the device synchronised; a call that captures the graph counts
+    the capture in its decode time), ``emitted_probs`` (the probability of
+    each emitted or forced token), ``final_probs`` (the last step's
+    distribution over the vocabulary) and ``decode_graph`` (None when
+    eager; else whether this call captured, the capture's seconds, the
+    graph pool's bytes and the kernel launches of one replay).
     """
     device = model.device
+    if cuda_graph is None:
+        cuda_graph = device.type == "cuda"
+    if cuda_graph and device.type != "cuda":
+        raise ValueError("cuda_graph needs the model on a CUDA device")
     cfg = model.cfg
     prompt = [int(t) for t in prompt]
     prompt_length = len(prompt)
@@ -143,10 +162,11 @@ def generate(
 
     # ---- decode loop -----------------------------------------------------
     max_steps = max(max_new_tokens - 1, 0)
+    graph_info = None
     if max_steps > 0:
-        tokens_buf, probs_buf, last_probs, steps = _decode_loop(
+        tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
             model, caches, first_token, prompt_length, prefix, terminator_ids,
-            max_steps, attn_top_k,
+            max_steps, attn_top_k, cuda_graph,
         )
         tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
         t2 = time.perf_counter()
@@ -186,6 +206,7 @@ def generate(
         "perf_stats": perf_stats,
         "emitted_probs": emitted_probs,
         "final_probs": final_probs,
+        "decode_graph": graph_info,
         "prompt_length": prompt_length,
         "num_generated": len(gen),
         "vocab_size": cfg.vocab_size,
@@ -193,49 +214,76 @@ def generate(
     return seq, info, caches
 
 
-def _decode_loop(model: Transformer, caches, first_token: torch.Tensor, start_pos: int,
-                 prefix: Sequence[int], terminator_ids: Sequence[int], max_steps: int,
-                 attn_top_k: float = 1.0):
+def _decode_body(model: Transformer, caches, buf: LoopBuffers, attn_top_k: float) -> None:
+    """One decode step, the JAX ``body``, writing every result in place into
+    ``buf`` (nothing is rebound, so a captured step keeps its buffers):
+    step ``buf.i`` feeds ``buf.cur`` at ``buf.pos``, emits the forced token
+    or the greedy one, records it and its probability unless the lane is
+    done, and advances."""
+    logits = decode_step(model, caches, buf.cur, buf.pos, attn_top_k)
+    probs = torch.softmax(logits.float(), dim=-1)
+    forced = buf.forced.index_select(0, buf.i)  # [1]
+    teacher = forced >= 0
+    next_tok = torch.where(teacher, forced, logits.argmax(dim=-1))  # [B]
+    p_emit = probs.gather(1, next_tok[:, None])[:, 0]
+    is_term = (next_tok[:, None] == buf.term[None, :]).any(dim=-1) & ~teacher
+    done = buf.done
+    buf.tokens.index_copy_(0, buf.i + 1, torch.where(done, -1, next_tok)[None])
+    buf.probs.index_copy_(0, buf.i, torch.where(done, 0.0, p_emit)[None])
+    buf.last_probs.copy_(torch.where(done[:, None], buf.last_probs, probs))
+    done |= is_term
+    buf.cur.copy_(next_tok)
+    buf.pos += 1
+    buf.i += 1
+
+
+def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor, start_pos: int,
+                     prefix: Sequence[int], terminator_ids: Sequence[int], max_steps: int,
+                     attn_top_k: float = 1.0, cuda_graph: bool = False):
     """Greedy decode with everything kept on the device.
 
     Returns (tokens [max_steps + 1, B] with slot 0 the first token and -1
     after a lane finished, emitted probabilities [max_steps, B], the last
     distribution [B, vocab] of each lane while it was running, the number
-    of steps run). With terminators, the loop ends after the first step
-    that is not teacher-forced and leaves every lane done."""
+    of steps run, the graph's record or None). ``prefix`` forces the first
+    steps' tokens. With terminators, the loop ends after the first step
+    that is not teacher-forced and leaves every lane done.
+
+    With ``cuda_graph`` every step replays the model's captured step. Where
+    the model holds none for these caches yet, step 0 runs eagerly first
+    (it warms every first-call path) and the step is captured before step
+    1. The returned tensors are then views of the graph's buffers, valid
+    until the next call."""
     device = first_token.device
     B = first_token.shape[0]
-    V = model.cfg.vocab_size
     forced = list(prefix[:max_steps]) + [-1] * max(0, max_steps - len(prefix))
-    forced_t = torch.tensor([max(t, 0) for t in forced], dtype=torch.long, device=device)
-    term = torch.tensor(terminator_ids or [-7], dtype=torch.long, device=device)
-    tokens_buf = torch.full((max_steps + 1, B), -1, dtype=torch.long, device=device)
-    tokens_buf[0] = first_token
-    probs_buf = torch.zeros((max_steps, B), dtype=torch.float32, device=device)
-    last_probs = torch.zeros((B, V), dtype=torch.float32, device=device)
-    done = torch.zeros((B,), dtype=torch.bool, device=device)
-    cur = first_token
+    terminators = list(terminator_ids)
+    if start_pos + max_steps > model.rope.shape[0]:
+        raise ValueError(f"decode positions up to {start_pos + max_steps - 1} exceed the "
+                         f"model's {model.rope.shape[0]} rope rows")
+    n_term = max(1, len(terminators))
+    if cuda_graph:
+        graph = decode_graph(model, caches, B, attn_top_k, n_term,
+                             lambda b: _decode_body(model, caches, b, attn_top_k))
+        buf, stream, eager_first = graph.buffers, graph.on_stream(), not graph.captured
+    else:
+        graph, stream, eager_first = None, contextlib.nullcontext(), True
+        buf = LoopBuffers.empty(B, model.cfg.vocab_size, max_steps, n_term, device)
     steps = 0
-    with torch.inference_mode():
+    with stream, torch.inference_mode():
+        buf.load(first_token, start_pos, forced, terminators)
         for i in range(max_steps):
-            logits = decode_step(model, caches, cur, start_pos + i, attn_top_k)
-            probs = torch.softmax(logits.float(), dim=-1)
-            if forced[i] >= 0:  # teacher forcing is known on the host
-                next_tok = forced_t[i].expand(B)
-                is_term = torch.zeros_like(done)
+            if graph is None or (i == 0 and eager_first):
+                _decode_body(model, caches, buf, attn_top_k)
             else:
-                next_tok = logits.argmax(dim=-1)
-                is_term = torch.isin(next_tok, term)
-            p_emit = probs.gather(1, next_tok[:, None])[:, 0]
-            tokens_buf[i + 1] = torch.where(done, -1, next_tok)
-            probs_buf[i] = torch.where(done, 0.0, p_emit)
-            last_probs = torch.where(done[:, None], last_probs, probs)
-            done = done | is_term
-            cur = next_tok
+                graph.replay()
             steps = i + 1
-            if terminator_ids and forced[i] < 0 and bool(done.all()):
+            if terminators and forced[i] < 0 and bool(buf.done.all()):
                 break
-    return tokens_buf, probs_buf, last_probs, steps
+    info = None if graph is None else {
+        "captured": eager_first and graph.captured, "capture_seconds": graph.capture_seconds,
+        "pool_bytes": graph.pool_bytes, "launches_per_replay": dict(graph.launches)}
+    return buf.tokens[: max_steps + 1], buf.probs[:max_steps], buf.last_probs, steps, info
 
 
 def reset_caches(caches):

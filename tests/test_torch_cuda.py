@@ -673,3 +673,117 @@ def test_int8_layer_projection_runs_w8a8_kernel(dev):
     y = card(x)
     assert qmm.LAUNCHES["w8a8_gemv.w13"] == before + 1
     assert torch.equal(y.cpu(), cpu(x.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# Decode as a captured CUDA graph against the same step run eagerly
+# ---------------------------------------------------------------------------
+
+GRAPH_PROMPT = np.random.RandomState(0).randint(2, 500, size=300).tolist()
+GRAPH_FORCED = np.random.RandomState(1).randint(2, 500, size=8).tolist()
+#: (strategy, cache bits (16 = bf16), vocab head, extra cache options,
+#: attn_top_k): the main path's kernels (kv8 heavy_hitter), hybrid's
+#: per-head step, the counter-based draws of random, l2 over kv4 with the
+#: int8 head (K9), the debug shadow and its loss counter, a full bf16 cache,
+#: the eager W > 1 heavy-hitter history, attn_top_k < 1 (plain attention
+#: over the dequantized cache) and the position-only strategies.
+GRAPH_CASES = {
+    "heavy_hitter_kv8": ("heavy_hitter", 8, "int4", {}, 1.0),
+    "hybrid_kv8": ("hybrid", 8, "int4", {}, 1.0),
+    "random_kv4": ("random", 4, "int4", {}, 1.0),
+    "l2_kv4_int8_head": ("l2", 4, "int8", {}, 1.0),
+    "debug_heavy_hitter_kv8": ("debug_heavy_hitter", 8, "int4", {}, 1.0),
+    "full_bf16": ("full", 16, "int4", {}, 1.0),
+    "heavy_hitter_kv8_window4": ("heavy_hitter", 8, "int4", {"history_window_size": 4}, 1.0),
+    "heavy_hitter_kv8_top_half": ("heavy_hitter", 8, "int4", {}, 0.5),
+    "keep_it_odd_kv2": ("keep_it_odd", 2, "int4", {}, 1.0),
+}
+
+
+@pytest.fixture(scope="module")
+def graph_models():
+    """TestKernel with random int4 layers and an int4 or int8 head, on the
+    card (built once: the tests' caches come and go, the weights stay)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+    from cold_compress_tpu_torch.runtime.engine import build_model, params_from_flat
+
+    cfg = ModelConfig.from_name("TestKernel")
+    return cfg, {head: build_model(cfg, params_from_flat(random_quantized_params(
+        cfg, seed=0, head_mode=head), "cuda"), "cuda", max_positions=512)
+        for head in ("int4", "int8")}
+
+
+def _graph_caches(cfg, case):
+    from cold_compress_tpu_torch.bench import cache_kwargs
+    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs
+
+    strategy, bits, _, extra, _ = case
+    kw = cache_kwargs(strategy, 0.25, 4, None if bits == 16 else bits) | extra
+    return init_caches(cfg, build_cache_specs(cfg, kw, 512), 1, torch.bfloat16, device="cuda")
+
+
+def _decode_run(model, caches, graph, top_k, **kw):
+    """(sequence, emitted probabilities, final probabilities, every cache
+    tensor on the host, kernel launches, the graph's record) of one
+    ``generate()``."""
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate
+
+    reset_kernel_launches()
+    seq, info, caches = generate(model, caches, GRAPH_PROMPT, 8, prefill_bucket=512,
+                                 attn_top_k=top_k, cuda_graph=graph, **kw)
+    launches = {k: n for k, n in kernel_launches().items() if n}
+    tensors = [t.cpu() for c in caches for t in c.tensors()]
+    return (seq, np.asarray(info["emitted_probs"]), np.asarray(info["final_probs"]), tensors,
+            launches, info["decode_graph"], info["perf_stats"]["decode_steps"])
+
+
+def _assert_same_run(a, b):
+    seq, e, f, tensors, launches = a[:5]
+    assert seq == b[0]
+    assert np.array_equal(e, b[1]) and np.array_equal(f, b[2])
+    assert len(tensors) == len(b[3])
+    assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(tensors, b[3]))
+    assert launches == b[4] and a[6] == b[6]
+
+
+@pytest.mark.parametrize("mode", ["teacher_forced", "terminator"])
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_decode_is_bit_equal_to_eager(graph_models, case, mode):
+    """The same ``generate()`` decoded through the captured step and
+    eagerly (``cuda_graph=False``): the same tokens, emitted and final
+    probabilities, every tensor of every cache state (``extra`` and the
+    debug shadow included) and kernel launches, bit for bit. Teacher-forced,
+    or greedy with the third token a terminator (the loop stops after the
+    step that emits it). A second call on the same caches after
+    ``reset_caches`` replays without capturing again and equals a fresh
+    eager run."""
+    from cold_compress_tpu_torch.runtime.generate import reset_caches
+
+    cfg, models = graph_models
+    spec = GRAPH_CASES[case]
+    model, top_k = models[spec[2]], spec[4]
+    if mode == "teacher_forced":
+        kw = {"next_tokens": GRAPH_FORCED}
+    else:
+        # The generated token first emitted latest (by step 1 or later, so
+        # that at least one step replays) becomes the terminator.
+        gen = _decode_run(model, _graph_caches(cfg, spec), False, top_k)[0][len(GRAPH_PROMPT):]
+        stop = max(gen[1:], key=gen.index)
+        assert gen.index(stop) >= 2, gen
+        kw = {"terminator_ids": [stop]}
+    eager = _decode_run(model, _graph_caches(cfg, spec), False, top_k, **kw)
+    assert eager[5] is None
+    caches = _graph_caches(cfg, spec)
+    first = _decode_run(model, caches, True, top_k, **kw)
+    assert first[5]["captured"] and first[5]["launches_per_replay"]
+    _assert_same_run(first, eager)
+    second = _decode_run(model, reset_caches(caches), True, top_k, **kw)
+    assert not second[5]["captured"], "the second call captured again"
+    _assert_same_run(second, eager)
+    if mode == "terminator":
+        assert eager[6] == gen.index(stop), "the loop did not stop at the terminator"

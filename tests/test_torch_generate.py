@@ -361,3 +361,109 @@ def test_bf16_layers_kv8_match_jax_xla_path(bf16_kernel_params, monkeypatch):
     assert model.layers[0].attention.wqkv.weight.shape == (cfg.dim, 512)
     e_ref, f_ref = _jax_run(cfg, params, {}, monkeypatch)
     _check_probs(e, f, e_ref, f_ref, first_rtol=1e-2, steps_rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# The decode loop's device-side step (decode_loop_core)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def kernel_f32():
+    jcfg = JaxModelConfig.from_name("TestKernel")
+    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    return jcfg, jparams
+
+
+
+
+@pytest.mark.parametrize("name", ["TestTiny", "TestKernel"])
+def test_mixed_prefix_with_terminators_matches_jax(tiny, kernel_f32, name):
+    """``feed_long_prompts`` forces the prompt's tail through decode, then
+    greedy steps follow until a terminator: one terminator occurs among the
+    forced tokens (a forced step never stops the loop) and the other is the
+    third greedy token. Tokens, decode steps, emitted and final
+    probabilities as the JAX package's (f32 weights; probabilities within
+    1e-3 relative, the bf16 roundings of the port's decode attention)."""
+    # A heavy-hitter cache at a quarter of max_seq: the prompt's tail past
+    # its length less one is fed through decode.
+    (jcfg, jparams), prompt, max_seq = ((tiny, PROMPT_TINY, 128) if name == "TestTiny"
+                                        else (kernel_f32, PROMPT[:140], 512))
+    cfg, model = _port_model(name, jparams, max_seq)
+    rope = JT.make_rope_table(jcfg)
+    kw = HH_KW
+    fed = prompt[max_seq // 4 - 1:]
+    free, _, _ = generate(model, _port_caches(cfg, kw, max_seq, torch.float32), prompt, 8,
+                          feed_long_prompts=True)
+    greedy = free[len(prompt):]
+    terminators = [fed[len(fed) // 2], greedy[3]]
+    args = dict(feed_long_prompts=True, terminator_ids=terminators)
+    jseq, jinfo, _ = jax_generate(jcfg, jparams, rope, _jax_caches(jcfg, kw, max_seq,
+                                                                   jnp.float32), prompt, 8,
+                                  **args)
+    seq, info, _ = generate(model, _port_caches(cfg, kw, max_seq, torch.float32), prompt, 8,
+                            **args)
+    assert seq == jseq and seq[:len(prompt)] == prompt
+    steps = info["perf_stats"]["decode_steps"]
+    assert steps == len(seq) - info["prompt_length"] - 1
+    assert len(fed) <= steps < len(fed) + 7  # past the forced tokens, stopped early
+    assert seq[-1] in terminators
+    np.testing.assert_allclose(info["emitted_probs"], jinfo["emitted_probs"], rtol=1e-3,
+                               atol=1e-6)
+    np.testing.assert_allclose(info["final_probs"], jinfo["final_probs"], rtol=1e-3, atol=1e-6)
+
+
+#: Strategies whose decode step reads the position (eviction scores, the
+#: recent window, the counter-based draws, hybrid's windows, the shadow).
+POSITION_CASES = {
+    "full": ("full", None), "heavy_hitter": ("heavy_hitter", 8), "hybrid": ("hybrid", 8),
+    "random": ("random", 8), "l2_kv4": ("l2", 4), "debug_heavy_hitter": ("debug_heavy_hitter", 8),
+}
+
+
+@pytest.mark.parametrize("case", list(POSITION_CASES))
+def test_decode_step_at_a_tensor_position_is_bit_equal(case):
+    """``decode_step`` at an int position, at a 0-d tensor and at a [B]
+    tensor (what the decode loop passes: a captured step reads its position
+    from the device): three steps from the same prefilled caches give the
+    same logits and leave every cache tensor the same, bit for bit
+    (TestKernel, random int4 weights, on the CPU)."""
+    import copy
+
+    from cold_compress_tpu_torch.bench import cache_kwargs
+    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+
+    strategy, bits = POSITION_CASES[case]
+    cfg = ModelConfig.from_name("TestKernel")
+    model = build_model(cfg, params_from_flat(random_quantized_params(cfg, seed=0), "cpu"),
+                        "cpu", max_positions=512)
+    kw = cache_kwargs(strategy, 0.25, 4, bits)
+    caches = _port_caches(cfg, kw, 512, torch.bfloat16)
+    P = 300
+    with torch.inference_mode():
+        TT.prefill(model, caches, torch.tensor([PROMPT + [0] * (512 - P)]), P)
+    states = {kind: copy.deepcopy(caches) for kind in ("int", "0-d", "[B]")}
+    tokens = [FORCED[0], FORCED[1], 20]  # 20: one of bench's punctuation ids
+    out = {}
+    for kind, st in states.items():
+        logits = []
+        for step, tok in enumerate(tokens):
+            pos = {"int": P + step, "0-d": torch.tensor(P + step, dtype=torch.int32),
+                   "[B]": torch.tensor([P + step], dtype=torch.int32)}[kind]
+            with torch.inference_mode():
+                logits.append(TT.decode_step(model, st, torch.tensor([tok]), pos))
+        out[kind] = torch.stack(logits)
+    for kind in ("0-d", "[B]"):
+        assert torch.equal(out[kind], out["int"]), kind
+        for c, ref in zip(states[kind], states["int"]):
+            assert all(torch.equal(a, b) for a, b in zip(c.tensors(), ref.tensors())), kind
+
+
+def test_cuda_graph_needs_the_card():
+    """``cuda_graph=True`` on a model on the CPU raises; it never decodes
+    eagerly in its place."""
+    cfg = ModelConfig.from_name("TestTiny")
+    model = build_model(cfg, TT.init_params(cfg, device="cpu"), "cpu", max_positions=128)
+    with pytest.raises(ValueError, match="cuda_graph"):
+        generate(model, _port_caches(cfg, HH_KW, 128, torch.bfloat16), PROMPT_TINY[:20], 4,
+                 cuda_graph=True)
