@@ -14,7 +14,9 @@ Phases; any failure raises and the script exits non-zero:
    of the Llama-3-8B paths, timed with CUDA events beside its bound: the
    W4A8 projections and head (K1/K2), decode attention at every cache
    precision with and without pooled probabilities at C = 2048 and, for
-   bf16/int8/int4 without, at C = 32768 (K3/K5), the fused heavy-hitter
+   bf16/int8/int4 without, at C = 32768 (K3/K5), in both branches of the
+   TPU kernel (the dequantizing one, and ``i8dot`` at kv8/kv4/kv2, timed
+   beside the dequantizing variant on the same inputs), the fused heavy-hitter
    eviction (K7), the W8A8 head and layer projections (K9, at one and five
    rows, also after an RMS norm's small kernels), flash prefill (K4), flash
    prefill with the FastGen profile (K6) at one and two windows, and the
@@ -32,8 +34,10 @@ Phases; any failure raises and the script exits non-zero:
    several cache strategies and precisions (heavy_hitter at kv8, bf16, kv4
    and kv2; random kv2; keep_it_odd kv4; recent_global kv8; hybrid kv8 with
    bench.py's menu, one layer's attention sharpened so that the heads pick
-   different policies; debug_heavy_hitter with a kv8 shadow), each with an
-   exact launch witness; the trained TinyByteLM128 fixture's teacher-forced
+   different policies; debug_heavy_hitter with a kv8 shadow), decode
+   attention's branch routed as the TPU program routes it (``auto``: i8dot
+   for the kv8 caches), and the kv8 runs again with it off and the kv4/kv2
+   ones with it on, each with an exact launch witness; the trained TinyByteLM128 fixture's teacher-forced
    NLL in three configurations (int4, kv8 heavy_hitter, hybrid), card
    against CPU;
 4. end to end through ``generate()``, decoding through the graph (a warm-up
@@ -43,8 +47,10 @@ Phases; any failure raises and the script exits non-zero:
    - the main path, Llama-3-8B (32 layers, random int4 weights and head
      from seed 0), kv8 heavy_hitter cache at 25% of an 8192 context with
      the heavy_hitter prompt compressor, a 7928-token prompt, 128 greedy
-     tokens; then 16 steps from one prefilled state through the graph and
-     eagerly, bit-equal in tokens, probabilities and caches;
+     tokens, decode attention in its i8dot branch (``auto``, as the TPU
+     program); then 16 steps from one prefilled state through the graph and
+     eagerly, bit-equal in tokens, probabilities and caches; then 64 tokens
+     with ``attn_i8dot`` off (the dequantizing branch), beside it;
    - hybrid at bench.py's defaults (its FastGen menu and token classes,
      kv8, C = 8192), the same model and prompt, 64 tokens;
    - the main path's prefill with ``prefill_w4a8`` (K8): its logits against
@@ -295,15 +301,19 @@ def _decode_inputs(dev, gen, bits, B, KVH, C, D):
     return (kc, vc, ks, kz, vs, vz, mask)
 
 
-def check_decode(dev, records, bits: int, need_attn: bool, C: int):
+def check_decode(dev, records, bits: int, need_attn: bool, C: int, i8dot: bool = False):
     """K3 (C = 2048, the main path's budget) or K5 (C = 32768, a full
-    cache above the TPU's one-shot budget) at one (bits, need_attn)."""
+    cache above the TPU's one-shot budget) at one (bits, need_attn), in the
+    dequantizing branch or in the ``i8dot`` one (then also the dequantizing
+    variant's time on the same inputs)."""
     from cold_compress_tpu_torch.ops import decode_attn
 
     B, H, KVH, D = 1, 32, 8, 128
     G = H // KVH
     gen = torch.Generator(device=dev).manual_seed(2 + bits + C + int(need_attn))
-    counter = decode_attn.variant(bits, need_attn)
+    counter = decode_attn.variant(bits, need_attn, i8dot)
+    plain = (decode_attn.decode_attention_i8dot_plain if i8dot
+             else decode_attn.decode_attention_plain)
     name = f"{counter}@C{C}"
     row_bytes = decode_attn.packed_width(bits, D) * (2 if bits == 16 else 1)
     side = 0 if bits == 16 else 4 * 4 * B * KVH * C  # f32 scales and zeros of K and V
@@ -318,17 +328,18 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int):
         kc, vc, ks, kz, vs, vz, mask = layers[i % n]
         return (q, kc, vc, ks, kz, vs, vz, mask)
 
-    def run(i):
-        return decode_attn.decode_attention(*args(i), bits=bits, need_attn=need_attn)
+    def run(i, i8=i8dot):
+        return decode_attn.decode_attention(*args(i), bits=bits, need_attn=need_attn, i8dot=i8)
 
     out, pooled = run(0)
     again = run(0)
-    ref_out, ref_pooled = decode_attn.decode_attention_plain(*args(0), bits, need_attn)
+    ref_out, ref_pooled = plain(*args(0), bits, need_attn)
     torch.cuda.synchronize()
     assert torch.equal(out, again[0]) and (not need_attn or torch.equal(pooled, again[1])), \
         f"{name}: two calls on the same inputs differ"
     # Same roundings on both sides; only the order of the f32 sums differs
-    # (the kernel sums 128-slot chunks).
+    # (the kernel sums 128-slot chunks; i8dot: the int32 dots are exact, its
+    # probability scale comes from the cluster's fold).
     err, ratio, tol = bf16_out_err(out, ref_out, 2**-8)
     text = f"out max_abs_err={err:.3e}, max err/tol {ratio:.3f} (tol {tol})"
     ok = ratio <= 1 and bool(torch.isfinite(out).all())
@@ -349,9 +360,11 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int):
     assert n_dev == n_own <= 1, f"{name}: {n_dev} device operations per call, {n_own} its own"
     iters = 200 if C <= 4096 else 50
     ms = time_ms(run, iters)
-    plain_ms = time_ms(lambda i: decode_attn.decode_attention_plain(*args(i), bits, need_attn),
-                       10 if C <= 4096 else 3, 1)
-    b_ms, b_by = bound(nbytes, 4 * B * H * C * D, "bf16")
+    plain_ms = time_ms(lambda i: plain(*args(i), bits, need_attn), 10 if C <= 4096 else 3, 1)
+    b_ms, b_by = bound(nbytes, 4 * B * H * C * D, "int8" if i8dot else "bf16")
+    extra = {}
+    if i8dot:
+        extra["dequant_ms"] = time_ms(lambda i: run(i, False), iters)
     library_ms, lib_text = None, "none"
     if bits == 16 and not need_attn:
         # The same function in one PyTorch call: masked GQA attention over
@@ -361,14 +374,20 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int):
         library_ms = time_ms(lambda i: sdpa(q, layers[i % n][0], layers[i % n][1],
                                             attn_mask=masks[i % n], enable_gqa=True), iters)
         lib_text = f"{library_ms:.4f} ms (scaled_dot_product_attention, enable_gqa)"
-    nc = decode_attn.default_cluster(B, KVH, C, G, bits, need_attn)
+    nc = decode_attn.default_cluster(B, KVH, C, G, bits, need_attn, i8dot)
+    beside = (f", the dequantizing variant on the same inputs {extra['dequant_ms']:.4f} ms"
+              if i8dot else "")
     log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-        f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: {lib_text}; "
+        f"{nbytes / ms / 1e6:.1f} GB/s){beside}, plain {plain_ms:.3f} ms, library: {lib_text}; "
         f"{n_dev:g} device kernels per call, clusters of {nc} CTAs")
-    replaces = ("ops/pallas_decode_attn.py:899" if C <= 4096
-                else "ops/pallas_decode_attn.py:438")
+    if i8dot:  # the i8dot branch of the one-shot kernel, and of the chunked step
+        replaces = ("ops/pallas_decode_attn.py:172" if C <= 4096
+                    else "ops/pallas_decode_attn.py:274")
+    else:
+        replaces = ("ops/pallas_decode_attn.py:899" if C <= 4096
+                    else "ops/pallas_decode_attn.py:438")
     record(records, name, counter, "decode_attn.cu", replaces, err, tol, ratio, ms, plain_ms,
-           b_ms, b_by, library_ms, C=C, device_kernels_per_call=n_dev, cluster=nc)
+           b_ms, b_by, library_ms, C=C, device_kernels_per_call=n_dev, cluster=nc, **extra)
 
 
 def check_hh_evict(dev, records):
@@ -799,8 +818,9 @@ def make_caches(cfg, kw: dict, context: int, device: str):
                        device=device)
 
 
-def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head",
-                      prefill_w4a8: bool = False, layers: str = "w4a8_gemv") -> dict:
+def expected_launches(cfg, kw: dict, steps: int, lengths, head: str = "w4a8_gemv.head",
+                      prefill_w4a8: bool = False, layers: str = "w4a8_gemv",
+                      i8dot="auto") -> dict:
     """Exact kernel launches of a run of ``steps`` decode steps (plus the
     prefill) at head_dim 128: every projection (``layers`` names their
     kernel, None for dense bf16 layers) and the head (``head``, None for a
@@ -809,7 +829,9 @@ def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head",
     flash prefill per layer (the profiling one, K6, for hybrid), and the
     fused eviction per layer per step for a one-slot heavy-hitter history (a
     debug_heavy_hitter shadow's too). A debug_* cache attends over its full
-    bf16 outer cache with pooled probabilities. With ``prefill_w4a8`` each
+    bf16 outer cache with pooled probabilities. Each layer's decode attention
+    takes the branch that ``i8dot`` (a ``set_attn_i8dot`` mode) routes its
+    cache length (``lengths``, per layer) to. With ``prefill_w4a8`` each
     layer projection also runs K8 once, at prefill."""
     from cold_compress_tpu_torch.caches import get_cache_strategy
     from cold_compress_tpu_torch.ops import decode_attn
@@ -829,11 +851,19 @@ def expected_launches(cfg, kw: dict, steps: int, head: str = "w4a8_gemv.head",
         want.update({f"w4a8_gemm.{p}": n for p in projections})
     if head:
         want[head] = steps + 1
-    want[decode_attn.variant(bits, needs_attn)] = n * steps
+    for C in lengths:
+        i8 = decode_attn.i8dot_route(i8dot, bits, C, cfg.n_kv_head, cfg.head_dim)
+        key = decode_attn.variant(bits, needs_attn, i8)
+        want[key] = want.get(key, 0) + steps
     want["flash_profile" if strategy == "hybrid" else "flash_prefill_summary"] = n
     if evicting == "heavy_hitter" and kw.get("history_window_size", 1) == 1:
         want["hh_evict"] = n * steps
     return want
+
+
+def cache_lengths(caches) -> list:
+    """Each layer's cache length, as decode attention's routing reads it."""
+    return [c.k.shape[2] for c in caches]
 
 
 def witness(run_name: str, C: int, launches: dict, want: dict, runs: list) -> None:
@@ -842,18 +872,26 @@ def witness(run_name: str, C: int, launches: dict, want: dict, runs: list) -> No
     runs.append((run_name, C, got))
 
 
-IN_SITU = [  # (strategy, cache bits, kept positions must match exactly, layer weights)
-    ("heavy_hitter", 8, False, "int4"),
-    ("random", 2, True, "int4"),
-    ("keep_it_odd", 4, True, "int4"),
-    ("heavy_hitter", 16, False, "int4"),
-    ("heavy_hitter", 4, False, "int4"),
-    ("heavy_hitter", 2, False, "int4"),
-    ("recent_global", 8, True, "int4"),
-    ("hybrid", 8, False, "int4"),
-    ("debug_heavy_hitter", 8, False, "int4"),
-    ("heavy_hitter", 8, False, "int8"),
-    ("heavy_hitter", 8, False, "bf16"),
+IN_SITU = [  # (strategy, cache bits, kept positions must match exactly, layer weights,
+    #            decode attention's i8dot mode)
+    ("heavy_hitter", 8, False, "int4", "auto"),
+    ("random", 2, True, "int4", "auto"),
+    ("keep_it_odd", 4, True, "int4", "auto"),
+    ("heavy_hitter", 16, False, "int4", "auto"),
+    ("heavy_hitter", 4, False, "int4", "auto"),
+    ("heavy_hitter", 2, False, "int4", "auto"),
+    ("recent_global", 8, True, "int4", "auto"),
+    ("hybrid", 8, False, "int4", "auto"),
+    ("debug_heavy_hitter", 8, False, "int4", "auto"),
+    ("heavy_hitter", 8, False, "int8", "auto"),
+    ("heavy_hitter", 8, False, "bf16", "auto"),
+    # The other branch where auto takes one: kv8 dequantizing, kv4/kv2 i8dot.
+    ("heavy_hitter", 8, False, "int4", False),
+    ("recent_global", 8, True, "int4", False),
+    ("heavy_hitter", 4, False, "int4", True),
+    ("keep_it_odd", 4, True, "int4", True),
+    ("heavy_hitter", 2, False, "int4", True),
+    ("random", 2, True, "int4", True),
 ]
 #: Layer and head kernels by weight kind: random int4 weights
 #: (``random_quantized_params``), ``init_params`` quantized to int8 layers
@@ -914,7 +952,7 @@ def tree_to(node, device):
 
 
 def in_situ_parity(dev, runs: list):
-    from cold_compress_tpu_torch.models.transformer import init_params, prefill
+    from cold_compress_tpu_torch.models.transformer import init_params, prefill, set_attn_i8dot
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from cold_compress_tpu_torch.quantization.weight_quant import (
         quantize_params, random_quantized_params,
@@ -938,7 +976,7 @@ def in_situ_parity(dev, runs: list):
         models[kind] = {device: build(cfg, tree_to(tree, device), device, max_positions=512)
                         for device in (dev, "cpu")}
     with recorded_profile_scores() as scores:
-        for strategy, bits, exact_pos, weights in IN_SITU:
+        for strategy, bits, exact_pos, weights, i8dot in IN_SITU:
             kw = cache_kw(strategy, bits)
             forced_s = forced
             if strategy == "hybrid":
@@ -947,6 +985,7 @@ def in_situ_parity(dev, runs: list):
             out, steps = {}, {}
             for device in (dev, "cpu"):
                 model = sharp[device] if strategy == "hybrid" else models[weights][device]
+                set_attn_i8dot(model, i8dot)
                 caches = make_caches(cfg, kw, 512, device)
                 with torch.inference_mode():
                     logits = prefill(model, caches, torch.tensor([tokens], device=device),
@@ -965,15 +1004,17 @@ def in_situ_parity(dev, runs: list):
                 out[device] = (logits[0].float().cpu().numpy(), np.asarray(info["emitted_probs"]),
                                np.asarray(info["final_probs"]),
                                np.stack([c.pos.cpu().numpy() for c in caches]), launches, extra)
+                set_attn_i8dot(model, "auto")
             (l_g, e_g, f_g, pos_g, launches, x_g), (l_c, e_c, f_c, pos_c, cpu_launches, x_c) = (
                 out[dev], out["cpu"])
             run_name = f"in-situ TestKernel {strategy} kv{bits}" + (
-                f", {weights} layers" if weights != "int4" else "")
+                f", {weights} layers" if weights != "int4" else "") + (
+                f", attn_i8dot {'on' if i8dot else 'off'}" if i8dot != "auto" else "")
             assert not any(cpu_launches.values()), "CPU tensors must take the plain versions"
             layer_kernel, head_kernel = WEIGHT_KERNELS[weights]
             witness(run_name, caches[0].spec.max_cache_length, launches,
-                    expected_launches(cfg, kw, steps[dev], head_kernel, layers=layer_kernel),
-                    runs)
+                    expected_launches(cfg, kw, steps[dev], cache_lengths(caches), head_kernel,
+                                      layers=layer_kernel, i8dot=i8dot), runs)
             if strategy == "hybrid":
                 check_hybrid_policies(run_name, x_g, x_c, kw["min_recovery_frac"])
             if "attention_losses" in x_c:
@@ -1068,7 +1109,8 @@ def in_situ_cli(dev, runs: list):
     run_name = "in-situ TestKernel generate CLI heavy_hitter_pyramid kv8"
     lengths = [c.spec.max_cache_length for c in caches]
     witness(run_name, lengths[0], launches,
-            expected_launches(cfg, cli_kw(args), info["perf_stats"]["decode_steps"]), runs)
+            expected_launches(cfg, cli_kw(args), info["perf_stats"]["decode_steps"],
+                              cache_lengths(caches)), runs)
     e_g, e_c = np.asarray(info["emitted_probs"]), np.asarray(info_c["emitted_probs"])
     f_g, f_c = np.asarray(info["final_probs"]), np.asarray(info_c["final_probs"])
     gap, gap_f, tol = float(np.abs(e_g - e_c).max()), float(np.abs(f_g - f_c).max()), \
@@ -1133,9 +1175,10 @@ def trained_kw(name: str) -> dict:
     return kw
 
 
-def trained_nll(name: str, device: str, cuda_graph=None):
+def trained_nll(name: str, device: str, cuda_graph=None, attn_i8dot="auto"):
     """The port's teacher-forced mean NLL on the trained fixture in
-    configuration ``name``: (NLL, decode steps)."""
+    configuration ``name``, with decode attention's ``attn_i8dot`` mode:
+    (NLL, decode steps)."""
     from cold_compress_tpu_torch.models.transformer import init_caches
     from cold_compress_tpu_torch.quantization.weight_quant import quantize_params
     from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, load_model
@@ -1145,7 +1188,8 @@ def trained_nll(name: str, device: str, cuda_graph=None):
     cfg, params = load_model(repo_path(TRAINED_CKPT), model_name="TinyByteLM128", device=device)
     if TRAINED_CONFIGS[name][0] == "int4":
         params = quantize_params(params, "int4", 128, output_mode="int4")
-    model = build_model(cfg, params, device, max_positions=TRAINED_MAX_SEQ)
+    model = build_model(cfg, params, device, max_positions=TRAINED_MAX_SEQ,
+                        attn_i8dot=attn_i8dot)
     caches = init_caches(cfg, build_cache_specs(cfg, trained_kw(name), TRAINED_MAX_SEQ), 1,
                          torch.bfloat16, device=device)
     seq, info, _ = generate(model, caches, prompt, len(forced), prefill_bucket=TRAINED_MAX_SEQ,
@@ -1161,6 +1205,7 @@ def trained_parity(dev, runs: list):
     with its exact launch witness."""
     from cold_compress_tpu_torch.models.config import ModelConfig
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs
 
     cfg = ModelConfig.from_name("TinyByteLM128")
     for name, (weights, _) in TRAINED_CONFIGS.items():
@@ -1173,8 +1218,10 @@ def trained_parity(dev, runs: list):
             f"{cpu:.6f} nats/byte, gap {abs(card - cpu):.2e} (tol {TRAINED_CARD_TOL})")
         assert card < 3.0 and abs(card - cpu) <= TRAINED_CARD_TOL, run_name
         layer_kernel, head_kernel = WEIGHT_KERNELS[weights]
+        lengths = [s.max_cache_length
+                   for s in build_cache_specs(cfg, trained_kw(name), TRAINED_MAX_SEQ)]
         witness(run_name, TRAINED_MAX_SEQ, launches,
-                expected_launches(cfg, trained_kw(name), steps, head_kernel,
+                expected_launches(cfg, trained_kw(name), steps, lengths, head_kernel,
                                   layers=layer_kernel), runs)
 
 
@@ -1305,12 +1352,14 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
             + f"; kept slots per head min {int(kept.min())}, mean {float(kept.mean()):.1f}, "
               f"max {int(kept.max())} of C={spec.max_cache_length}")
     witness(run_name, caches[0].spec.max_cache_length, launches,
-            expected_launches(cfg, kw, steps, head_counter, layers=layers), runs)
+            expected_launches(cfg, kw, steps, cache_lengths(caches), head_counter,
+                              layers=layers, i8dot=model.attn_i8dot), runs)
     if eager_check:
         graph_matches_eager(run_name, model, caches, prompt, dev)
     if profile:
         profile_decode(model, caches, seq[-1], len(seq), 8, card, run_name)
         stop_read_cost(model, caches, prompt, cfg.vocab_size, card, run_name)
+    return perf
 
 
 def log_capture(run_name, info, card):
@@ -1417,7 +1466,7 @@ def prefill_w4a8_run(cfg, model, dev, card, runs):
     assert bool(torch.isfinite(got).all()) and cos >= 0.99, run_name
     assert len(seq) == prompt_len + 8 and steps == 7, run_name
     witness(run_name, caches[0].spec.max_cache_length, launches,
-            expected_launches(cfg, kw, steps, prefill_w4a8=True), runs)
+            expected_launches(cfg, kw, steps, cache_lengths(caches), prefill_w4a8=True), runs)
 
 
 def check_outputs(run_name, cfg, seq, info, caches, prompt_len, new_tokens, hybrid=False):
@@ -1528,7 +1577,7 @@ def cli_full_run(dev, card, runs):
     assert len(set(lengths)) > 1 and any(n % 128 for n in lengths), lengths
     check_outputs(CLI_RUN, cfg, seq, info, caches, P, 128)
     witness(CLI_RUN, lengths[0], launches,
-            expected_launches(cfg, cli_kw(args), perf["decode_steps"]), runs)
+            expected_launches(cfg, cli_kw(args), perf["decode_steps"], cache_lengths(caches)), runs)
 
 
 def int8_bench_run(dev, card, runs, profile=False):
@@ -1554,7 +1603,9 @@ def int8_bench_run(dev, card, runs, profile=False):
 
 def end_to_end(dev, card, runs, profile=False):
     from cold_compress_tpu_torch.models.config import ModelConfig
-    from cold_compress_tpu_torch.models.transformer import make_linear, make_rope_table
+    from cold_compress_tpu_torch.models.transformer import (
+        make_linear, make_rope_table, set_attn_i8dot,
+    )
 
     t0 = time.perf_counter()
     cfg, model = build_model("Meta-Llama-3-8B-Instruct", 0, dev, 8192)
@@ -1562,9 +1613,23 @@ def end_to_end(dev, card, runs, profile=False):
     log(f"[e2e] Llama-3-8B built in {time.perf_counter() - t0:.1f} s: {cfg.n_layer} layers, "
         f"load peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # The main path: bench.py's default configuration.
-    e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model, cache_kw("heavy_hitter", 8),
-            8192, 128, dev, card, runs, "w4a8_gemv.head", profile, eager_check=True)
+    # The main path: bench.py's default configuration (decode attention in
+    # the i8dot branch, as the TPU program routes it).
+    main = e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model,
+                   cache_kw("heavy_hitter", 8), 8192, 128, dev, card, runs, "w4a8_gemv.head",
+                   profile, eager_check=True)
+
+    # The main path with decode attention's dequantizing branch (bench
+    # --attn_i8dot off), beside it.
+    set_attn_i8dot(model, False)
+    try:
+        off = e2e_run("main path, attn_i8dot off", cfg, model, cache_kw("heavy_hitter", 8), 8192,
+                      64, dev, card, runs, "w4a8_gemv.head")
+    finally:
+        set_attn_i8dot(model, "auto")
+    log(f"[e2e] main path decode tok/s: attn_i8dot auto (i8dot) "
+        f"{main['decode_toks_per_sec']:.3f} over {main['decode_steps']} steps, off "
+        f"{off['decode_toks_per_sec']:.3f} over {off['decode_steps']} steps  [{card}]")
 
     # FastGen hybrid at bench.py's defaults (its menu and token classes).
     e2e_run("hybrid kv8 (bench's FastGen menu)", cfg, model, cache_kw("hybrid", 8), 8192, 64,
@@ -1640,6 +1705,11 @@ def main() -> int:
             check_decode(dev, records, bits, need_attn, 2048)
     for bits in (16, 8, 4):
         check_decode(dev, records, bits, False, 32768)
+    for bits in (8, 4, 2):
+        for need_attn in (True, False):
+            check_decode(dev, records, bits, need_attn, 2048, i8dot=True)
+    for bits in (8, 4):
+        check_decode(dev, records, bits, False, 32768, i8dot=True)
     check_hh_evict(dev, records)
     for name, IN, OUT in W8A8_SHAPES:
         check_w8a8(dev, records, name, IN, OUT)

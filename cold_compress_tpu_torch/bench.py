@@ -20,7 +20,10 @@ default there too; int4 layers only), and ``--weight_bits 8/16``: int8
 layers (``random_quantized_params(mode="int8")``, whose head is int8 at
 either ``--head_bits``, as in the JAX package) through the W8A8 kernel, or
 dense bf16 layers and head (``init_params``, seed 0) through
-``torch.matmul``. ``--batch`` above 1 is not ported yet and raises. Decode
+``torch.matmul``; ``--attn_i8dot {auto,on,off}``, decode attention's branch
+over a quantized cache (``auto``, the default: the JAX program's on a TPU,
+int8 queries and probabilities for the int8 cache where its kernel runs; the
+JSON line names the mode). ``--batch`` above 1 is not ported yet and raises. Decode
 replays a captured CUDA graph of one step on the card (the warm-up run
 captures it, the measured run replays it).
 """
@@ -36,6 +39,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from .utils.cli import ATTN_I8DOT, ATTN_I8DOT_HELP
 
 NOT_PORTED = "is not ported yet"
 
@@ -107,6 +112,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prefill_w4a8", action="store_true",
                     help="Prefill the int4 layer projections with the W4A8 kernel (int8 "
                          "activations) instead of bf16 dequantization.")
+    ap.add_argument("--attn_i8dot", default="auto", choices=list(ATTN_I8DOT),
+                    help=ATTN_I8DOT_HELP)
     args = ap.parse_args(argv)
     if args.prefill_w4a8 and args.weight_bits != 4:
         raise ValueError("--prefill_w4a8 needs int4 layers (--weight_bits 4)")
@@ -144,7 +151,7 @@ def run(args: argparse.Namespace) -> dict:
         params = params_from_flat(random_quantized_params(
             cfg, seed=0, mode=f"int{args.weight_bits}", head_mode=f"int{args.head_bits}"), device)
     model = build_model(cfg, params, device, max_positions=args.context,
-                        prefill_w4a8=args.prefill_w4a8)
+                        prefill_w4a8=args.prefill_w4a8, attn_i8dot=ATTN_I8DOT[args.attn_i8dot])
     del params
     specs = build_cache_specs(cfg, kw, args.context)
     caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
@@ -176,6 +183,7 @@ def run(args: argparse.Namespace) -> dict:
             "decode_tokens": args.decode_tokens,
             "batch": args.batch,
             "prefill_w4a8": args.prefill_w4a8,
+            "attn_i8dot": args.attn_i8dot,
             "prefill_toks_per_sec": round(perf["prefill_toks_per_sec"], 1),
             "model_gb": round(model_bytes / 1e9, 2),
             "cache_memory_gb": round(sum(cache_memory_gb(c) for c in caches), 3),

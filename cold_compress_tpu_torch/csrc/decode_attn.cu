@@ -2,14 +2,14 @@
 // in one launch per call.
 //
 // Replaces the TPU kernels of cold_compress_tpu/ops/pallas_decode_attn.py::
-// quantized_decode_attention, all of which compute one contract (the i8dot
-// variants excepted):
+// quantized_decode_attention, all of which compute one contract in either of
+// two branches (`i8dot` off, or on for bits 8/4/2):
 //   - the one-shot `_kernel` at bits 16/8/4/2, need_attn True or False;
 //   - the chunked online-softmax kernels `_kernel_chunked(_ms)` and
 //     `_chunk_step`, the manual double-buffered `_kernel_manual` and the slim
 //     `_kernel_v2`, which serve caches above the one-shot VMEM budget.
 // One kernel serves every cache length here, so it follows the one-shot
-// numerics at every C:
+// numerics at every C. The dequantizing branch (I8 false):
 //   k = bf16(u * s + z'), z' = z - 2^(BITS-1) * s   (BITS 8/4/2; no FMA)
 //   k = the stored bf16 value                        (BITS 16)
 //   scores = (q_bf16 . k) in f32 * 1/sqrt(D); masked slots -> -1e30
@@ -19,6 +19,29 @@
 //   out = sum_c bf16(probs[g][c]) * v in f32, written in q's dtype
 // The TPU's chunked kernel rounds the unnormalised e (not p) to bf16 before
 // P.V; the difference is bounded in the tests.
+//
+// The i8dot branch (I8 true; `_i8_scores`, `_i8_pv`, pallas_decode_attn.py:
+// 118-199) never dequantizes an element: u is the stored integer (kv8: the
+// byte ^ 0x80 as int8, i.e. u - 128, with the raw zero z; kv4/kv2: the
+// unsigned bit-range value, with the folded zero z'), and
+//   qs = max(max_d |q|, 1e-8) * f32(1/127), qq = rint(q / qs) (int8),
+//   scores = (f32(int32 qq . u) * qs * s + sum_d q * z) * 1/sqrt(D),
+//   probs = softmax as above (f32; the pooled mean from these),
+//   ps = max(max_c |p * s_v|, 1e-30) * f32(1/127), pq = rint(p * s_v / ps),
+//   out = f32(int32 pq . u_v) * ps + sum_c p * z_v,
+// each product an s8 x s8 -> s32 `mma.sync.m16n8k32` on the tensor cores.
+// ps is a maximum over all C, but the cluster splits C: each CTA publishes,
+// beside (m_s, l_s), the (score, |s_v|) of its slot with the largest
+// exp(score - m_s) * |s_v|, and the fold recomputes that slot's |p * s_v|
+// with the global (m, 1/l) exactly as the P.V loop forms it, so ps is the
+// maximum of the very values the kernel quantizes, except where two slots of
+// one CTA lie within an ulp or so of each other (then ps moves by about an
+// ulp and only exact rounding ties of pq can move; tests bound the result).
+// The int32 partials of P.V are summed exactly; the f32 sums of the zero
+// term fold in CTA order like the rest. The TPU's chunked kernel quantizes
+// each chunk's unnormalised e with its own scale (:274-296); this kernel
+// follows the one-shot numerics at every C (the tests bound the gap). The
+// int32 sums hold |pq . u_v| <= 127 * 128 * C, below 2^31 up to C = 131072.
 //
 // Storage: BITS 16 holds bf16 rows of D values. BITS 8 holds one byte per
 // value. BITS 4/2 use the segment packing of caches/base.py::_pack_last:
@@ -69,6 +92,8 @@ constexpr int kStages = 3;
 constexpr int kSmemScoreBytes = 64 * 1024;         // scores above this go to global
 constexpr int kMaskPre = 8;                        // mask bytes a thread loads up front
 constexpr float kNegInf = -1e30f;
+constexpr float kInv127 = (float)(1.0 / 127.0);   // XLA's f32 constant for x / 127
+constexpr int kStat = 4;                           // per head: m_s, l_s, candidate score, |s_v|
 
 // Row layout of one cache format.
 template <int BITS>
@@ -89,21 +114,26 @@ struct Fmt {
   static constexpr int kSideFloats = BITS == 16 ? 0 : 2 * kTileRows;  // scales, zeros
 };
 
-// Byte offsets of one CTA's dynamic shared memory.
+// Byte offsets of one CTA's dynamic shared memory; qz, qst, redc and partz
+// are the i8dot branch's only (empty otherwise).
 struct Layout {
-  size_t side, redm, redl, stats, fin, part, scores, total;
+  size_t side, redm, redl, stats, fin, part, qz, qst, redc, partz, scores, total;
 };
 
 template <int BITS>
-__host__ __device__ inline Layout layout(int MG, int G, int per, bool smem_scores) {
+__host__ __device__ inline Layout layout(int MG, int G, int per, bool smem_scores, bool i8) {
   Layout L;
   L.side = (size_t)kStages * Fmt<BITS>::kStageBytes;
   L.redm = L.side + (size_t)kStages * Fmt<BITS>::kSideFloats * 4;
   L.redl = L.redm + kWarps * kMaxG * 4;
   L.stats = L.redl + kWarps * kMaxG * 4;
-  L.fin = L.stats + kMaxG * 2 * 4;
-  L.part = L.fin + 2 * kMaxG * 4;
-  L.scores = L.part + (size_t)MG * kD * 4;
+  L.fin = L.stats + kMaxG * kStat * 4;
+  L.part = L.fin + 3 * kMaxG * 4;
+  L.qz = L.part + (size_t)MG * kD * 4;
+  L.qst = L.qz + (i8 ? kMaxG * kD : 0);
+  L.redc = L.qst + (i8 ? 2 * kMaxG * 4 : 0);
+  L.partz = L.redc + (i8 ? 3 * kWarps * kMaxG * 4 : 0);
+  L.scores = L.partz + (i8 ? kMaxG * 4 : 0);
   L.total = L.scores + (smem_scores ? (size_t)G * per * 4 : 0);
   return L;
 }
@@ -188,6 +218,64 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a2
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// m16n8k32 s8 x s8 product on the tensor cores, s32 accumulate. A's rows are
+// (a0, a2) = row gid, (a1, a3) = row gid + 8, columns 4 tig + 0..3 and
+// 16 + 4 tig + 0..3; B's (b0, b1) the same k for column gid.
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// i8dot scores S^T = K qq^T as m16n8k32 products: M = 16 cache rows (K's
+// bytes are A fragments as stored), N = 8 >= G query heads, K = 32 of the
+// 128 columns per step, four steps. Lane (gid, tig) reads the same quarter
+// of its rows as the bf16 path (kRowBytes / 4 bytes); step ks, half h (a0/b0
+// or a2/b1) takes one word of it, four values of consecutive columns from
+// i8_kcol(tig, ks, h) on (kv4/kv2: one bit range of the word), and q's B
+// fragment takes the same columns.
+template <int BITS>
+__device__ __forceinline__ int i8_kcol(int tig, int ks, int h) {
+  if constexpr (BITS == 8) return tig * 32 + ks * 8 + h * 4;
+  if constexpr (BITS == 4) return (ks >> 1) * 64 + tig * 16 + ((ks & 1) * 2 + h) * 4;
+  return ks * 32 + tig * 8 + h * 4;  // BITS 2
+}
+
+// The signed A fragment of step ks, half h from the lane's quarter row `w`.
+template <int BITS>
+__device__ __forceinline__ uint32_t i8_kfrag(const uint32_t* w, int ks, int h) {
+  if constexpr (BITS == 8) return w[2 * ks + h] ^ 0x80808080u;
+  if constexpr (BITS == 4) return (w[(ks & 1) * 2 + h] >> ((ks >> 1) * 4)) & 0x0F0F0F0Fu;
+  return (w[h] >> (ks * 2)) & 0x03030303u;  // BITS 2
+}
+
+// Four values of one V word as signed bytes (kv8: u ^ 0x80; kv4/kv2: the bit
+// range at `shift` of each byte).
+template <int BITS>
+__device__ __forceinline__ uint32_t i8_vword(uint32_t w, int shift) {
+  if constexpr (BITS == 8) return w ^ 0x80808080u;
+  return (w >> shift) & (BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u);
+}
+
+// 4 x 4 byte transpose: w[j] holds row j's bytes of columns 0..3; t[c]
+// becomes column c's bytes of rows 0..3 (a B fragment: four consecutive k).
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&t)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), lo23 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362), hi23 = __byte_perm(w[2], w[3], 0x7362);
+  t[0] = __byte_perm(lo01, lo23, 0x5410);
+  t[1] = __byte_perm(lo01, lo23, 0x7632);
+  t[2] = __byte_perm(hi01, hi23, 0x5410);
+  t[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xFF) | ((uint32_t)(b & 0xFF) << 8) | ((uint32_t)(c & 0xFF) << 16) |
+         ((uint32_t)(d & 0xFF) << 24);
 }
 
 // Scores S = q K^T as m16n8k16 products: M = the G query heads, N = 8 cache
@@ -321,7 +409,152 @@ struct Ring {
   }
 };
 
+// ---- the i8dot branch's P.V, its sums and the output (after the fold) ----
+// P.V as m16n8k32 s8 products: M = the G query heads (rows 8-15 zero), K = 32
+// cache rows of a step, N = 8 columns per product. Lane (gid, tig) holds, of
+// each 16-row half hb of the step, the rows r32 + 16 hb + tig + 4 j (j = 0..3,
+// A's and B's k = 4 tig + j; rows 4 apart so that the four tig lanes of an
+// access meet distinct banks), and 8 values of each row as VLane reads them
+// for the bf16 path; a 4 x 4 byte transpose turns four rows' words into B
+// fragments of four columns. The product's C column c (= 2 tig + j) is then
+// output column half * 64 + c * 8 + nn, as in the bf16 path.
 template <int BITS, bool NEED_ATTN, int MG>
+__device__ __forceinline__ void i8_pv(Ring<BITS>& ring, const float* sc, size_t ss,
+                                      const float* fin, float* pooled, float* part,
+                                      float* partz, float* redz, size_t bh, int C, int c_begin,
+                                      int G, int nc, int rank, void* out, int out_bf16,
+                                      cg::cluster_group& cluster) {
+  using F = Fmt<BITS>;
+  using VL = VLane<BITS>;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nt = ring.nt;
+  // Warp w takes column half w & 1 of the 32-row steps w >> 1, w >> 1 + kWarps / 2, ...
+  constexpr int kSteps = (F::kTileRows / 32 * 2 + kWarps - 1) / kWarps;
+  const int half = warp & 1;
+  const int vbyte = VL::byte0(gid, half), vshift = VL::shift(gid, half);
+  const bool head = gid < G;
+  const float m = head ? fin[gid] : 0.f, il = head ? fin[kMaxG + gid] : 0.f;
+  const float ps = head ? fin[2 * kMaxG + gid] : 1.f;
+  int o[8][4] = {};
+  float zt = 0.f;  // this lane's share of sum_c p * z_v for head gid
+  for (int i = nt; i < 2 * nt; ++i) {
+    ring.wait(i);
+    const int st = i % kStages;
+    const int rows_i = ring.tile_rows(i);
+    const int t0 = (i - nt) * F::kTileRows;
+    const uint8_t* tile = ring.rows + (size_t)st * F::kStageBytes;
+    const float* side = ring.side + (size_t)st * F::kSideFloats;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int r32 = ((warp >> 1) + u * (kWarps / 2)) * 32;
+      if (r32 >= rows_i) break;  // uniform across the warp
+      float p[8];
+      int pq[8];
+      uint32_t vw[8][2];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        const int key = r32 + (rr >> 2) * 16 + tig + 4 * (rr & 3);
+        p[rr] = 0.f;
+        pq[rr] = 0;
+        if (head && key < rows_i) {
+          // p with the global (m, 1 / l), as the fold formed ps's candidates.
+          p[rr] = __fmul_rn(exp2f(sc[gid * ss + t0 + key] - m), il);
+          const float sv = side[key];
+          const float zv = BITS == 8 ? side[F::kTileRows + key]
+                                     : folded_zero<BITS>(side[F::kTileRows + key], sv);
+          pq[rr] = __float2int_rn(__fdiv_rn(__fmul_rn(p[rr], sv), ps));
+          zt = __fadd_rn(zt, __fmul_rn(p[rr], zv));
+        }
+        // Rows past the ragged end hold stale bytes; they meet pq = 0.
+        load_words<2>(tile + (size_t)key * F::kVStride + vbyte, vw[rr]);
+      }
+      if constexpr (NEED_ATTN) {
+        // Sum over the heads (the lanes of one tig); half 0 writes it.
+#pragma unroll
+        for (int rr = 0; rr < 8; ++rr) {
+          float v = p[rr];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          const int key = r32 + (rr >> 2) * 16 + tig + 4 * (rr & 3);
+          if (half == 0 && gid == 0 && key < rows_i)
+            pooled[bh * C + c_begin + t0 + key] = v * (1.0f / (float)G);
+        }
+      }
+      const uint32_t a0 = pack_s8(pq[0], pq[1], pq[2], pq[3]);
+      const uint32_t a2 = pack_s8(pq[4], pq[5], pq[6], pq[7]);
+#pragma unroll
+      for (int wd = 0; wd < 2; ++wd) {
+        uint32_t w0[4], w1[4], b0[4], b1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          w0[j] = i8_vword<BITS>(vw[j][wd], vshift);
+          w1[j] = i8_vword<BITS>(vw[4 + j][wd], vshift);
+        }
+        transpose4(w0, b0);
+        transpose4(w1, b1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mma_s8(o[wd * 4 + c], a0, 0u, a2, 0u, b0[c], b1[c]);
+      }
+    }
+    __syncthreads();
+    ring.issue(i + kStages);
+  }
+
+  // Sum the warps of each column half in order, in s32 (exact; the ring is
+  // free now), and the zero term's shares (lanes of a head, then the half-0
+  // warps in order). o[nn][j]: head gid, column half * 64 + (2 tig + j) * 8 + nn.
+  int* red = reinterpret_cast<int*>(ring.rows);  // [kWarps][MG][kD]
+  if (head) {
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        red[(warp * MG + gid) * kD + half * 64 + (tig * 2 + j) * 8 + nn] = o[nn][j];
+  }
+  zt += __shfl_xor_sync(0xffffffffu, zt, 1);
+  zt += __shfl_xor_sync(0xffffffffu, zt, 2);
+  if (half == 0 && tig == 0 && head) redz[warp * kMaxG + gid] = zt;
+  __syncthreads();
+  int* ipart = reinterpret_cast<int*>(part);
+  for (int e = tid; e < G * kD; e += kThreads) {
+    const int dh = (e >> 6) & 1;  // the column's half
+    int sum = 0;
+    for (int w = dh; w < kWarps; w += 2) sum += red[w * MG * kD + e];
+    ipart[e] = sum;
+  }
+  if (tid < G) {
+    float z = 0.f;
+    for (int w = 0; w < kWarps; w += 2) z += redz[w * kMaxG + tid];
+    partz[tid] = z;
+  }
+
+  // Column slice `rank` of the output: the cluster's s32 partials summed,
+  // then f32(sum) * ps + (zero term summed in CTA order).
+  cluster.sync();
+  const int E = G * kD;
+  const int chunk = (E + nc - 1) / nc;
+  const int e1 = min(E, (rank + 1) * chunk);
+  for (int e = rank * chunk + tid; e < e1; e += kThreads) {
+    const int g = e / kD;
+    int s = 0;
+    float z = 0.f;
+    for (int r = 0; r < nc; ++r) {
+      s += cluster.map_shared_rank(ipart, r)[e];
+      z += cluster.map_shared_rank(partz, r)[g];
+    }
+    const float y = __fadd_rn(__fmul_rn((float)s, fin[2 * kMaxG + g]), z);
+    if (out_bf16)
+      reinterpret_cast<__nv_bfloat16*>(out)[bh * E + e] = __float2bfloat16(y);
+    else
+      reinterpret_cast<float*>(out)[bh * E + e] = y;
+  }
+  // Peers may still read this CTA's partials.
+  cluster.sync();
+}
+
+template <int BITS, bool NEED_ATTN, int MG, bool I8>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
                    const uint8_t* __restrict__ kc,       // [B, KVH, C, row bytes]
@@ -345,12 +578,16 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
   const int c_begin = min(C, rank * per);
   const int n = min(C, c_begin + per) - c_begin;
 
-  const Layout L = layout<BITS>(MG, G, per, smem_scores);
+  const Layout L = layout<BITS>(MG, G, per, smem_scores, I8);
   float* redm = reinterpret_cast<float*>(smem + L.redm);   // [kWarps][kMaxG]
   float* redl = reinterpret_cast<float*>(smem + L.redl);   // [kWarps][kMaxG]
-  float* stats = reinterpret_cast<float*>(smem + L.stats); // [kMaxG][2]: m_s, l_s
-  float* fin = reinterpret_cast<float*>(smem + L.fin);     // [2][kMaxG]: m, 1 / l
-  float* part = reinterpret_cast<float*>(smem + L.part);   // [G][kD]
+  float* stats = reinterpret_cast<float*>(smem + L.stats); // [kMaxG][kStat]
+  float* fin = reinterpret_cast<float*>(smem + L.fin);     // [3][kMaxG]: m, 1 / l, ps
+  float* part = reinterpret_cast<float*>(smem + L.part);   // [G][kD], s32 for I8
+  uint8_t* qz = smem + L.qz;                               // [kMaxG][kD] int8 q (I8)
+  float* qst = reinterpret_cast<float*>(smem + L.qst);     // [2][kMaxG]: qs, sum q (I8)
+  float* redc = reinterpret_cast<float*>(smem + L.redc);   // [kWarps][kMaxG][3] (I8)
+  float* partz = reinterpret_cast<float*>(smem + L.partz); // [kMaxG]: sum p z_v (I8)
   // Scores of head g at local slot c: sc[g * ss + c].
   float* sc = smem_scores ? reinterpret_cast<float*>(smem + L.scores)
                           : ws_scores + bh * G * C + c_begin;
@@ -371,30 +608,78 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
   const int nt = ring.nt;
 
   // Before the ring's copies queue up: q's A fragments (head gid, the
-  // columns kcol gives this lane), and the first mask bytes of the slots
-  // this thread owns in the softmax below.
+  // columns kcol gives this lane), and the first mask bytes (I8: and V
+  // scales) of the slots this thread owns in the softmax below.
   const int gid = lane >> 2, tig = lane & 3;
   uint32_t qa[8][2];
-  const unsigned short* qh = reinterpret_cast<const unsigned short*>(q) + (bh * G + gid) * kD;
+  if constexpr (!I8) {
+    const unsigned short* qh = reinterpret_cast<const unsigned short*>(q) + (bh * G + gid) * kD;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2)
-      qa[kk][h2] = gid < G ? (uint32_t)qh[kcol<BITS>(tig, kk, 2 * h2)] |
-                                 ((uint32_t)qh[kcol<BITS>(tig, kk, 2 * h2 + 1)] << 16)
-                           : 0u;
+      for (int h2 = 0; h2 < 2; ++h2)
+        qa[kk][h2] = gid < G ? (uint32_t)qh[kcol<BITS>(tig, kk, 2 * h2)] |
+                                   ((uint32_t)qh[kcol<BITS>(tig, kk, 2 * h2 + 1)] << 16)
+                             : 0u;
+  }
   bool okpre[kMaskPre];
+  float svpre[kMaskPre];
 #pragma unroll
   for (int u = 0; u < kMaskPre; ++u) {
     const int c = u * kThreads + tid;
     okpre[u] = c < n && mask[bh * C + c_begin + c];
+    if constexpr (I8) svpre[u] = c < n ? fabsf(vs[bh * C + c_begin + c]) : 0.f;
   }
 
 #pragma unroll
   for (int i = 0; i < kStages; ++i) ring.issue(i);
 
-  // ---- 1. scores on the tensor cores: 8 cache rows per product ----
+  // i8dot: warp g quantizes head g's q (lane: columns 4 lane + 0..3) while
+  // the first tiles load; then every lane takes its B fragments (head gid,
+  // the columns i8_kcol gives) and the scales and sums of heads 2 tig, 2 tig + 1.
+  uint32_t qb[4][2];
+  float qs2[2], qsum2[2];
+  if constexpr (I8) {
+    if (warp < G) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(q + (bh * G + warp) * kD + lane * 4);
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+      const float qf[4] = {__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi)};
+      float amax = fmaxf(fmaxf(fabsf(qf[0]), fabsf(qf[1])), fmaxf(fabsf(qf[2]), fabsf(qf[3])));
+      float sum = (qf[0] + qf[1]) + (qf[2] + qf[3]);
+      for (int off = 16; off > 0; off >>= 1) {
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      }
+      const float qs = __fmul_rn(fmaxf(amax, 1e-8f), kInv127);
+      int qi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) qi[j] = __float2int_rn(__fdiv_rn(qf[j], qs));
+      reinterpret_cast<uint32_t*>(qz + warp * kD)[lane] = pack_s8(qi[0], qi[1], qi[2], qi[3]);
+      if (lane == 0) {
+        qst[warp] = qs;
+        qst[kMaxG + warp] = sum;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        qb[ks][h2] = gid < G ? *reinterpret_cast<const uint32_t*>(
+                                   qz + gid * kD + i8_kcol<BITS>(tig, ks, h2))
+                             : 0u;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool ok = 2 * tig + j < G;
+      qs2[j] = ok ? qst[2 * tig + j] : 0.f;
+      qsum2[j] = ok ? qst[kMaxG + 2 * tig + j] : 0.f;
+    }
+  }
+
+  // ---- 1. scores on the tensor cores: 8 (I8: 16) cache rows per product ----
   constexpr int kRowTiles = F::kTileRows / 8 / kWarps;  // products per warp per tile
+  constexpr int kRowBlocks = (F::kTileRows / 16 + kWarps - 1) / kWarps;  // I8: 16-row blocks
   constexpr int kQuarter = F::kRowBytes / 4;             // a lane's bytes of a row
   for (int i = 0; i < nt; ++i) {
     ring.wait(i);
@@ -403,39 +688,73 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
     const uint8_t* tile = ring.rows + (size_t)st * F::kStageBytes;
     const float* side = ring.side + (size_t)st * F::kSideFloats;
     // Rows past the ragged end compute on stale bytes and are not written.
+    if constexpr (I8) {
 #pragma unroll
-    for (int u = 0; u < kRowTiles; ++u) {
-      const int r8 = (warp + u * kWarps) * 8;
-      if (r8 >= rows_i) break;  // uniform across the warp
-      const int r = r8 + gid;
-      uint32_t w[kQuarter / 4];
-      const uint8_t* row = tile + (size_t)r * F::kKStride;
-      if constexpr (BITS == 16) {
+      for (int u = 0; u < kRowBlocks; ++u) {
+        const int r16 = (warp + u * kWarps) * 16;
+        if (r16 >= rows_i) break;  // uniform across the warp
+        uint32_t wa[kQuarter / 4], wb[kQuarter / 4];
+        load_words<kQuarter / 4>(tile + (size_t)(r16 + gid) * F::kKStride + tig * kQuarter, wa);
+        load_words<kQuarter / 4>(tile + (size_t)(r16 + gid + 8) * F::kKStride + tig * kQuarter, wb);
+        int c4[4] = {0, 0, 0, 0};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) load_words<4>(row + (tig + 4 * c) * 16, w + 4 * c);
-      } else {
-        load_words<kQuarter / 4>(row + tig * kQuarter, w);
+        for (int ks = 0; ks < 4; ++ks)
+          mma_s8(c4, i8_kfrag<BITS>(wa, ks, 0), i8_kfrag<BITS>(wb, ks, 0),
+                 i8_kfrag<BITS>(wa, ks, 1), i8_kfrag<BITS>(wb, ks, 1), qb[ks][0], qb[ks][1]);
+        // c4[2 rr + j]: row r16 + gid + 8 rr, head 2 tig + j.
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int key = r16 + gid + 8 * rr;
+          if (key >= rows_i) continue;
+          const float sk = side[key];
+          const float zk = BITS == 8 ? side[F::kTileRows + key]
+                                     : folded_zero<BITS>(side[F::kTileRows + key], sk);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int g = 2 * tig + j;
+            if (g < G)
+              sc[g * ss + i * F::kTileRows + key] = __fmul_rn(
+                  __fadd_rn(__fmul_rn(__fmul_rn((float)c4[2 * rr + j], qs2[j]), sk),
+                            __fmul_rn(qsum2[j], zk)),
+                  scale);
+          }
+        }
       }
-      float s = 0.f, zp = 0.f;
-      if constexpr (BITS != 16) {
-        s = side[r];
-        zp = folded_zero<BITS>(side[F::kTileRows + r], s);
-      }
-      // Two accumulators (even and odd steps) halve the chain of
-      // dependent products.
-      float c4[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    } else {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        uint32_t b0, b1;
-        k_frag<BITS>(w, kk, s, zp, b0, b1);
-        mma_bf16(c4[kk & 1], qa[kk][0], qa[kk][1], b0, b1);
-      }
-      // c4[.][j]: head gid, row r8 + 2 tig + j.
+      for (int u = 0; u < kRowTiles; ++u) {
+        const int r8 = (warp + u * kWarps) * 8;
+        if (r8 >= rows_i) break;  // uniform across the warp
+        const int r = r8 + gid;
+        uint32_t w[kQuarter / 4];
+        const uint8_t* row = tile + (size_t)r * F::kKStride;
+        if constexpr (BITS == 16) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = r8 + tig * 2 + j;
-        if (gid < G && key < rows_i)
-          sc[gid * ss + i * F::kTileRows + key] = (c4[0][j] + c4[1][j]) * scale;
+          for (int c = 0; c < 4; ++c) load_words<4>(row + (tig + 4 * c) * 16, w + 4 * c);
+        } else {
+          load_words<kQuarter / 4>(row + tig * kQuarter, w);
+        }
+        float s = 0.f, zp = 0.f;
+        if constexpr (BITS != 16) {
+          s = side[r];
+          zp = folded_zero<BITS>(side[F::kTileRows + r], s);
+        }
+        // Two accumulators (even and odd steps) halve the chain of
+        // dependent products.
+        float c4[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t b0, b1;
+          k_frag<BITS>(w, kk, s, zp, b0, b1);
+          mma_bf16(c4[kk & 1], qa[kk][0], qa[kk][1], b0, b1);
+        }
+        // c4[.][j]: head gid, row r8 + 2 tig + j.
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int key = r8 + tig * 2 + j;
+          if (gid < G && key < rows_i)
+            sc[gid * ss + i * F::kTileRows + key] = (c4[0][j] + c4[1][j]) * scale;
+        }
       }
     }
     __syncthreads();
@@ -477,45 +796,114 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
   }
   __syncthreads();
   float ms[MG], ls[MG];
+  // I8: per head, the slot with the largest exp(score - m_s) * |s_v| (its
+  // value, score and |s_v|), for the cluster-wide ps.
+  float bv[MG], bs[MG], bsv[MG];
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
     ms[g] = redm[g];
     for (int w = 1; w < kWarps; ++w) ms[g] = fmaxf(ms[g], redm[w * kMaxG + g]);
     ls[g] = 0.f;
+    bv[g] = -1.f;
+    bs[g] = kNegInf;
+    bsv[g] = 0.f;
   }
-  for (int c = tid; c < n; c += kThreads) {
+  for (int c0 = 0; c0 < n; c0 += kMaskPre * kThreads) {
 #pragma unroll
-    for (int g = 0; g < MG; ++g)
-      if (g < G) ls[g] += exp2f(sc[g * ss + c] - ms[g]);
+    for (int u = 0; u < kMaskPre; ++u) {
+      const int c = c0 + u * kThreads + tid;
+      if (c >= n) break;
+      float sv = 0.f;
+      if constexpr (I8) sv = c0 == 0 ? svpre[u] : fabsf(vs[bh * C + c_begin + c]);
+#pragma unroll
+      for (int g = 0; g < MG; ++g)
+        if (g < G) {
+          const float s = sc[g * ss + c];
+          const float e = exp2f(s - ms[g]);
+          ls[g] += e;
+          if constexpr (I8) {
+            const float v = e * sv;
+            if (v > bv[g]) {
+              bv[g] = v;
+              bs[g] = s;
+              bsv[g] = sv;
+            }
+          }
+        }
+    }
   }
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
     float v = ls[g];
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     if (lane == 0) redl[warp * kMaxG + g] = v;
+    if constexpr (I8) {
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv[g], off);
+        const float os = __shfl_xor_sync(0xffffffffu, bs[g], off);
+        const float osv = __shfl_xor_sync(0xffffffffu, bsv[g], off);
+        if (ov > bv[g]) {
+          bv[g] = ov;
+          bs[g] = os;
+          bsv[g] = osv;
+        }
+      }
+      if (lane == 0) {
+        float* r = redc + (warp * kMaxG + g) * 3;
+        r[0] = bv[g];
+        r[1] = bs[g];
+        r[2] = bsv[g];
+      }
+    }
   }
   __syncthreads();
   if (tid < G) {
     float l = 0.f;
     for (int w = 0; w < kWarps; ++w) l += redl[w * kMaxG + tid];
-    stats[tid * 2] = ms[tid];
-    stats[tid * 2 + 1] = l;
+    stats[tid * kStat] = ms[tid];
+    stats[tid * kStat + 1] = l;
+    if constexpr (I8) {
+      const float* best = redc + tid * 3;
+      for (int w = 1; w < kWarps; ++w) {
+        const float* r = redc + (w * kMaxG + tid) * 3;
+        if (r[0] > best[0]) best = r;
+      }
+      stats[tid * kStat + 2] = best[1];
+      stats[tid * kStat + 3] = best[2];
+    }
   }
 
   // ---- 2. global (m, l) from every CTA of the cluster, in CTA order ----
   cluster.sync();
   if (tid < G) {
     float m = kNegInf;
-    for (int r = 0; r < nc; ++r) m = fmaxf(m, cluster.map_shared_rank(stats, r)[tid * 2]);
+    for (int r = 0; r < nc; ++r) m = fmaxf(m, cluster.map_shared_rank(stats, r)[tid * kStat]);
     float l = 0.f;
     for (int r = 0; r < nc; ++r) {
       const float* st = cluster.map_shared_rank(stats, r);
-      l += st[tid * 2 + 1] * exp2f(st[tid * 2] - m);
+      l += st[tid * kStat + 1] * exp2f(st[tid * kStat] - m);
     }
+    const float il = __fdiv_rn(1.0f, l);
     fin[tid] = m;
-    fin[kMaxG + tid] = __fdiv_rn(1.0f, l);
+    fin[kMaxG + tid] = il;
+    if constexpr (I8) {
+      // Each CTA's candidate |p * s_v|, formed as the P.V loop forms it.
+      float amax = 0.f;
+      for (int r = 0; r < nc; ++r) {
+        const float* st = cluster.map_shared_rank(stats, r);
+        amax = fmaxf(amax, fabsf(__fmul_rn(__fmul_rn(exp2f(st[tid * kStat + 2] - m), il),
+                                           st[tid * kStat + 3])));
+      }
+      fin[2 * kMaxG + tid] = __fmul_rn(fmaxf(amax, 1e-30f), kInv127);
+    }
   }
   __syncthreads();
+
+  if constexpr (I8) {
+    i8_pv<BITS, NEED_ATTN, MG>(ring, sc, ss, fin, pooled, part, partz, redc, bh, C, c_begin,
+                                G, nc, rank, out, out_bf16, cluster);
+    return;
+  }
 
   // ---- partial P.V on the tensor cores: 16 cache rows per step ----
   // Warp w takes column half w & 1 of steps w >> 1, w >> 1 + kWarps / 2, ...
@@ -625,19 +1013,14 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
   cluster.sync();
 }
 
-template <int BITS, bool NEED_ATTN, int MG>
-const void* kernel_fn() {
-  return (const void*)decode_attn_kernel<BITS, NEED_ATTN, MG>;
-}
-
 // Shared memory the kernel may ask for at most, set once per variant; 16-CTA
 // clusters are above the portable size of 8.
-template <int BITS, bool NEED_ATTN, int MG>
+template <int BITS, bool NEED_ATTN, int MG, bool I8>
 cudaError_t prepare() {
   static bool done = false;
   if (done) return cudaSuccess;
-  const void* fn = kernel_fn<BITS, NEED_ATTN, MG>();
-  const size_t most = layout<BITS>(MG, MG, kSmemScoreBytes / (MG * 4), true).total;
+  const void* fn = (const void*)decode_attn_kernel<BITS, NEED_ATTN, MG, I8>;
+  const size_t most = layout<BITS>(MG, MG, kSmemScoreBytes / (MG * 4), true, I8).total;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -653,7 +1036,7 @@ struct Call {
   float scale;
 };
 
-template <int BITS, bool NEED_ATTN, int MG>
+template <int BITS, bool NEED_ATTN, int MG, bool I8>
 void config(const Call& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
             cudaStream_t st) {
   const int per = cta_slots(a.C, a.nc);
@@ -661,7 +1044,7 @@ void config(const Call& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(a.nc, a.KVH, a.B);
   cfg->blockDim = dim3(kThreads, 1, 1);
-  cfg->dynamicSmemBytes = layout<BITS>(MG, a.G, per, fit).total;
+  cfg->dynamicSmemBytes = layout<BITS>(MG, a.G, per, fit, I8).total;
   cfg->stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = a.nc;
@@ -671,15 +1054,15 @@ void config(const Call& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <int BITS, bool NEED_ATTN, int MG>
+template <int BITS, bool NEED_ATTN, int MG, bool I8>
 int launch(const Call& a, cudaStream_t st) {
-  cudaError_t e = prepare<BITS, NEED_ATTN, MG>();
+  cudaError_t e = prepare<BITS, NEED_ATTN, MG, I8>();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  config<BITS, NEED_ATTN, MG>(a, &cfg, attr, st);
+  config<BITS, NEED_ATTN, MG, I8>(a, &cfg, attr, st);
   const int per = cta_slots(a.C, a.nc);
-  e = cudaLaunchKernelEx(&cfg, decode_attn_kernel<BITS, NEED_ATTN, MG>,
+  e = cudaLaunchKernelEx(&cfg, decode_attn_kernel<BITS, NEED_ATTN, MG, I8>,
                          (const __nv_bfloat16*)a.q, (const uint8_t*)a.kc, (const uint8_t*)a.vc,
                          (const float*)a.ks, (const float*)a.kz, (const float*)a.vs,
                          (const float*)a.vz, (const uint8_t*)a.mask, a.out, (float*)a.pooled,
@@ -689,33 +1072,43 @@ int launch(const Call& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int BITS, bool NEED_ATTN, int MG>
+template <int BITS, bool NEED_ATTN, int MG, bool I8>
 int max_clusters(const Call& a) {
-  cudaError_t e = prepare<BITS, NEED_ATTN, MG>();
+  cudaError_t e = prepare<BITS, NEED_ATTN, MG, I8>();
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  config<BITS, NEED_ATTN, MG>(a, &cfg, attr, 0);
+  config<BITS, NEED_ATTN, MG, I8>(a, &cfg, attr, 0);
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, decode_attn_kernel<BITS, NEED_ATTN, MG>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, decode_attn_kernel<BITS, NEED_ATTN, MG, I8>, &cfg);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// Runs F<BITS, NEED_ATTN, MG>(a) for the call's variant (MG: 4 for G <= 4,
-// else 8); cudaErrorInvalidValue for a variant it does not have.
-template <template <int, bool, int> class F>
-int dispatch(const Call& a, int bits, int need_attn) {
+// Runs F<BITS, NEED_ATTN, MG, I8>(a) for the call's variant (MG: 4 for G <= 4,
+// else 8); cudaErrorInvalidValue for a variant it does not have (i8dot over
+// a bf16 cache).
+template <template <int, bool, int, bool> class F>
+int dispatch(const Call& a, int bits, int need_attn, int i8dot) {
   const bool g4 = a.G <= 4;
-#define CCT_DECODE_CASE(BITS_)                                                   \
-  case BITS_:                                                                    \
-    if (need_attn)                                                               \
-      return g4 ? F<BITS_, true, 4>::run(a) : F<BITS_, true, 8>::run(a);         \
-    return g4 ? F<BITS_, false, 4>::run(a) : F<BITS_, false, 8>::run(a);
+#define CCT_DECODE_CASE(BITS_, I8_)                                                  \
+  case BITS_:                                                                        \
+    if (need_attn)                                                                   \
+      return g4 ? F<BITS_, true, 4, I8_>::run(a) : F<BITS_, true, 8, I8_>::run(a);   \
+    return g4 ? F<BITS_, false, 4, I8_>::run(a) : F<BITS_, false, 8, I8_>::run(a);
+  if (i8dot) {
+    switch (bits) {
+      CCT_DECODE_CASE(8, true)
+      CCT_DECODE_CASE(4, true)
+      CCT_DECODE_CASE(2, true)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (bits) {
-    CCT_DECODE_CASE(16)
-    CCT_DECODE_CASE(8)
-    CCT_DECODE_CASE(4)
-    CCT_DECODE_CASE(2)
+    CCT_DECODE_CASE(16, false)
+    CCT_DECODE_CASE(8, false)
+    CCT_DECODE_CASE(4, false)
+    CCT_DECODE_CASE(2, false)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -724,14 +1117,14 @@ int dispatch(const Call& a, int bits, int need_attn) {
 
 cudaStream_t g_stream;
 
-template <int BITS, bool NEED_ATTN, int MG>
+template <int BITS, bool NEED_ATTN, int MG, bool I8>
 struct Launch {
-  static int run(const Call& a) { return launch<BITS, NEED_ATTN, MG>(a, g_stream); }
+  static int run(const Call& a) { return launch<BITS, NEED_ATTN, MG, I8>(a, g_stream); }
 };
 
-template <int BITS, bool NEED_ATTN, int MG>
+template <int BITS, bool NEED_ATTN, int MG, bool I8>
 struct MaxClusters {
-  static int run(const Call& a) { return max_clusters<BITS, NEED_ATTN, MG>(a); }
+  static int run(const Call& a) { return max_clusters<BITS, NEED_ATTN, MG, I8>(a); }
 };
 
 bool valid(int B, int KVH, int C, int G, int nc) {
@@ -751,7 +1144,7 @@ extern "C" size_t decode_attention_workspace(int B, int KVH, int C, int G, int n
 // Clusters of `nc` CTAs of this variant that fit on the card at once
 // (cudaOccupancyMaxActiveClusters); negative on a CUDA error.
 extern "C" int decode_attention_max_clusters(int B, int KVH, int C, int G, int nc, int bits,
-                                             int need_attn) {
+                                             int need_attn, int i8dot) {
   if (!valid(B, KVH, C, G, nc)) return -(int)cudaErrorInvalidValue;
   Call a{};
   a.B = B;
@@ -759,22 +1152,23 @@ extern "C" int decode_attention_max_clusters(int B, int KVH, int C, int G, int n
   a.C = C;
   a.G = G;
   a.nc = nc;
-  return dispatch<MaxClusters>(a, bits, need_attn);
+  return dispatch<MaxClusters>(a, bits, need_attn, i8dot);
 }
 
 // bits: 16 (bf16 rows; scale/zero pointers unused), 8, 4 or 2.
 // need_attn: write pooled [B, KVH, C] (else pooled is unused).
+// i8dot: the integer branch (bits 8, 4, 2 only).
 // nc: CTAs per cluster, 1..16, at most C. out: [B, H, D] in bf16 when
 // out_bf16, else f32. workspace: decode_attention_workspace floats.
 extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 const void* ks, const void* kz, const void* vs,
                                 const void* vz, const void* mask, void* out, void* pooled,
                                 void* workspace, int B, int KVH, int C, int G, int nc,
-                                int bits, int need_attn, int out_bf16, float scale,
+                                int bits, int need_attn, int i8dot, int out_bf16, float scale,
                                 void* stream) {
   if (!valid(B, KVH, C, G, nc)) return (int)cudaErrorInvalidValue;
   Call a{q, kc, vc, ks, kz, vs, vz, mask, out, pooled, workspace,
          B, KVH, C, G, nc, out_bf16, scale};
   g_stream = (cudaStream_t)stream;
-  return dispatch<Launch>(a, bits, need_attn);
+  return dispatch<Launch>(a, bits, need_attn, i8dot);
 }

@@ -19,6 +19,8 @@ the architecture, and a path containing ``byte`` selects the byte-level
 tokenizer, which needs no tokenizer file. ``--random_weights <model>`` runs
 ``init_params`` weights (seed 0, bf16) with the byte tokenizer.
 On the card, decode replays a captured CUDA graph of one step.
+``--attn_i8dot {auto,on,off}`` picks decode attention's branch over a
+quantized cache (auto: the JAX program's default on a TPU).
 ``--profile PATH`` writes a ``torch.profiler`` trace of the run;
 ``--compile`` is accepted and does nothing. ``run(args)`` returns
 ``(sequence, info, caches)`` for programs that drive the CLI.
@@ -48,6 +50,7 @@ from .runtime.generate import bucket_length, generate
 from .runtime.stats import get_cache_stats, print_stats
 from .tokenizer import encode, get_tokenizer
 from .utils.cli import (
+    ATTN_I8DOT,
     add_cache_arguments,
     add_generation_arguments,
     merge_cache_config,
@@ -135,7 +138,8 @@ def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None):
                      "punctuation": tokenizer.punctuation_ids()}
     specs = build_cache_specs(cfg, vars(args), max_seq_length, token_ids=token_ids)
     # Rope rows for the prefill bucket (a power of two) and every decode step.
-    model = build_model(cfg, params, device, max_positions=bucket_length(max_seq_length))
+    model = build_model(cfg, params, device, max_positions=bucket_length(max_seq_length),
+                        attn_i8dot=ATTN_I8DOT[getattr(args, "attn_i8dot", "auto")])
     del params
     caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
 

@@ -30,7 +30,7 @@ from ..caches import (
 )
 from ..device import resolve_device
 from ..ops.attention import gqa_attention, prefill_attention
-from ..ops.decode_attn import decode_attention, decode_attn_supported
+from ..ops.decode_attn import I8DOT_MODES, decode_attention, decode_attn_supported, i8dot_route
 from ..ops.linear import DenseLinear, Int8Linear, QuantizedLinear
 from .config import ModelConfig
 from .rope import apply_rotary_emb, precompute_freqs_cis
@@ -85,11 +85,13 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """The model: embeddings, blocks, final norm, vocab head and the rope
     table. ``params`` is a fused parameter tree of tensors on one device
-    (``runtime/engine.py::params_from_flat`` builds it)."""
+    (``runtime/engine.py::params_from_flat`` builds it). ``attn_i8dot`` is
+    decode attention's ``i8dot`` mode (``set_attn_i8dot``)."""
 
     def __init__(self, cfg: ModelConfig, params: Params, rope: torch.Tensor):
         super().__init__()
         self.cfg = cfg
+        self.attn_i8dot = "auto"
         self.register_buffer("tok_embeddings", params["tok_embeddings"])
         self.layers = nn.ModuleList(Block(lp) for lp in params["layers"])
         self.register_buffer("norm", params["norm"])
@@ -112,6 +114,19 @@ def set_prefill_w4a8(model: Transformer, on: bool) -> None:
             if not isinstance(lin, QuantizedLinear):
                 raise ValueError("prefill_w4a8 needs int4 layer weights")
             lin.prefill_w4a8 = on
+
+
+def set_attn_i8dot(model: Transformer, mode) -> None:
+    """Choose decode attention's branch over a quantized cache (the explicit
+    counterpart of the JAX package's ``CCT_ATTN_I8DOT``): ``"auto"`` (the
+    default) the TPU program's choice, the integer ``i8dot`` branch for an
+    int8 cache where the TPU runs its kernel and the dequantizing branch
+    elsewhere (``ops/decode_attn.py::i8dot_route``); True the ``i8dot``
+    branch at every quantized cache (a bf16 cache then raises at decode);
+    False the dequantizing branch everywhere."""
+    if not (mode == "auto" or isinstance(mode, bool)):
+        raise ValueError(f"attn_i8dot mode {mode!r} (takes {I8DOT_MODES})")
+    model.attn_i8dot = mode
 
 
 def make_rope_table(cfg: ModelConfig, max_positions: Optional[int] = None,
@@ -217,15 +232,16 @@ def fill_from_kv(strategy, compressor, cache: CacheState, k, v, summary, input_p
 
 
 def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freqs,
-                     attn_top_k: float = 1.0, token=None):
+                     attn_top_k: float = 1.0, token=None, i8dot="auto"):
     """Single-token decode attention over the fixed-budget cache; the new
     token is inserted BEFORE attention so it attends to itself. ``token``
     [B] is the current id (hybrid tracks punctuation with it).
 
     Every cache precision (bf16, int8, int4, int2) goes to the decode
-    kernel (K3/K5), which dequantizes inside the kernel, never in device
-    memory. Only what the JAX package also leaves to XLA takes the plain
-    math over ``materialize_kv`` (models/transformer.py:311 there):
+    kernel (K3/K5), which reads the cache as stored, never dequantized in
+    device memory, in the branch that ``i8dot`` (a ``set_attn_i8dot`` mode)
+    routes it to. Only what the JAX package also leaves to XLA takes the
+    plain math over ``materialize_kv`` (models/transformer.py:311 there):
     ``attn_top_k < 1``, head_dim other than 128, more than 8 query heads
     per KV head."""
     spec = cache.spec
@@ -235,9 +251,11 @@ def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freq
     decode_update(strategy, cache, input_pos, k, v, token=token)
     need_attn = strategy_needs_attn(strategy, spec)
     if attn_top_k >= 1.0 and decode_attn_supported(q.shape, cfg.n_kv_head):
+        bits = spec.cache_bits or 16
         y, pooled = decode_attention(
             q, cache.k, cache.v, cache.k_scales, cache.k_zeros, cache.v_scales,
-            cache.v_zeros, cache.mask, bits=spec.cache_bits or 16, need_attn=need_attn,
+            cache.v_zeros, cache.mask, bits=bits, need_attn=need_attn,
+            i8dot=i8dot_route(i8dot, bits, cache.k.shape[2], cfg.n_kv_head, cfg.head_dim),
         )
     else:
         k_cache, v_cache = materialize_kv(cache, dtype=k.dtype)
@@ -317,7 +335,7 @@ def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.T
     for layer, cache in zip(model.layers, caches):
         attn_out = attention_decode(
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
-            cache, input_pos, freqs, attn_top_k, token=token,
+            cache, input_pos, freqs, attn_top_k, token=token, i8dot=model.attn_i8dot,
         )
         x = _block(cfg, layer, x, attn_out)
     return _logits(model, x)[:, 0]

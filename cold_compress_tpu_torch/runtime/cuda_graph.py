@@ -13,8 +13,8 @@ raises; nothing carries on eagerly.
 Every tensor the step reads or writes lives at a fixed address: the model's
 weights, the caches (updated in place) and the loop's ``LoopBuffers``, which
 the graph owns. The graph is kept on the model and replayed by a later
-``generate()`` whose caches, weights, batch, ``attn_top_k`` and terminator
-count match (``graph_key``): a second call after ``reset_caches`` replays
+``generate()`` whose caches, weights, batch, ``attn_top_k``, decode
+attention's ``i8dot`` mode and terminator count match (``graph_key``): a second call after ``reset_caches`` replays
 without capturing.
 
 Launch counters (``ops.kernel_launches``) are Python increments that a
@@ -92,8 +92,9 @@ class LoopBuffers:
 def graph_key(model, caches, B: int, attn_top_k: float, n_term: int) -> tuple:
     """What a captured step depends on: the model's config and the address,
     type and shape of every weight, the cache specs and the address, type
-    and shape of every cache tensor, the batch, ``attn_top_k`` and the
-    terminator count."""
+    and shape of every cache tensor, the batch, ``attn_top_k``, the
+    terminator count and decode attention's ``i8dot`` mode (a Python
+    attribute, which no tensor holds)."""
 
     def where(t: torch.Tensor):
         return t.data_ptr(), t.dtype, tuple(t.shape)
@@ -101,7 +102,7 @@ def graph_key(model, caches, B: int, attn_top_k: float, n_term: int) -> tuple:
     weights = tuple((type(m).__name__, tuple(where(b) for b in m.buffers(recurse=False)))
                     for m in model.modules())
     cache_part = tuple((c.spec, tuple(where(t) for t in c.tensors())) for c in caches)
-    return (model.cfg, weights, cache_part, B, float(attn_top_k), n_term)
+    return (model.cfg, weights, cache_part, B, float(attn_top_k), n_term, model.attn_i8dot)
 
 
 @dataclass

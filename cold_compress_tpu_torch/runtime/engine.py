@@ -29,6 +29,7 @@ from ..models.transformer import (
     Transformer,
     fuse_layer_params,
     make_rope_table,
+    set_attn_i8dot,
     set_prefill_w4a8,
 )
 
@@ -256,15 +257,19 @@ def load_model(checkpoint_path, precision: Optional[torch.dtype] = torch.bfloat1
 
 
 def build_model(cfg: ModelConfig, params: Dict[str, Any], device=None,
-                max_positions: Optional[int] = None, prefill_w4a8: bool = False) -> Transformer:
+                max_positions: Optional[int] = None, prefill_w4a8: bool = False,
+                attn_i8dot="auto") -> Transformer:
     """Fuse q/k/v and w1/w3, repack int4 leaves into the kernel layout and
     build the ``Transformer`` with a rope table for ``max_positions``.
     ``prefill_w4a8`` sends the int4 layer projections' prefill to the W4A8
-    prefill kernel (K8; off by default, as in the JAX package)."""
+    prefill kernel (K8; off by default, as in the JAX package);
+    ``attn_i8dot`` is decode attention's ``i8dot`` mode
+    (``models/transformer.py::set_attn_i8dot``)."""
     dev = resolve_device(device)
     rope = make_rope_table(cfg, max_positions, device=dev)
     model = Transformer(cfg, fuse_layer_params(params), rope).to(dev)
     if prefill_w4a8:
         set_prefill_w4a8(model, True)
+    set_attn_i8dot(model, attn_i8dot)
     return model
 

@@ -31,6 +31,14 @@ CACHE_CONFIG_DIR = Path(__file__).resolve().parents[2] / "cache_configs"
 
 NOT_PORTED_PARALLEL = "is not ported yet (ROADMAP: Parallelism)"
 
+#: ``--attn_i8dot`` choices and the ``set_attn_i8dot`` mode each stands for.
+ATTN_I8DOT = {"auto": "auto", "on": True, "off": False}
+ATTN_I8DOT_HELP = (
+    "Decode attention's branch over a quantized cache: auto (default) as the JAX program "
+    "on a TPU, int8 queries and probabilities on the int8 tensor cores for an int8 cache "
+    "where its kernel runs, dequantized K/V elsewhere; on: the int8 branch at every "
+    "quantized cache; off: dequantized K/V everywhere.")
+
 
 def add_cache_arguments(parser: argparse.ArgumentParser):
     group = parser.add_argument_group("cache_args")
@@ -110,6 +118,8 @@ def add_generation_arguments(parser: argparse.ArgumentParser):
         "--attn_top_k", type=float, default=1.0,
         help="Fraction of top-K attentions over which to aggregate values during decode.",
     )
+    group.add_argument("--attn_i8dot", default="auto", choices=list(ATTN_I8DOT),
+                       help=ATTN_I8DOT_HELP)
     group.add_argument("--tp", type=int, default=1,
                        help=f"Tensor-parallel degree; only 1 (more {NOT_PORTED_PARALLEL}).")
     group.add_argument("--tp_kernels", action="store_true",

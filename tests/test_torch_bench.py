@@ -18,7 +18,8 @@ REPO = Path(__file__).resolve().parents[1]
 #: figure), plus the card's name and power limit.
 CONFIG_KEYS = {
     "model", "weight_bits", "head_bits", "cache_bits", "strategy", "context", "budget_frac",
-    "decode_tokens", "batch", "prefill_w4a8", "prefill_toks_per_sec", "model_gb", "cache_memory_gb",
+    "decode_tokens", "batch", "prefill_w4a8", "attn_i8dot", "prefill_toks_per_sec", "model_gb",
+    "cache_memory_gb",
     "memory_used_gb", "weight_stream_gbps", "backend", "device", "card",
 }
 
@@ -42,7 +43,7 @@ def test_smoke_command_prints_one_json_line():
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1
     _check(json.loads(lines[0]), model="TestTiny", strategy="heavy_hitter", cache_bits=8,
-           head_bits=4, context=128, decode_tokens=16)
+           head_bits=4, context=128, decode_tokens=16, attn_i8dot="auto")
 
 
 @pytest.mark.parametrize("argv,config", [
@@ -62,6 +63,9 @@ def test_smoke_command_prints_one_json_line():
     (["--weight_bits", "16", "--cache_bits", "16"], {"weight_bits": 16, "cache_bits": None}),
     (["--strategy", "debug_heavy_hitter", "--weight_bits", "8"],
      {"strategy": "debug_heavy_hitter", "weight_bits": 8}),
+    (["--attn_i8dot", "off"], {"attn_i8dot": "off"}),
+    (["--strategy", "l2", "--cache_bits", "4", "--attn_i8dot", "on"],
+     {"attn_i8dot": "on", "cache_bits": 4}),
 ])
 def test_smoke_serves_other_configurations(argv, config, capsys):
     """``--smoke`` fixes the model, context and token count; the cache and

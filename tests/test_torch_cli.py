@@ -170,6 +170,8 @@ def test_cache_config_overlay_matches_jax(path):
         ours.pop(key, None), ref.pop(key, None)
     for key in ("tp", "sp", "pp", "dp", "tp_kernels", "profile", "compile", "model_name"):
         assert ours.pop(key) == ref.pop(key), key
+    # The port's flag for the JAX package's CCT_ATTN_I8DOT environment variable.
+    assert ours.pop("attn_i8dot") == "auto"
     assert ours == ref
     cfg_j = JaxModelConfig.from_name("TestKernel")
     token_ids = {"special": [[256], [257]], "punctuation": [32, 33, 46]}

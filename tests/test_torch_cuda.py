@@ -265,6 +265,49 @@ def test_decode_attention_is_deterministic(dev, bits, need_attn):
         assert torch.equal(a[1], b[1])
 
 
+@pytest.mark.parametrize("bits,need_attn,C,G,B,KVH", [
+    (8, True, 2048, 4, 1, 8), (8, False, 2048, 4, 1, 8), (4, True, 2048, 4, 1, 8),
+    (4, False, 2048, 4, 1, 8), (2, True, 2048, 4, 1, 8), (2, False, 2048, 4, 1, 8),
+    (8, False, 32768, 4, 1, 8), (4, False, 32768, 4, 1, 8),
+    (8, True, 300, 8, 2, 2), (4, False, 300, 8, 2, 2), (2, True, 4093, 1, 2, 2),
+    (8, True, 1, 4, 2, 2),
+])
+def test_i8dot_decode_attention_matches_plain(dev, bits, need_attn, C, G, B, KVH):
+    """The i8dot variant at the 8B decode shapes (C = 2048 at every
+    precision, C = 32768), a ragged last tile, one slot, and G = 1 and 8,
+    against ``decode_attention_i8dot_plain``: the int32 dots are exact on
+    both sides, so only f32 order (and with it a rounding tie of the int8
+    probabilities) differs. It counts its own launches, never the
+    dequantizing variant's."""
+    args = _decode_case(dev, 900 + bits + C + G, bits, B, KVH, C, G)
+    name, other = (decode_attn.variant(bits, need_attn, True),
+                   decode_attn.variant(bits, need_attn, False))
+    before = dict(decode_attn.LAUNCHES)
+    out, pooled = decode_attn.decode_attention(*args, bits=bits, need_attn=need_attn, i8dot=True)
+    assert decode_attn.LAUNCHES[name] == before[name] + 1
+    assert decode_attn.LAUNCHES[other] == before[other]
+    ref_out, ref_pooled = decode_attn.decode_attention_i8dot_plain(*args, bits, need_attn)
+    _assert_bf16_out_close(out, ref_out, 2**-8)
+    if need_attn:
+        torch.testing.assert_close(pooled, ref_pooled, rtol=1e-5, atol=1e-7)
+    again = decode_attn.decode_attention(*args, bits=bits, need_attn=need_attn, i8dot=True)
+    assert torch.equal(out, again[0]) and (not need_attn or torch.equal(pooled, again[1]))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+def test_i8dot_decode_attention_explicit_cluster(dev, bits, cluster):
+    """The i8dot variant's probability scale is a maximum over the whole
+    cluster: the same answer against the plain version at any cluster size
+    (one CTA over 4096 slots keeps its scores in the global workspace)."""
+    args = _decode_case(dev, 177 + cluster, bits, 2, 2, 4096, 8)
+    out, pooled = decode_attn.decode_attention(*args, bits=bits, need_attn=True, i8dot=True,
+                                               cluster=cluster)
+    ref_out, ref_pooled = decode_attn.decode_attention_i8dot_plain(*args, bits, True)
+    _assert_bf16_out_close(out, ref_out, 2**-8)
+    torch.testing.assert_close(pooled, ref_pooled, rtol=1e-5, atol=1e-7)
+
+
 def test_decode_attention_rejects_what_it_does_not_take(dev):
     B, KVH, C = 1, 2, 256
     g = _gen(dev, 5)
@@ -278,6 +321,10 @@ def test_decode_attention_rejects_what_it_does_not_take(dev):
                                      need_attn=True)
     with pytest.raises(ValueError):  # missing scales
         decode_attn.decode_attention(q, kc, kc, None, kz, ks, kz, mask, bits=4, need_attn=True)
+    kb = torch.zeros((B, KVH, C, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="i8dot"):  # integer branch over a bf16 cache
+        decode_attn.decode_attention(q, kb, kb, None, None, None, None, mask, bits=16,
+                                     need_attn=True, i8dot=True)
 
 
 @pytest.mark.parametrize("B,H,C", [(1, 8, 2048), (2, 3, 300), (1, 2, 4096)])
@@ -444,7 +491,9 @@ def test_flash_profile_is_deterministic(dev):
 
 def test_generate_on_card_matches_cpu(dev):
     """TestKernel, int4 weights and head, kv8 heavy-hitter, teacher-forced:
-    the port on the card (kernels) against the port on the CPU (plain)."""
+    the port on the card (kernels) against the port on the CPU (plain);
+    decode attention in the i8dot branch (``auto`` at C = 128, as the TPU
+    program routes it)."""
     from cold_compress_tpu_torch.models.config import ModelConfig
     from cold_compress_tpu_torch.models.transformer import init_caches
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
@@ -471,7 +520,8 @@ def test_generate_on_card_matches_cpu(dev):
     e_c, _ = out["cpu"]
     np.testing.assert_allclose(e_g, e_c, rtol=2e-2)
     assert launches["flash_prefill_summary"] == cfg.n_layer
-    assert launches["decode_attention.kv8"] == cfg.n_layer * 7
+    assert launches["decode_attention.kv8.i8dot"] == cfg.n_layer * 7
+    assert "decode_attention.kv8" not in launches or launches["decode_attention.kv8"] == 0
     assert launches["hh_evict"] == cfg.n_layer * 7
     assert launches["w4a8_gemv.head"] == 8
 
@@ -682,21 +732,26 @@ def test_int8_layer_projection_runs_w8a8_kernel(dev):
 GRAPH_PROMPT = np.random.RandomState(0).randint(2, 500, size=300).tolist()
 GRAPH_FORCED = np.random.RandomState(1).randint(2, 500, size=8).tolist()
 #: (strategy, cache bits (16 = bf16), vocab head, extra cache options,
-#: attn_top_k): the main path's kernels (kv8 heavy_hitter), hybrid's
-#: per-head step, the counter-based draws of random, l2 over kv4 with the
-#: int8 head (K9), the debug shadow and its loss counter, a full bf16 cache,
-#: the eager W > 1 heavy-hitter history, attn_top_k < 1 (plain attention
-#: over the dequantized cache) and the position-only strategies.
+#: attn_top_k, decode attention's i8dot mode): the main path's kernels (kv8
+#: heavy_hitter, i8dot by the TPU program's routing), hybrid's per-head
+#: step, the counter-based draws of random, l2 over kv4 with the int8 head
+#: (K9), the debug shadow and its loss counter, a full bf16 cache, the eager
+#: W > 1 heavy-hitter history, attn_top_k < 1 (plain attention over the
+#: dequantized cache), the position-only strategies, and the main path's
+#: cache in the dequantizing branch and a kv4 one in the i8dot branch.
 GRAPH_CASES = {
-    "heavy_hitter_kv8": ("heavy_hitter", 8, "int4", {}, 1.0),
-    "hybrid_kv8": ("hybrid", 8, "int4", {}, 1.0),
-    "random_kv4": ("random", 4, "int4", {}, 1.0),
-    "l2_kv4_int8_head": ("l2", 4, "int8", {}, 1.0),
-    "debug_heavy_hitter_kv8": ("debug_heavy_hitter", 8, "int4", {}, 1.0),
-    "full_bf16": ("full", 16, "int4", {}, 1.0),
-    "heavy_hitter_kv8_window4": ("heavy_hitter", 8, "int4", {"history_window_size": 4}, 1.0),
-    "heavy_hitter_kv8_top_half": ("heavy_hitter", 8, "int4", {}, 0.5),
-    "keep_it_odd_kv2": ("keep_it_odd", 2, "int4", {}, 1.0),
+    "heavy_hitter_kv8": ("heavy_hitter", 8, "int4", {}, 1.0, "auto"),
+    "hybrid_kv8": ("hybrid", 8, "int4", {}, 1.0, "auto"),
+    "random_kv4": ("random", 4, "int4", {}, 1.0, "auto"),
+    "l2_kv4_int8_head": ("l2", 4, "int8", {}, 1.0, "auto"),
+    "debug_heavy_hitter_kv8": ("debug_heavy_hitter", 8, "int4", {}, 1.0, "auto"),
+    "full_bf16": ("full", 16, "int4", {}, 1.0, "auto"),
+    "heavy_hitter_kv8_window4": ("heavy_hitter", 8, "int4", {"history_window_size": 4}, 1.0,
+                                 "auto"),
+    "heavy_hitter_kv8_top_half": ("heavy_hitter", 8, "int4", {}, 0.5, "auto"),
+    "keep_it_odd_kv2": ("keep_it_odd", 2, "int4", {}, 1.0, "auto"),
+    "heavy_hitter_kv8_i8dot_off": ("heavy_hitter", 8, "int4", {}, 1.0, False),
+    "heavy_hitter_kv4_i8dot_on": ("heavy_hitter", 4, "int4", {}, 1.0, True),
 }
 
 
@@ -721,7 +776,7 @@ def _graph_caches(cfg, case):
     from cold_compress_tpu_torch.models.transformer import init_caches
     from cold_compress_tpu_torch.runtime.engine import build_cache_specs
 
-    strategy, bits, _, extra, _ = case
+    strategy, bits, _, extra, _, _ = case
     kw = cache_kwargs(strategy, 0.25, 4, None if bits == 16 else bits) | extra
     return init_caches(cfg, build_cache_specs(cfg, kw, 512), 1, torch.bfloat16, device="cuda")
 
@@ -762,11 +817,20 @@ def test_graph_decode_is_bit_equal_to_eager(graph_models, case, mode):
     step that emits it). A second call on the same caches after
     ``reset_caches`` replays without capturing again and equals a fresh
     eager run."""
+    from cold_compress_tpu_torch.models.transformer import set_attn_i8dot
     from cold_compress_tpu_torch.runtime.generate import reset_caches
 
     cfg, models = graph_models
     spec = GRAPH_CASES[case]
     model, top_k = models[spec[2]], spec[4]
+    set_attn_i8dot(model, spec[5])
+    try:
+        _graph_against_eager(cfg, model, spec, top_k, mode, reset_caches)
+    finally:
+        set_attn_i8dot(model, "auto")
+
+
+def _graph_against_eager(cfg, model, spec, top_k, mode, reset_caches):
     if mode == "teacher_forced":
         kw = {"next_tokens": GRAPH_FORCED}
     else:
@@ -787,3 +851,31 @@ def test_graph_decode_is_bit_equal_to_eager(graph_models, case, mode):
     _assert_same_run(second, eager)
     if mode == "terminator":
         assert eager[6] == gen.index(stop), "the loop did not stop at the terminator"
+
+
+def test_graph_recaptures_when_the_i8dot_mode_changes(graph_models):
+    """A step captured with decode attention in one branch is never replayed
+    in the other: after a switch of ``set_attn_i8dot`` the next call
+    captures again, launches the other branch's kernel and equals an eager
+    run in that mode; switching back captures again."""
+    from cold_compress_tpu_torch.models.transformer import set_attn_i8dot
+    from cold_compress_tpu_torch.runtime.generate import reset_caches
+
+    cfg, models = graph_models
+    model, spec = models["int4"], GRAPH_CASES["heavy_hitter_kv8"]
+    kw = {"next_tokens": GRAPH_FORCED}
+    caches = _graph_caches(cfg, spec)
+    try:
+        runs = {}
+        for mode in ("auto", False, "auto"):
+            set_attn_i8dot(model, mode)
+            eager = _decode_run(model, _graph_caches(cfg, spec), False, 1.0, **kw)
+            graph = _decode_run(model, reset_caches(caches), True, 1.0, **kw)
+            assert graph[5]["captured"], mode
+            _assert_same_run(graph, eager)
+            counter = "decode_attention.kv8" + (".i8dot" if mode == "auto" else "")
+            assert graph[4].get(counter) == cfg.n_layer * 7, (mode, graph[4])
+            runs[mode] = graph
+        assert not np.array_equal(runs["auto"][1], runs[False][1])
+    finally:
+        set_attn_i8dot(model, "auto")

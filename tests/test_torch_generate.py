@@ -198,9 +198,13 @@ def _jax_run(cfg, qp, env, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def port_kernel_run(kernel_params):
+def port_kernel_run(kernel_params, request):
+    """The port's run, with decode attention's ``i8dot`` mode ``off`` (the
+    dequantizing branch, as JAX's XLA path and ``CCT_ATTN_I8DOT=0``) unless
+    a test asks for ``auto`` (the TPU program's default)."""
     _, qp = kernel_params
     cfg, model = _port_model("TestKernel", qp, 512)
+    TT.set_attn_i8dot(model, {"off": False, "auto": "auto"}[getattr(request, "param", "off")])
     caches = _port_caches(cfg, KV8_KW, 512, torch.bfloat16)
     before = kernel_launches()
     seq, info, caches = generate(model, caches, PROMPT, 8, prefill_bucket=512,
@@ -223,6 +227,14 @@ def port_kernel_run(kernel_params):
 # relative of each other and the port keeps the other one, which moves
 # final_probs by up to 4% (0.04 in log-probability).
 LOGP_TOL = 8e-2
+# The port's i8dot branch against the TPU program's (both i8dot): measured
+# 9.67e-3 relative on the steps and 0.0633 on the final log-probabilities
+# (the matched dequantizing pair: 7.9e-3 and 0.0231). Decode attention
+# agrees closely (tests/test_torch_i8dot.py); the final step's gap is the
+# heavy-hitter near-tie above, which the other branch resolves the other
+# way. The bounds are at or below the dequantizing pair's 3e-2 and 8e-2.
+AUTO_STEPS_RTOL = 2e-2
+AUTO_LOGP_TOL = LOGP_TOL
 
 
 def _check_probs(e, f, e_ref, f_ref, first_rtol, steps_rtol, logp_tol=LOGP_TOL):
@@ -232,8 +244,11 @@ def _check_probs(e, f, e_ref, f_ref, first_rtol, steps_rtol, logp_tol=LOGP_TOL):
     assert float(np.abs(np.log(f) - np.log(f_ref)).max()) <= logp_tol
 
 
-@pytest.mark.parametrize("i8dot,steps_rtol,logp_tol", [("0", 3e-2, LOGP_TOL),
-                                                      ("1", 2e-2, 6.8e-2)])
+@pytest.mark.parametrize("port_kernel_run,i8dot,steps_rtol,logp_tol", [
+    pytest.param("off", "0", 3e-2, LOGP_TOL, id="0-0.03-0.08"),
+    pytest.param("off", "1", 2e-2, 6.8e-2, id="1-0.02-0.068"),
+    pytest.param("auto", "1", AUTO_STEPS_RTOL, AUTO_LOGP_TOL, id="auto-1"),
+], indirect=["port_kernel_run"])
 def test_int4_kv8_matches_tpu_program_in_interpret_mode(kernel_params, port_kernel_run,
                                                         monkeypatch, i8dot, steps_rtol,
                                                         logp_tol):
@@ -242,13 +257,15 @@ def test_int4_kv8_matches_tpu_program_in_interpret_mode(kernel_params, port_kern
     round at the same places but for K4's P.V (normalised vs unnormalised
     probabilities to bf16) and the cpt sidecar's bf16 zero term.
 
-    ``CCT_ATTN_I8DOT=0``: per-step probabilities within 3% relative, final
-    log-probabilities within ``LOGP_TOL``. ``CCT_ATTN_I8DOT=1``, the JAX
-    package's default for kv8 caches (int8 queries and probabilities in the
-    decode attention, which the port does not take): measured 1.16e-2
-    relative on the steps and 0.0343 on the final log-probabilities (0.0079
-    and 0.0231 with i8dot off); the bounds, 2e-2 and 6.8e-2, are under
-    twice those."""
+    Like against like: the port's dequantizing decode attention against
+    ``CCT_ATTN_I8DOT=0`` (``[0-...]``), per-step probabilities within 3%
+    relative, final log-probabilities within ``LOGP_TOL``; the port's
+    ``auto`` (its i8dot branch here, C = 128) against ``CCT_ATTN_I8DOT=1``,
+    the JAX package's default for kv8 caches (``[auto-1]``), within
+    ``AUTO_STEPS_RTOL`` and ``AUTO_LOGP_TOL``. Across branches (``[1-...]``:
+    the port's dequantizing branch against i8dot): measured 1.16e-2 relative
+    on the steps and 0.0343 on the final log-probabilities; the bounds, 2e-2
+    and 6.8e-2, are under twice those."""
     cfg, qp = kernel_params
     e_ref, f_ref = _jax_run(cfg, qp, {"CCT_PALLAS_INTERPRET": "1", "CCT_TILED_HEAD": "1",
                                       "CCT_ATTN_I8DOT": i8dot}, monkeypatch)
@@ -258,7 +275,8 @@ def test_int4_kv8_matches_tpu_program_in_interpret_mode(kernel_params, port_kern
 
 def test_int4_kv8_matches_jax_xla_path(kernel_params, port_kernel_run, monkeypatch):
     """Against JAX's plain XLA path (bf16 activations into dequantized
-    weights): the 5e-2 of tests/test_gates_e2e.py, taken relative."""
+    weights, dequantized K/V in decode attention, as the port's run with
+    i8dot off): the 5e-2 of tests/test_gates_e2e.py, taken relative."""
     cfg, qp = kernel_params
     e_ref, f_ref = _jax_run(cfg, qp, {}, monkeypatch)
     e, f = port_kernel_run
@@ -325,7 +343,10 @@ def bf16_kernel_params():
 
 
 def _port_forced_run(qp):
+    """The port with decode attention's dequantizing branch, as its JAX
+    counterparts (``CCT_ATTN_I8DOT=0``, the XLA path) compute it."""
     cfg, model = _port_model("TestKernel", qp, 512)
+    TT.set_attn_i8dot(model, False)
     before = kernel_launches()
     seq, info, _ = generate(model, _port_caches(cfg, KV8_KW, 512, torch.bfloat16), PROMPT, 8,
                             prefill_bucket=512, next_tokens=FORCED)

@@ -63,8 +63,10 @@ def models():
     jcfg = JaxModelConfig.from_name("TestKernel")
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     cfg = ModelConfig.from_name("TestKernel")
+    # The JAX package's XLA path attends over dequantized K/V: the port's
+    # dequantizing branch (its kv8 default is the TPU kernel's i8dot).
     model = build_model(cfg, params_from_flat(_flatten(jparams), "cpu"), "cpu",
-                        max_positions=MAX_SEQ)
+                        max_positions=MAX_SEQ, attn_i8dot=False)
     return jcfg, jparams, JT.make_rope_table(jcfg), cfg, model
 
 

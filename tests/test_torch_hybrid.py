@@ -331,7 +331,9 @@ def test_generate_test_kernel_kv8_matches_jax():
                                      KERNEL_PROMPT, len(KERNEL_FORCED), prefill_bucket=512,
                                      next_tokens=KERNEL_FORCED)
     cfg = ModelConfig.from_name("TestKernel")
-    model = build_model(cfg, params_from_flat(_flatten(jparams), "cpu"), "cpu", max_positions=512)
+    # Dequantized K/V in decode attention, as JAX's XLA path.
+    model = build_model(cfg, params_from_flat(_flatten(jparams), "cpu"), "cpu", max_positions=512,
+                        attn_i8dot=False)
     caches = TT.init_caches(cfg, build_cache_specs(cfg, kw, 512), 1, torch.float32, device="cpu")
     before = kernel_launches()
     seq, info, caches = generate(model, caches, KERNEL_PROMPT, len(KERNEL_FORCED),
