@@ -27,7 +27,11 @@ Phases; any failure raises and the script exits non-zero:
    attention one device kernel per call (``torch.profiler``), K4 and K6
    with each pass timed alone, K7 also at rows off a 16-byte boundary,
    each K1 shape's column tile, and the launch floor (one
-   one-element ``add_``) beside K1/K2/K10 and K7;
+   one-element ``add_``) beside K1/K2/K10 and K7; and the batched run's
+   shapes (``bench --batch 4``): K1/K2 at L = 4 rows (K1 also timed at
+   L = 8, two row blocks), decode attention kv8 pooled at B = 4 in its
+   i8dot branch (the cluster size printed), K4 at B = 4 with prompt lengths
+   7928/7920/7912/7904 (each lane's summaries checked) and K7 at B = 4;
 3. small in-situ parity: the port on the card (decoding through the
    captured CUDA graph of one step) against the port on the CPU (plain
    versions), TestKernel with int4 weights, teacher-forced, over
@@ -39,7 +43,13 @@ Phases; any failure raises and the script exits non-zero:
    for the kv8 caches), and the kv8 runs again with it off and the kv4/kv2
    ones with it on, each with an exact launch witness; the trained TinyByteLM128 fixture's teacher-forced
    NLL in three configurations (int4, kv8 heavy_hitter, hybrid), card
-   against CPU;
+   against CPU; ``generate_batch`` on TestKernel over three prompts of
+   300/280/260 tokens, greedy on the card with its launch witness, each
+   lane's tokens teacher-forced on the CPU, then the graph against eager
+   steps at B = 3 bit for bit; the port's ``eval`` of the trained fixture
+   (rulerniah, 8 samples, 4 lanes, kv8 heavy_hitter at 25%) on the card
+   against the CPU, each lane's card tokens teacher-forced at batch 1 on
+   the CPU and on the card;
 4. end to end through ``generate()``, decoding through the graph (a warm-up
    run captures it, its seconds and pool bytes printed; the measured run
    replays it), each run with an exact launch witness (every count set to
@@ -50,7 +60,11 @@ Phases; any failure raises and the script exits non-zero:
      tokens, decode attention in its i8dot branch (``auto``, as the TPU
      program); then 16 steps from one prefilled state through the graph and
      eagerly, bit-equal in tokens, probabilities and caches; then 64 tokens
-     with ``attn_i8dot`` off (the dequantizing branch), beside it;
+     with ``attn_i8dot`` off (the dequantizing branch), beside it; then
+     ``bench --batch 4``: four lanes of 7928/7920/7912/7904 tokens, 128
+     tokens each through ``generate_batch`` (lane 0's first token and
+     prefill distribution against the batch-1 run's), and 16 steps of the
+     graph against eager at B = 4;
    - hybrid at bench.py's defaults (its FastGen menu and token classes,
      kv8, C = 8192), the same model and prompt, 64 tokens;
    - the main path's prefill with ``prefill_w4a8`` (K8): its logits against
@@ -60,6 +74,13 @@ Phases; any failure raises and the script exits non-zero:
    - full with a bf16 cache at a 32768 context on Meta-Llama-3.1-8B-Instruct
      (the same widths and weights, its own rope table), a 32504-token
      prompt, 64 tokens;
+   - the port's ``eval`` at full width: random int4 Llama-3-8B
+     (``--random_quantize int4``), rulerniah, 8 samples, 4 lanes per
+     call, kv8 heavy_hitter at 25% of the median sequence, its launch
+     witness summed over its calls; then decode attention (the
+     dequantizing kv8 pooled variant: its cache length is off the i8dot
+     gate) and K7 at that run's B = 4 and cache length, against their
+     plain versions;
    with ``--profile``, after each run, the wall and device time and the
    device operations of a few more decode steps, eager and replayed, and
    ``generate()``'s decode time per step without and with the per-step
@@ -72,7 +93,9 @@ limit, one JSON object describing every kernel, and the result line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import math
 import sys
@@ -231,7 +254,11 @@ def record(records, name, counter, source, replaces, err, tol, ratio, ms, plain_
 # ---------------------------------------------------------------------------
 
 
-def check_w4a8(dev, records):
+def check_w4a8(dev, records, L: int = 1, also_L=(), from_run=None):
+    """K1 at the four layer projections and K2 at the head, L activation
+    rows (``bench --batch L``: one row per lane), each held against its
+    plain version and timed beside its bound; at each ``also_L`` too (a
+    second row block: the weights stream again)."""
     from cold_compress_tpu_torch.ops import qmm
 
     gs = 128
@@ -243,9 +270,14 @@ def check_w4a8(dev, records):
         ("w4a8_gemv.w2", 14336, 4096, "ops/pallas_qmm.py:712"),
         ("w4a8_gemv.head", 4096, 128256, "ops/pallas_qmm.py:407"),
     ]
-    for name, IN, OUT, replaces in shapes:
+    for counter, IN, OUT, replaces in shapes:
+        name = counter if L == 1 else f"{counter}@L{L}"
         ng = IN // gs
-        nbytes = IN * OUT // 2 + OUT * ng * 4 + 2 * IN + 4 * OUT
+
+        def nbytes_at(rows):
+            return IN * OUT // 2 + OUT * ng * 4 + 2 * IN * rows + 4 * OUT * rows
+
+        nbytes = nbytes_at(L)
         n = copies_for(nbytes)
         ws = [torch.randint(0, 256, (OUT, IN // 2), dtype=torch.uint8, device=dev,
                             generator=gen) for _ in range(n)]
@@ -254,31 +286,41 @@ def check_w4a8(dev, records):
             s = torch.rand((OUT, ng), device=dev, generator=gen) * 3e-3 + 1e-3
             z = (torch.rand((OUT, ng), device=dev, generator=gen) - 0.5) * 2e-2
             szs.append(torch.stack([s, z], -1).to(torch.bfloat16).contiguous())
-        x = torch.randn((1, IN), device=dev, generator=gen).to(torch.bfloat16)
-
-        y = qmm.w4a8_gemv(x, ws[0], szs[0], gs, counter=name)
-        ref = qmm.w4a8_gemv_plain(x, ws[0], szs[0], gs)
-        torch.cuda.synchronize()
-        assert y.shape == (1, OUT) and bool(torch.isfinite(y).all()), name
-        err = max_err(y, ref)
-        # Exact int8 x int4 group dots on both sides; only the f32 order of
-        # the per-group terms differs.
-        tol = 1e-4 * float(ref.abs().max()) + 1e-6
-        log(f"[check] {name} IN={IN} OUT={OUT}: max_abs_err={err:.3e} tol={tol:.3e}")
-        assert err <= tol, f"{name}: kernel disagrees with its plain version"
-
-        again = qmm.w4a8_gemv(x, ws[0], szs[0], gs, counter=name)
-        assert torch.equal(y, again), f"{name}: two launches on the same inputs differ"
-        ms = time_ms(lambda i: qmm.w4a8_gemv(x, ws[i % n], szs[i % n], gs, counter=name), 50)
-        plain_ms = time_ms(lambda i: qmm.w4a8_gemv_plain(x, ws[i % n], szs[i % n], gs), 5, 1)
-        b_ms, b_by = bound(nbytes, 2 * IN * OUT, "int8")
-        cols = qmm.gemv_partition(1, OUT, qmm.sm_count(dev))
-        log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-            f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none; "
-            f"{cols} columns per tile, launch floor {launch_floor_ms():.4f} ms")
-        record(records, name, name, "w4a8_gemv.cu", replaces, err, "1e-4*max|ref| + 1e-6",
-               err / tol, ms, plain_ms, b_ms, b_by, None, cols=cols,
-               launch_floor_ms=launch_floor_ms())
+        timed = {}
+        for rows in (L, *also_L):
+            x = torch.randn((rows, IN), device=dev, generator=gen).to(torch.bfloat16)
+            y = qmm.w4a8_gemv(x, ws[0], szs[0], gs, counter=counter)
+            ref = qmm.w4a8_gemv_plain(x, ws[0], szs[0], gs)
+            torch.cuda.synchronize()
+            assert y.shape == (rows, OUT) and bool(torch.isfinite(y).all()), name
+            err = max_err(y, ref)
+            # Exact int8 x int4 group dots on both sides; only the f32 order of
+            # the per-group terms differs.
+            tol = 1e-4 * float(ref.abs().max()) + 1e-6
+            log(f"[check] {name} IN={IN} OUT={OUT} L={rows}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e}")
+            assert err <= tol, f"{name} at L={rows}: kernel disagrees with its plain version"
+            again = qmm.w4a8_gemv(x, ws[0], szs[0], gs, counter=counter)
+            assert torch.equal(y, again), f"{name}: two launches on the same inputs differ"
+            ms = time_ms(lambda i: qmm.w4a8_gemv(x, ws[i % n], szs[i % n], gs, counter=counter),
+                         50)
+            plain_ms = time_ms(lambda i: qmm.w4a8_gemv_plain(x, ws[i % n], szs[i % n], gs), 5, 1)
+            b_ms, b_by = bound(nbytes_at(rows), 2 * IN * OUT * rows, "int8")
+            cols = qmm.gemv_partition(rows, OUT, qmm.sm_count(dev))
+            log(f"[time] {name} L={rows}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+                f"{nbytes_at(rows) / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none; "
+                f"{cols} columns per tile, {-(-rows // qmm.GEMV_ROWS)} row blocks, launch floor "
+                f"{launch_floor_ms():.4f} ms")
+            timed[rows] = (err, tol, ms, plain_ms, b_ms, b_by, cols)
+        err, tol, ms, plain_ms, b_ms, b_by, cols = timed[L]
+        extra = {f"{key}_L{rows}": val for rows in also_L for key, val in zip(
+            ("max_abs_err", "ms", "plain_ms", "bound_ms"),
+            (timed[rows][0], timed[rows][2], timed[rows][3], timed[rows][4]))}
+        if from_run:
+            extra["from_run"] = from_run
+        record(records, name, counter, "w4a8_gemv.cu", replaces, err, "1e-4*max|ref| + 1e-6",
+               err / tol, ms, plain_ms, b_ms, b_by, None, cols=cols, L=L,
+               launch_floor_ms=launch_floor_ms(), **extra)
         del ws, szs
 
 
@@ -301,20 +343,21 @@ def _decode_inputs(dev, gen, bits, B, KVH, C, D):
     return (kc, vc, ks, kz, vs, vz, mask)
 
 
-def check_decode(dev, records, bits: int, need_attn: bool, C: int, i8dot: bool = False):
+def check_decode(dev, records, bits: int, need_attn: bool, C: int, i8dot: bool = False,
+                 B: int = 1, from_run=None):
     """K3 (C = 2048, the main path's budget) or K5 (C = 32768, a full
     cache above the TPU's one-shot budget) at one (bits, need_attn), in the
     dequantizing branch or in the ``i8dot`` one (then also the dequantizing
-    variant's time on the same inputs)."""
+    variant's time on the same inputs), over B lanes (``bench --batch``)."""
     from cold_compress_tpu_torch.ops import decode_attn
 
-    B, H, KVH, D = 1, 32, 8, 128
+    H, KVH, D = 32, 8, 128
     G = H // KVH
-    gen = torch.Generator(device=dev).manual_seed(2 + bits + C + int(need_attn))
+    gen = torch.Generator(device=dev).manual_seed(2 + bits + C + int(need_attn) + B)
     counter = decode_attn.variant(bits, need_attn, i8dot)
     plain = (decode_attn.decode_attention_i8dot_plain if i8dot
              else decode_attn.decode_attention_plain)
-    name = f"{counter}@C{C}"
+    name = f"{counter}@C{C}" + (f"B{B}" if B > 1 else "")
     row_bytes = decode_attn.packed_width(bits, D) * (2 if bits == 16 else 1)
     side = 0 if bits == 16 else 4 * 4 * B * KVH * C  # f32 scales and zeros of K and V
     nbytes = (2 * B * KVH * C * row_bytes + side + B * KVH * C  # K, V, their sides, mask
@@ -386,15 +429,19 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int, i8dot: bool =
     else:
         replaces = ("ops/pallas_decode_attn.py:899" if C <= 4096
                     else "ops/pallas_decode_attn.py:438")
+    if from_run:
+        extra["from_run"] = from_run
     record(records, name, counter, "decode_attn.cu", replaces, err, tol, ratio, ms, plain_ms,
-           b_ms, b_by, library_ms, C=C, device_kernels_per_call=n_dev, cluster=nc, **extra)
+           b_ms, b_by, library_ms, C=C, B=B, device_kernels_per_call=n_dev, cluster=nc, **extra)
 
 
-def check_hh_evict(dev, records):
+def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None):
+    """K7 over B lanes of 8 heads' C histories, each lane at its own
+    position; at B = 1 also rows off a 16-byte boundary."""
     from cold_compress_tpu_torch.ops import evict
 
-    B, H, C, g_tok, recent = 1, 8, 2048, 4, 10
-    gen = torch.Generator(device=dev).manual_seed(4)
+    H, g_tok, recent = 8, 4, 10
+    gen = torch.Generator(device=dev).manual_seed(4 + B + C)
     nbytes = 3 * 4 * B * H * C + 4 * B + 4 * B * H + 2 * 4 * B * H
     n = copies_for(nbytes)
     rows = []
@@ -407,8 +454,8 @@ def check_hh_evict(dev, records):
         pos = pos.reshape(B, H, C).to(torch.int32)
         rows.append((num, denom, pos))
     # Positions are a permutation of 0..C-1: the last few fall in the
-    # recent window, the first few are global tokens.
-    ipos = torch.full((B, 1, 1), C + 3, dtype=torch.int32, device=dev)
+    # recent window, the first few are global tokens. Lane b is 2b later.
+    ipos = (C + 3 + 2 * torch.arange(B, dtype=torch.int32, device=dev)).reshape(B, 1, 1)
 
     def run(i):
         num, denom, pos = rows[i % n]
@@ -432,7 +479,7 @@ def check_hh_evict(dev, records):
 
     # Rows off a 16-byte boundary (C % 4 != 0, B = 2): the scalar head and
     # tail inside the kernel.
-    for Cm in (2047, 301):
+    for Cm in ((2047, 301) if B == 1 else ()):
         num = torch.randint(1, 64, (2, H, Cm), device=dev, generator=gen).float() / 4
         denom = torch.randint(0, 9, (2, H, Cm), device=dev, generator=gen, dtype=torch.int32)
         pos = torch.stack([torch.randperm(Cm, device=dev, generator=gen) for _ in range(2 * H)])
@@ -450,10 +497,14 @@ def check_hh_evict(dev, records):
     ms = time_ms(run, 200)
     plain_ms = time_ms(lambda i: evict.hh_evict_plain(*rows[i % n], ipos, g_tok, recent), 20)
     b_ms, b_by = bound(nbytes, 4 * B * H * C, "bf16")
-    log(f"[time] hh_evict: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
+    shape = ("" if C == 2048 else f"C{C}") + ("" if B == 1 else f"B{B}")
+    name = "hh_evict" + (f"@{shape}" if shape else "")
+    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
         f"{plain_ms:.4f} ms, library: none; launch floor {launch_floor_ms():.4f} ms")
-    record(records, "hh_evict", "hh_evict", "hh_evict.cu", "ops/pallas_evict.py:57", 0.0,
-           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, launch_floor_ms=launch_floor_ms())
+    extra = {"from_run": from_run} if from_run else {}
+    record(records, name, "hh_evict", "hh_evict.cu", "ops/pallas_evict.py:57", 0.0,
+           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, B=B, C=C,
+           launch_floor_ms=launch_floor_ms(), **extra)
 
 
 #: K9's shapes: the int8 vocab head, and the four fused layer projections
@@ -606,7 +657,8 @@ def pass_times(q, k, v, plen: int, windows=None):
     with its reduction alone, on the same inputs."""
     from cold_compress_tpu_torch.ops import prefill_attn
 
-    plen_t = torch.full((q.shape[0],), plen, dtype=torch.int32, device=q.device)
+    plen_t = torch.as_tensor(plen, dtype=torch.int32, device=q.device).expand(q.shape[0])
+    plen_t = plen_t.contiguous()
     _, mbuf, ilbuf = prefill_attn.flash_pass1(q, k, v)
     pass1 = time_ms(lambda i: prefill_attn.flash_pass1(q, k, v), 5, 1)
     pass2 = time_ms(lambda i: prefill_attn.flash_pass2(q, k, mbuf, ilbuf, plen_t,
@@ -614,11 +666,16 @@ def pass_times(q, k, v, plen: int, windows=None):
     return pass1, pass2
 
 
-def check_flash_prefill(dev, records):
+def check_flash_prefill(dev, records, plens=(7928,), from_run=None):
+    """K4 at the main path's bucket, one lane per prompt length in
+    ``plens`` (``bench --batch``: lane b's prompt is 8 b tokens shorter),
+    y and each lane's summaries against the plain version."""
     from cold_compress_tpu_torch.ops import prefill_attn
 
-    B, H, KVH, P, D, plen = 1, 32, 8, 8192, 128, 7928
-    gen = torch.Generator(device=dev).manual_seed(3)
+    B, H, KVH, P, D = len(plens), 32, 8, 8192, 128
+    plen = plens[0] if B == 1 else torch.tensor(plens, dtype=torch.int32, device=dev)
+    name = "flash_prefill_summary" + (f"@B{B}" if B > 1 else "")
+    gen = torch.Generator(device=dev).manual_seed(3 + B)
     q = torch.randn((B, H, P, D), device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
     v = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
@@ -636,14 +693,17 @@ def check_flash_prefill(dev, records):
     # many keys these moves mostly cancel and stay well under 2**-7 of the
     # row's largest element. Summaries are f32 on both sides.
     err, ratio, tol = bf16_out_err(y, ref_y, 2**-7)
-    errs = {key: max_err(summ[key], ref_summ[key]) for key in ("obs_mean", "cum_mean")}
-    tols = {key: 1e-4 * float(ref_summ[key].abs().max()) + 1e-7 for key in errs}
-    log(f"[check] flash_prefill_summary P={P} prompt_len={plen}: y max_abs_err={err:.3e}, "
-        f"max err/tol {ratio:.3f} (tol {tol}); "
-        + "; ".join(f"{k} max_abs_err={e:.3e} tol={tols[k]:.3e}" for k, e in errs.items()))
-    assert ratio <= 1 and all(errs[k] <= tols[k] for k in errs), \
-        "flash_prefill_summary disagrees with its plain version"
-    assert float(summ["cum_mean"][..., plen:].abs().max()) == 0.0
+    ok = ratio <= 1
+    for b, pl in enumerate(plens):  # each lane's summaries against its own scale
+        errs = {key: max_err(summ[key][b], ref_summ[key][b]) for key in ("obs_mean", "cum_mean")}
+        tols = {key: 1e-4 * float(ref_summ[key][b].abs().max()) + 1e-7 for key in errs}
+        log(f"[check] {name} P={P} lane {b} prompt_len={pl}: y max_abs_err={err:.3e}, "
+            f"max err/tol {ratio:.3f} (tol {tol}); "
+            + "; ".join(f"{k} max_abs_err={e:.3e} tol={tols[k]:.3e}" for k, e in errs.items()))
+        ok = ok and all(errs[k] <= tols[k] for k in errs)
+        assert float(summ["cum_mean"][b, :, pl:].abs().max()) == 0.0, name
+        assert float(summ["cum_mean"][b, :, :pl].abs().max()) > 0.0, name
+    assert ok, f"{name} disagrees with its plain version"
 
     ms = time_ms(lambda i: prefill_attn.flash_prefill(q, k, v, plen, need_summary=True), 5, 1)
     pass1_ms, pass2_ms = pass_times(q, k, v, plen)
@@ -657,15 +717,16 @@ def check_flash_prefill(dev, records):
     vr = v.repeat_interleave(H // KVH, dim=1)
     sdpa_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         q, kr, vr, is_causal=True), 5, 1)
-    log(f"[time] flash_prefill_summary: {ms:.3f} ms (pass 1 {pass1_ms:.3f}, pass 2 and its "
+    log(f"[time] {name}: {ms:.3f} ms (pass 1 {pass1_ms:.3f}, pass 2 and its "
         f"reduction {pass2_ms:.3f}; bound {b_ms:.3f} ms by {b_by}; "
         f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library: none "
         f"(scaled_dot_product_attention, causal y only, no summaries: {sdpa_ms:.3f} ms); "
         f"{n_dev:g} device operations per call, {n_own:g} of them the kernel's")
-    record(records, "flash_prefill_summary", "flash_prefill_summary", "flash_prefill.cu",
+    extra = {"from_run": from_run} if from_run else {}
+    record(records, name, "flash_prefill_summary", "flash_prefill.cu",
            "ops/pallas_prefill.py:167", err, tol, ratio, ms, plain_ms, b_ms, b_by, None,
-           pass1_ms=pass1_ms, pass2_ms=pass2_ms, device_kernels_per_call=n_dev,
-           own_kernels_per_call=n_own, sdpa_causal_y_ms=sdpa_ms)
+           B=B, pass1_ms=pass1_ms, pass2_ms=pass2_ms, device_kernels_per_call=n_dev,
+           own_kernels_per_call=n_own, sdpa_causal_y_ms=sdpa_ms, **extra)
 
 
 def check_flash_profile(dev, records, windows):
@@ -809,12 +870,12 @@ def build_model(name: str, seed: int, device: str, context: int):
     return cfg, model
 
 
-def make_caches(cfg, kw: dict, context: int, device: str):
+def make_caches(cfg, kw: dict, context: int, device: str, batch: int = 1):
     from cold_compress_tpu_torch.models.transformer import init_caches
     from cold_compress_tpu_torch.runtime.engine import build_cache_specs, cache_compatibility
 
     cache_compatibility(kw)
-    return init_caches(cfg, build_cache_specs(cfg, kw, context), 1, torch.bfloat16,
+    return init_caches(cfg, build_cache_specs(cfg, kw, context), batch, torch.bfloat16,
                        device=device)
 
 
@@ -1258,12 +1319,12 @@ def device_profile(fn, steps: int):
     return busy_ms, sum(e.count for e in rows) / steps, rows
 
 
-def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: str,
-                   run_name: str):
+def profile_decode(model, caches, tokens, start_pos, steps: int, card: str, run_name: str):
     """Where a decode step's time goes, eager and replayed: wall time per
     step without the profiler, and device time per step by kernel from
-    ``torch.profiler``, for ``decode_step`` run eagerly and for the model's
-    captured decode graph replayed (its own positions and tokens)."""
+    ``torch.profiler``, for ``decode_step`` run eagerly (each lane from its
+    token and position) and for the model's captured decode graph replayed
+    (its own positions and tokens)."""
     from cold_compress_tpu_torch.models.transformer import decode_step
     from cold_compress_tpu_torch.runtime.cuda_graph import model_decode_graph
 
@@ -1280,7 +1341,8 @@ def profile_decode(model, caches, token: int, start_pos: int, steps: int, card: 
             for _ in range(steps):
                 graph.replay()
 
-    tok = torch.tensor([token], device="cuda")
+    tok = torch.tensor(tokens, device="cuda")
+    start_pos = torch.tensor(start_pos, dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         tok = run(tok, start_pos)  # warm
         replay()
@@ -1355,11 +1417,11 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
             expected_launches(cfg, kw, steps, cache_lengths(caches), head_counter,
                               layers=layers, i8dot=model.attn_i8dot), runs)
     if eager_check:
-        graph_matches_eager(run_name, model, caches, prompt, dev)
+        graph_matches_eager(run_name, model, caches, [prompt], dev)
     if profile:
-        profile_decode(model, caches, seq[-1], len(seq), 8, card, run_name)
+        profile_decode(model, caches, [seq[-1]], [len(seq)], 8, card, run_name)
         stop_read_cost(model, caches, prompt, cfg.vocab_size, card, run_name)
-    return perf
+    return perf, seq
 
 
 def log_capture(run_name, info, card):
@@ -1371,36 +1433,41 @@ def log_capture(run_name, info, card):
         f"launches per replay  [{card}]")
 
 
-def graph_matches_eager(run_name, model, caches, prompt, dev, steps: int = 16):
-    """From one prefilled state, ``steps`` greedy steps through the decode
-    graph and the same steps eagerly (``decode_loop_core``): the same
+def graph_matches_eager(run_name, model, caches, prompts, dev, steps: int = 16):
+    """From one prefilled state of the lanes ``prompts``, ``steps`` greedy
+    steps through the decode graph and the same steps eagerly
+    (``decode_loop_core``, each lane from its own position): the same
     tokens, probabilities, last distribution, every cache tensor and kernel
     launches, bit for bit."""
     from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
-    from cold_compress_tpu_torch.runtime.generate import decode_loop_core, generate, reset_caches
+    from cold_compress_tpu_torch.runtime.generate import (
+        decode_loop_core, generate_batch, reset_caches,
+    )
 
     reset_caches(caches)
-    seq, _, caches = generate(model, caches, prompt, 1)  # prefill and the first token only
+    # The prefill and the first token only.
+    seqs, info, caches = generate_batch(model, caches, prompts, 1)
     tensors = [t for c in caches for t in c.tensors()]
     start = [t.clone() for t in tensors]
-    first = torch.tensor([seq[-1]], device=dev)
+    first = torch.tensor([s[-1] for s in seqs], device=dev)
     out = {}
     for graph in (True, False):
         for t, t0 in zip(tensors, start):
             t.copy_(t0)
         reset_kernel_launches()
-        tokens, probs, last, n, record = decode_loop_core(model, caches, first, len(prompt), [],
-                                                          [], steps, cuda_graph=graph)
+        tokens, probs, last, n, record = decode_loop_core(
+            model, caches, first, info["prompt_lengths"], [], [], steps, cuda_graph=graph)
         out[graph] = ([tokens.cpu(), probs.cpu(), last.cpu()], [t.cpu() for t in tensors],
                       kernel_launches(), n, record)
     (g_out, g_cache, g_launch, g_n, record), (e_out, e_cache, e_launch, e_n, _) = (
         out[True], out[False])
     same_out = all(torch.equal(a, b) for a, b in zip(g_out, e_out))
     same_cache = all(torch.equal(a, b) for a, b in zip(g_cache, e_cache))
-    log(f"[e2e] {run_name}: {steps} steps from one prefilled state, graph (capture in this "
-        f"call: {record['captured']}) against eager: tokens, probabilities bit-equal "
-        f"{same_out}; all {len(tensors)} cache tensors bit-equal {same_cache}; launches equal "
-        f"{g_launch == e_launch}; tokens {g_out[0][:, 0].tolist()}")
+    log(f"[e2e] {run_name}: {steps} steps of {len(prompts)} lanes from one prefilled state, "
+        f"graph (capture in this call: {record['captured']}) against eager: tokens, "
+        f"probabilities bit-equal {same_out}; all {len(tensors)} cache tensors bit-equal "
+        f"{same_cache}; launches equal {g_launch == e_launch}; lane 0's tokens "
+        f"{g_out[0][:, 0].tolist()}")
     assert same_out and same_cache and g_launch == e_launch and g_n == e_n == steps, run_name
 
 
@@ -1615,7 +1682,7 @@ def end_to_end(dev, card, runs, profile=False):
 
     # The main path: bench.py's default configuration (decode attention in
     # the i8dot branch, as the TPU program routes it).
-    main = e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model,
+    main, main_seq = e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model,
                    cache_kw("heavy_hitter", 8), 8192, 128, dev, card, runs, "w4a8_gemv.head",
                    profile, eager_check=True)
 
@@ -1623,13 +1690,18 @@ def end_to_end(dev, card, runs, profile=False):
     # --attn_i8dot off), beside it.
     set_attn_i8dot(model, False)
     try:
-        off = e2e_run("main path, attn_i8dot off", cfg, model, cache_kw("heavy_hitter", 8), 8192,
-                      64, dev, card, runs, "w4a8_gemv.head")
+        off, _ = e2e_run("main path, attn_i8dot off", cfg, model, cache_kw("heavy_hitter", 8),
+                         8192, 64, dev, card, runs, "w4a8_gemv.head")
     finally:
         set_attn_i8dot(model, "auto")
     log(f"[e2e] main path decode tok/s: attn_i8dot auto (i8dot) "
         f"{main['decode_toks_per_sec']:.3f} over {main['decode_steps']} steps, off "
         f"{off['decode_toks_per_sec']:.3f} over {off['decode_steps']} steps  [{card}]")
+
+    # The main path at 4 lanes (bench --batch 4).
+    batch = batch_bench_run(cfg, model, dev, card, runs, main_seq, profile)
+    log(f"[e2e] main path decode tok/s: batch 1 {main['decode_toks_per_sec']:.3f}, batch "
+        f"{BATCH} aggregate {batch['decode_toks_per_sec']:.3f}  [{card}]")
 
     # FastGen hybrid at bench.py's defaults (its menu and token classes).
     e2e_run("hybrid kv8 (bench's FastGen menu)", cfg, model, cache_kw("hybrid", 8), 8192, 64,
@@ -1663,6 +1735,415 @@ def end_to_end(dev, card, runs, profile=False):
     torch.cuda.empty_cache()
     e2e_run("full bf16, 32k, Llama-3.1-8B", cfg31, model, cache_kw("full", 16), 32768, 64, dev,
             card, runs, "w4a8_gemv.head", profile)
+
+
+#: The batched runs: ``bench --batch 4`` on the main path (lane b's prompt
+#: the main path's less 8 b tokens) and the port's ``eval`` over the same
+#: model with 4 lanes per call.
+BATCH = 4
+BATCH_RUN = f"bench --batch {BATCH} (main path, {BATCH} lanes)"
+EVAL_RUN = f"eval rulerniah --batch_size {BATCH} (Llama-3-8B int4, heavy_hitter kv8)"
+#: The port's eval of the trained TinyByteLM128 fixture, card against CPU:
+#: rulerniah, 8 samples, 4 lanes per ``generate_batch`` call, a kv8
+#: heavy-hitter cache at a quarter of the median sequence.
+EVAL_TRAINED_ARGV = ["--tasks", "rulerniah", "--batch_size", str(BATCH), "--num_samples", "8",
+                     "--cache_strategy", "heavy_hitter", "--prompt_compression_strategy",
+                     "heavy_hitter", "--max_cache_length", "0.25", "--cache_bits", "8"]
+
+
+@contextlib.contextmanager
+def recorded_generate_calls():
+    """(decode steps, cache lengths, info, sequences, cache specs, model,
+    keyword arguments) of every ``generate_batch`` and ``generate()`` call
+    the port's ``eval`` makes, in the list this yields."""
+    from cold_compress_tpu_torch import eval as port_eval
+
+    calls = []
+    originals = {name: getattr(port_eval, name) for name in ("generate", "generate_batch")}
+
+    def recording(fn):
+        def call(model, caches, *args, **kw):
+            out = fn(model, caches, *args, **kw)
+            info = out[1]
+            steps = info.get("decode_steps", info["perf_stats"].get("decode_steps"))
+            calls.append((steps, cache_lengths(out[2]), info, out[0],
+                          [c.spec for c in out[2]], model, kw))
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(port_eval, name, recording(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(port_eval, name, fn)
+
+
+def eval_launches(cfg, kw, calls, head, layers, i8dot="auto") -> dict:
+    """Exact kernel launches of an eval: each generate call's, summed."""
+    want = {}
+    for steps, lengths, *_ in calls:
+        for k, v in expected_launches(cfg, kw, steps, lengths, head, layers=layers,
+                                      i8dot=i8dot).items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def run_eval(argv, device):
+    """The port's ``eval`` CLI into a new temporary directory on
+    ``device``: (predictions rows, metrics, recorded calls, seconds)."""
+    import csv
+    import tempfile
+
+    from cold_compress_tpu_torch import eval as port_eval
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        t0 = time.perf_counter()
+        with recorded_generate_calls() as calls:
+            assert port_eval.cli([*argv, "--device", device, "--out_dir", tmp]) == 0
+        seconds = time.perf_counter() - t0
+        task = argv[argv.index("--tasks") + 1]
+        with open(f"{tmp}/{task}_predictions.csv", newline="") as f:
+            rows = list(csv.reader(f))[1:]
+        with open(f"{tmp}/{task}_metrics.json") as f:
+            metrics = json.load(f)
+    return rows, metrics, calls, seconds
+
+
+def common_prefix(a: str, b: str) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def in_situ_batch(dev, runs: list):
+    """``generate_batch`` on TestKernel (int4 layers and head, kv8
+    heavy_hitter at a quarter of 512 slots) over three prompts of 300, 280
+    and 260 tokens: greedy through the graph on the card with its exact
+    launch witness; each lane's tokens then teacher-forced through
+    ``generate()`` on the CPU, probabilities within the in-situ tolerance;
+    then the graph against eager steps at B = 3, bit for bit."""
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate, generate_batch
+
+    run_name = "in-situ TestKernel generate_batch B=3 heavy_hitter kv8"
+    cfg, model = build_model("TestKernel", 0, dev, 512)
+    _, model_c = build_model("TestKernel", 0, "cpu", 512)
+    base = np.random.RandomState(0).randint(2, 500, size=300).tolist()
+    prompts = [base, base[:280], np.random.RandomState(4).randint(2, 500, size=260).tolist()]
+    kw = cache_kw("heavy_hitter", 8)
+    caches = make_caches(cfg, kw, 512, dev, batch=3)
+    reset_kernel_launches()
+    seqs, info, caches = generate_batch(model, caches, prompts, 8, prefill_bucket=512)
+    launches = kernel_launches()
+    assert info["decode_graph"]["captured"] and info["decode_steps"] == 7, run_name
+    witness(run_name, caches[0].spec.max_cache_length, launches,
+            expected_launches(cfg, kw, info["decode_steps"], cache_lengths(caches)), runs)
+    for b, prompt in enumerate(prompts):
+        gen = seqs[b][len(prompt):]
+        assert seqs[b][: len(prompt)] == prompt and len(gen) == 8, run_name
+        _, info_c, _ = generate(model_c, make_caches(cfg, kw, 512, "cpu"), prompt, 8,
+                                prefill_bucket=512, next_tokens=gen)
+        e_g, e_c = np.asarray(info["emitted_probs"][b]), np.asarray(info_c["emitted_probs"])
+        f_g, f_c = np.asarray(info["final_probs"][b]), np.asarray(info_c["final_probs"])
+        gap, gap_f, tol = (float(np.abs(e_g - e_c).max()), float(np.abs(f_g - f_c).max()),
+                           5e-2 * float(e_c.max()))
+        log(f"[parity] {run_name} lane {b} ({len(prompt)} tokens): card tokens {gen}; card vs "
+            f"cpu (the card's tokens forced, one lane): emitted_probs max gap {gap:.3e}, "
+            f"final_probs max gap {gap_f:.3e} (tol {tol:.3e})")
+        assert np.all(np.isfinite(e_g)) and gap <= tol and gap_f <= tol, run_name
+    graph_matches_eager("in-situ TestKernel B=3", model, caches, prompts, dev, steps=8)
+
+
+def state_to(state, device):
+    """A copy of one layer's cache state on ``device``."""
+    from cold_compress_tpu_torch.caches.base import CacheState
+
+    def moved(val):
+        if isinstance(val, CacheState):
+            return state_to(val, device)
+        return val.to(device, copy=True) if isinstance(val, torch.Tensor) else val
+
+    fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    fields = {k: ({n: moved(x) for n, x in v.items()} if k == "extra" else moved(v))
+              for k, v in fields.items()}
+    return dataclasses.replace(state, **fields)
+
+
+@contextlib.contextmanager
+def recorded_snapkv_scores():
+    """The heavy-hitter prompt compressor's scores ([B, KVH, P], f64 on the
+    host) of every prefill layer, per device type, in the dict this
+    yields."""
+    from cold_compress_tpu_torch.caches import prompt_compression as pc
+
+    scores = {}
+    fun = pc.PromptCompressorHeavyHitter.token_importances.__func__
+
+    def recording(cls, *args, **kw):
+        out = fun(cls, *args, **kw)
+        scores.setdefault(out.device.type, []).append(out.detach().double().cpu().numpy())
+        return out
+
+    pc.PromptCompressorHeavyHitter.token_importances = classmethod(recording)
+    try:
+        yield scores
+    finally:
+        pc.PromptCompressorHeavyHitter.token_importances = classmethod(fun)
+
+
+def snapkv_ties(scores_g, scores_c, plen, C):
+    """The prompt positions that one device keeps among its C best SnapKV
+    scores and the other does not (per layer, lane and head). Each must be
+    a near-tie: its score lies within the largest card-CPU score gap of
+    the positions both keep or both drop from the cut-off (the C-th best
+    score), on both sides. Returns (swaps, largest margin, smallest such
+    gap over rows with a swap)."""
+    swaps, margin, gap_min = 0, 0.0, float("inf")
+    for g_l, c_l in zip(scores_g, scores_c):
+        shape = (len(plen),) + g_l.shape[1:]
+        g_l, c_l = np.broadcast_to(g_l, shape), np.broadcast_to(c_l, shape)
+        for b, P in enumerate(plen):
+            for h in range(shape[1]):
+                g, c = g_l[b, h, :P], c_l[b, h, :P]
+                kept_g = set(np.argsort(-g, kind="stable")[:C].tolist())
+                kept_c = set(np.argsort(-c, kind="stable")[:C].tolist())
+                swapped = sorted(kept_g ^ kept_c)
+                if not swapped:
+                    continue
+                gap = float(np.abs(np.delete(g - c, swapped)).max())
+                for score in (g, c):
+                    cut = np.sort(score)[::-1][C - 1]
+                    m = max(abs(float(score[i] - cut)) for i in swapped)
+                    assert m <= gap, f"a kept prompt position {m} from the cut-off, gap {gap}"
+                    margin = max(margin, m)
+                swaps += len(swapped) // 2
+                gap_min = min(gap_min, gap)
+    return swaps, margin, gap_min
+
+
+def stepwise_batch(model, model_c, specs, prompts, gens, bucket, dev):
+    """The batched path teacher-forced one step at a time: each lane's
+    prompt (padded to ``bucket``) prefilled at once on the card and on the
+    CPU, then each step decoded on the card and, on a CPU copy of the
+    card's caches, on the CPU, every lane fed its own token of ``gens``
+    (one list per lane, equally long) at its own position. Returns the
+    card's emitted probabilities [steps + 1, B], the CPU's, per lane the
+    prefill logits' largest gap and its bound, the share of prompt
+    positions both prefills keep and ``snapkv_ties`` of the prefills;
+    asserts that every step evicts the same slots on both sides (from the
+    same state, K7 and its plain version agree bit for bit)."""
+    from cold_compress_tpu_torch.models.transformer import decode_step, init_caches, prefill
+
+    B, n = len(prompts), len(gens[0])
+    plen = [len(p) for p in prompts]
+    tokens = torch.tensor([p + [0] * (bucket - len(p)) for p in prompts])
+    feed = torch.tensor(gens).T  # [steps + 1, B]
+    caches = init_caches(model.cfg, specs, B, torch.bfloat16, device=dev)
+    caches_c = init_caches(model_c.cfg, specs, B, torch.bfloat16, device="cpu")
+    with torch.inference_mode():
+        lens = torch.tensor(plen, dtype=torch.int32)
+        with recorded_snapkv_scores() as scores:
+            logits = prefill(model, caches, tokens.to(dev), lens.to(dev)).float()
+            logits_c = prefill(model_c, caches_c, tokens, lens).float()
+        ties = snapkv_ties(scores.get("cuda", []), scores.get("cpu", []), plen,
+                           specs[0].max_cache_length)
+        l_g, l_c = logits.cpu(), logits_c
+        prefill_gap = (l_g - l_c).abs().max(-1).values.tolist()
+        prefill_tol = (2e-2 * (l_c.max(-1).values - l_c.min(-1).values)).tolist()
+        kept = float(np.mean([(c.pos.cpu() == cc.pos).float().mean() for c, cc in
+                              zip(caches, caches_c)]))
+        lanes = torch.arange(B)
+        e_g = [torch.softmax(logits, -1).cpu()[lanes, feed[0]]]  # as generate_batch
+        e_c = [torch.softmax(l_c, -1)[lanes, feed[0]]]
+        pos = lens
+        for i in range(n - 1):
+            copy = [state_to(c, "cpu") for c in caches]
+            p_g = torch.softmax(decode_step(model, caches, feed[i].to(dev), (pos + i).to(dev))
+                                .float(), -1).cpu()
+            p_c = torch.softmax(decode_step(model_c, copy, feed[i], pos + i).float(), -1)
+            e_g.append(p_g[lanes, feed[i + 1]])
+            e_c.append(p_c[lanes, feed[i + 1]])
+            assert all(torch.equal(c.pos.cpu(), cc.pos) for c, cc in zip(caches, copy)), \
+                f"step {i}: the card and the CPU evict different slots from the same state"
+    return (torch.stack(e_g).numpy().astype(np.float64),
+            torch.stack(e_c).numpy().astype(np.float64), prefill_gap, prefill_tol, kept, ties)
+
+
+def in_situ_eval(dev, runs: list):
+    """The port's ``eval`` of the trained TinyByteLM128 fixture
+    (``EVAL_TRAINED_ARGV``) on the card, its generate calls decoding
+    through the graph, with its exact launch witness, against the same eval
+    on the CPU: the same prompts and cache statistics. Free-running, card
+    and CPU part at near-ties of the fixture's flat next-byte distributions
+    and of its heavy-hitter histories (ROADMAP section 3), so each call's
+    lanes are then teacher-forced with the card's tokens through the batched
+    path one step at a time (``stepwise_batch``): the card's probabilities
+    equal those of the eval's own run, the prefill logits agree within the
+    in-situ bound, and every decode step, run on the CPU from a copy of the
+    card's caches, agrees with the card's within the in-situ tolerance and
+    evicts the same slots."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    argv = ["--checkpoint_path", repo_path(TRAINED_CKPT), *EVAL_TRAINED_ARGV]
+    reset_kernel_launches()
+    rows, metrics, calls, seconds = run_eval(argv, dev)
+    launches = kernel_launches()
+    rows_c, metrics_c, calls_c, seconds_c = run_eval(argv, "cpu")
+    run_name = "in-situ eval TinyByteLM128 rulerniah --batch_size 4"
+    cfg = ModelConfig.from_name("TinyByteLM128")
+    kw = {"cache_strategy": ["heavy_hitter"], "cache_bits": 8}
+    assert len(calls) == len(calls_c) == 2, run_name
+    assert [c[2]["decode_graph"]["captured"] for c in calls] == [True, False], run_name
+    witness(run_name, calls[0][1][0], launches, eval_launches(cfg, kw, calls, None, None), runs)
+    assert len(rows) == len(rows_c) == 8 and [r[0] for r in rows] == [r[0] for r in rows_c]
+    assert abs(metrics["compression_ratio_avg"] - metrics_c["compression_ratio_avg"]) < 1e-6
+
+    report, ok = [], True
+    for (_, _, info, seqs, specs, model, gkw), (_, _, info_c, seqs_c, _, model_c, _) in zip(
+            calls, calls_c):
+        plen = info["prompt_lengths"]
+        assert plen == info_c["prompt_lengths"], run_name
+        prompts = [seq[:P] for seq, P in zip(seqs, plen)]
+        gens = [seq[P:] for seq, P in zip(seqs, plen)]
+        assert prompts == [seq[:P] for seq, P in zip(seqs_c, plen)], run_name
+        assert len({len(g) for g in gens}) == 1, f"{run_name}: a lane stopped early"
+        e_g, e_c, gap_l, tol_l, kept, ties = stepwise_batch(
+            model, model_c, specs, prompts, gens, gkw["prefill_bucket"], dev)
+        for b in range(len(prompts)):
+            run = np.asarray(info["emitted_probs"][b], np.float64)
+            tol = 5e-2 * float(e_c[:, b].max())
+            gap = float(np.abs(e_g[:, b] - e_c[:, b]).max())
+            ok = (ok and np.array_equal(run, e_g[:, b]) and gap <= tol
+                  and gap_l[b] <= tol_l[b] and np.all(np.isfinite(run)))
+            report.append({
+                "shared": common_prefix(gens[b], seqs_c[b][plen[b]:]), "tokens": len(gens[b]),
+                "eval run == stepwise": bool(np.array_equal(run, e_g[:, b])),
+                "prefill logits gap": round(gap_l[b], 6), "its tol": round(tol_l[b], 6),
+                "step gap": round(gap, 6), "tol": round(tol, 6)})
+        report.append({"prompt slots alike": round(kept, 4), "SnapKV swaps": ties[0],
+                       "their largest margin": ties[1], "smallest gap": ties[2]})
+    log(f"[parity] {run_name}: {len(rows)} predictions ({seconds:.1f} s on the card, "
+        f"{seconds_c:.1f} s on the cpu), equal to the cpu's: "
+        f"{sum(r[1] == rc[1] for r, rc in zip(rows, rows_c))}; per lane (tokens its "
+        f"free-running prediction shares with the cpu's, then the card's tokens forced one "
+        f"step at a time, each step on the cpu from the card's caches): {json.dumps(report)}; "
+        f"StringMatch card {metrics['StringMatch_score']} cpu {metrics_c['StringMatch_score']}; "
+        f"compression ratio card {metrics['compression_ratio_avg']:.6f} cpu "
+        f"{metrics_c['compression_ratio_avg']:.6f}")
+    assert ok, f"{run_name}: the card's probabilities disagree with the CPU's"
+
+
+def batch_bench_run(cfg, model, dev, card, runs, main_seq, profile=False):
+    """``bench --batch 4`` on the main path: lane b's prompt the main
+    path's less 8 b tokens, in its bucket; a warm-up call that captures
+    the graph, ``reset_caches``, then 128 tokens per lane replayed, with
+    its exact launch witness. Lane 0's prompt is the batch-1 main run's:
+    its first token must be that run's and its prefill distribution within
+    cosine 0.9999 of the batch-1 prefill's."""
+    from cold_compress_tpu_torch.models.transformer import prefill
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate_batch, reset_caches
+
+    kw = cache_kw("heavy_hitter", 8)
+    prompt_len = 8192 - 256 - 8
+    prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
+    prompts = [prompt[: prompt_len - 8 * b] for b in range(BATCH)]
+    caches = make_caches(cfg, kw, 8192, dev, batch=BATCH)
+    _, warm, _ = generate_batch(model, caches, prompts, 8, prefill_bucket=8192)
+    log_capture(BATCH_RUN, warm, card)
+    reset_caches(caches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    seqs, info, caches = generate_batch(model, caches, prompts, 128, prefill_bucket=8192)
+    launches = kernel_launches()
+    perf, steps = info["perf_stats"], info["decode_steps"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert not info["decode_graph"]["captured"], f"{BATCH_RUN}: the timed run captured again"
+    log(f"[e2e] {BATCH_RUN}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"[e2e] {BATCH_RUN}: C={caches[0].spec.max_cache_length}, prompts "
+        f"{info['prompt_lengths']}, prefill {perf['prefill_seconds']:.4f} s for "
+        f"{perf['prefill_tokens']} tokens ({perf['prefill_toks_per_sec']:.1f} tok/s); decode "
+        f"{perf['decode_toks_per_sec']:.3f} tok/s aggregate over {BATCH} lanes x {steps} steps "
+        f"(graph replays, {1e3 * perf['decode_seconds'] / steps:.3f} ms per step); capture "
+        f"{warm['decode_graph']['capture_seconds']:.3f} s; peak memory {peak_gb:.3f} GB  [{card}]")
+    assert steps == 127 and info["num_generated"] == [128] * BATCH, BATCH_RUN
+    final = np.asarray(info["final_probs"])
+    assert final.shape == (BATCH, cfg.vocab_size) and np.all(np.isfinite(final)), BATCH_RUN
+    assert np.all(np.abs(final.sum(-1) - 1.0) < 1e-3), BATCH_RUN
+    for b, p in enumerate(prompts):
+        gen = seqs[b][len(p):]
+        emitted = np.asarray(info["emitted_probs"][b])
+        assert seqs[b][: len(p)] == p and len(gen) == 128, BATCH_RUN
+        assert all(0 <= t < cfg.vocab_size for t in gen), BATCH_RUN
+        assert emitted.shape == (128,) and np.all((emitted > 0) & (emitted <= 1)), BATCH_RUN
+        for c in caches:
+            pos = c.pos[b].cpu().numpy()
+            assert all(len(set(r[r >= 0].tolist())) == int((r >= 0).sum()) for r in pos)
+            assert int(c.cache_ct[b].min()) == min(c.spec.max_cache_length, len(p) + steps)
+            assert int(pos.max()) == len(p) + 128 - 2, BATCH_RUN  # each lane's last token
+    witness(BATCH_RUN, caches[0].spec.max_cache_length, launches,
+            expected_launches(cfg, kw, steps, cache_lengths(caches), i8dot=model.attn_i8dot),
+            runs)
+
+    # Lane 0 against the batch-1 main run.
+    tokens = torch.tensor([p + [0] * (8192 - len(p)) for p in prompts], device=dev)
+    with torch.inference_mode():
+        one = torch.softmax(prefill(model, make_caches(cfg, kw, 8192, dev), tokens[:1],
+                                    prompt_len)[0].float(), -1)
+        lanes = torch.softmax(prefill(model, caches, tokens, torch.tensor(
+            info["prompt_lengths"], dtype=torch.int32, device=dev)).float(), -1)
+    cos = float(torch.nn.functional.cosine_similarity(lanes[0], one, dim=0))
+    first_main, first_lane0 = main_seq[prompt_len], seqs[0][prompt_len]
+    log(f"[e2e] {BATCH_RUN}: lane 0 first token {first_lane0}, the batch-1 main run's "
+        f"{first_main}; prefill distribution cosine against batch 1 {cos:.7f} (bound 0.9999), "
+        f"max gap {max_err(lanes[0], one):.3e}")
+    assert first_lane0 == first_main and cos >= 0.9999, BATCH_RUN
+    reset_caches(caches)
+    graph_matches_eager(BATCH_RUN, model, caches, prompts, dev)
+    if profile:
+        seqs, info, caches = generate_batch(model, caches, prompts, 2, prefill_bucket=8192)
+        profile_decode(model, caches, [s[-1] for s in seqs],
+                       [len(s) for s in seqs], 8, card, BATCH_RUN)
+    return perf
+
+
+def eval_full_run(dev, card, runs):
+    """The port's ``eval`` at full width: Llama-3-8B with random int4
+    weights and head (``--random_quantize int4``), rulerniah, 8 samples, 4
+    lanes per call, a kv8 heavy_hitter cache at a quarter of the median
+    sequence; its exact launch witness over every call."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    argv = ["--random_weights", "Meta-Llama-3-8B-Instruct", "--random_quantize", "int4",
+            *EVAL_TRAINED_ARGV]
+    cfg = ModelConfig.from_name("Meta-Llama-3-8B-Instruct")
+    gc.collect()  # an earlier model and its decode graph reference each other
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    rows, metrics, calls, seconds = run_eval(argv, dev)
+    launches = kernel_launches()
+    kw = {"cache_strategy": ["heavy_hitter"], "cache_bits": 8}
+    lengths = calls[0][1]
+    log(f"[e2e] {EVAL_RUN}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"[e2e] {EVAL_RUN}: {len(rows)} predictions in {seconds:.1f} s (model build included), "
+        f"{len(calls)} generate_batch calls, C={lengths[0]}, prompts "
+        f"{[c[2]['prompt_lengths'] for c in calls]}, decode steps {[c[0] for c in calls]}; "
+        f"decode tok/s per call {[round(v, 3) for v in metrics['decode_toks_per_sec']]}, "
+        f"prefill s per call {[round(c[2]['perf_stats']['prefill_seconds'], 4) for c in calls]}; "
+        f"graph captured per call {[c[2]['decode_graph']['captured'] for c in calls]}; "
+        f"StringMatch {metrics['StringMatch_score']}, compression ratio "
+        f"{metrics['compression_ratio_avg']:.4f}, max memory {metrics['max_memory_gb']:.3f} GB "
+        f" [{card}]")
+    assert len(rows) == 8 and len(calls) == 2, EVAL_RUN
+    assert [c[2]["decode_graph"]["captured"] for c in calls] == [True, False], EVAL_RUN
+    assert all(np.isfinite(v) for v in metrics["decode_toks_per_sec"]), EVAL_RUN
+    witness(EVAL_RUN, lengths[0], launches,
+            eval_launches(cfg, kw, calls, "w4a8_gemv.head", "w4a8_gemv"), runs)
+    return lengths[0]
 
 
 def main() -> int:
@@ -1699,6 +2180,7 @@ def main() -> int:
 
     records = []
     check_w4a8(dev, records)
+    check_w4a8(dev, records, L=BATCH, also_L=(8,), from_run=BATCH_RUN)
     check_k10(dev, records)
     for bits in (16, 8, 4, 2):
         for need_attn in (True, False):
@@ -1710,10 +2192,16 @@ def main() -> int:
             check_decode(dev, records, bits, need_attn, 2048, i8dot=True)
     for bits in (8, 4):
         check_decode(dev, records, bits, False, 32768, i8dot=True)
+    # Decode attention at the batched run's shapes: its i8dot branch (the
+    # eval's dequantizing one follows that run, at its cache length).
+    check_decode(dev, records, 8, True, 2048, i8dot=True, B=BATCH, from_run=BATCH_RUN)
     check_hh_evict(dev, records)
+    check_hh_evict(dev, records, B=BATCH, from_run=BATCH_RUN)
     for name, IN, OUT in W8A8_SHAPES:
         check_w8a8(dev, records, name, IN, OUT)
     check_flash_prefill(dev, records)
+    check_flash_prefill(dev, records, plens=tuple(7928 - 8 * b for b in range(BATCH)),
+                        from_run=BATCH_RUN)
     for windows in ((2457,), (819, 2457)):
         check_flash_profile(dev, records, windows)
     check_w4a8_gemm(dev, records)
@@ -1725,6 +2213,8 @@ def main() -> int:
     in_situ_parity(dev, in_situ)
     in_situ_cli(dev, in_situ)
     trained_parity(dev, in_situ)
+    in_situ_batch(dev, in_situ)
+    in_situ_eval(dev, in_situ)
     quantize_on_card_matches_cpu(dev)
     log(f"[phase3] done at {time.perf_counter() - t_start:.1f} s")
     end_to_end(dev, card, runs, profile=args.profile)
@@ -1732,6 +2222,15 @@ def main() -> int:
     cli_full_run(dev, card, runs)
     log(f"[phase4] CLI run done at {time.perf_counter() - t_start:.1f} s")
     int8_bench_run(dev, card, runs, profile=args.profile)
+    C_eval = eval_full_run(dev, card, runs)
+    log(f"[phase4] eval run done at {time.perf_counter() - t_start:.1f} s")
+    # The eval's cache length is off the i8dot gate (C % 128 != 0): its
+    # decode attention is the dequantizing kv8 pooled variant, held here at
+    # that run's shape, with K7 beside it.
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_decode(dev, records, 8, True, C_eval, B=BATCH, from_run=EVAL_RUN)
+    check_hh_evict(dev, records, B=BATCH, C=C_eval, from_run=EVAL_RUN)
     runs += in_situ
 
     # Each kernel's launches come from the run its record names (K10's: the

@@ -23,9 +23,11 @@ dense bf16 layers and head (``init_params``, seed 0) through
 ``torch.matmul``; ``--attn_i8dot {auto,on,off}``, decode attention's branch
 over a quantized cache (``auto``, the default: the JAX program's on a TPU,
 int8 queries and probabilities for the int8 cache where its kernel runs; the
-JSON line names the mode). ``--batch`` above 1 is not ported yet and raises. Decode
-replays a captured CUDA graph of one step on the card (the warm-up run
-captures it, the measured run replays it).
+JSON line names the mode); ``--batch B`` decodes B lanes through
+``generate_batch``, lane b's prompt the first ``len - 8 b`` tokens of the
+one prompt, all in its bucket, as ``bench.py`` does (the rate is the
+aggregate over the lanes). Decode replays a captured CUDA graph of one step
+on the card (the warm-up run captures it, the measured run replays it).
 """
 
 from __future__ import annotations
@@ -41,8 +43,6 @@ import numpy as np
 import torch
 
 from .utils.cli import ATTN_I8DOT, ATTN_I8DOT_HELP
-
-NOT_PORTED = "is not ported yet"
 
 
 def card_line() -> Optional[str]:
@@ -117,8 +117,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.prefill_w4a8 and args.weight_bits != 4:
         raise ValueError("--prefill_w4a8 needs int4 layers (--weight_bits 4)")
-    if args.batch != 1:
-        raise ValueError(f"--batch {args.batch} {NOT_PORTED} (batch 1 only)")
+    if args.batch < 1:
+        raise ValueError(f"--batch {args.batch}: at least one lane")
     if args.smoke:
         args.model, args.context, args.decode_tokens = "TestTiny", 128, 16
     return args
@@ -132,7 +132,7 @@ def run(args: argparse.Namespace) -> dict:
     from .runtime.engine import (
         build_cache_specs, build_model, cache_compatibility, params_from_flat,
     )
-    from .runtime.generate import bucket_length, generate, reset_caches
+    from .runtime.generate import bucket_length, generate, generate_batch, reset_caches
 
     device = "cpu" if args.smoke else "cuda"
     cfg = ModelConfig.from_name(args.model)
@@ -154,17 +154,29 @@ def run(args: argparse.Namespace) -> dict:
                         prefill_w4a8=args.prefill_w4a8, attn_i8dot=ATTN_I8DOT[args.attn_i8dot])
     del params
     specs = build_cache_specs(cfg, kw, args.context)
-    caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
+    caches = init_caches(cfg, specs, args.batch, torch.bfloat16, device=device)
 
     prompt_len = args.context - args.decode_tokens - 8
     prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
     bucket = bucket_length(prompt_len)
+    if args.batch > 1:
+        # Lanes of different lengths in one bucket: per-lane positions.
+        prompts = [prompt[: prompt_len - 8 * b] for b in range(args.batch)]
+
+        def run_once(caches):
+            return generate_batch(model, caches, prompts, args.decode_tokens,
+                                  prefill_bucket=bucket)
+    else:
+
+        def run_once(caches):
+            return generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)
+
     # The warm-up run builds the kernels and, on the card, captures the decode graph.
-    generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)
+    run_once(caches)
     reset_caches(caches)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    _, info, caches = generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)
+    _, info, caches = run_once(caches)
     perf = info["perf_stats"]
     model_bytes = sum(t.numel() * t.element_size() for t in model.buffers())
     value = perf["decode_toks_per_sec"]

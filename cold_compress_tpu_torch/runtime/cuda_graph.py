@@ -68,13 +68,14 @@ class LoopBuffers:
             last_probs=torch.zeros((B, vocab), dtype=torch.float32, **kw),
         )
 
-    def load(self, first_token: torch.Tensor, start_pos: int, forced, terminators) -> None:
-        """Set up a new loop, in place: the first token at ``start_pos``,
-        the forced tokens (-1 where greedy) and the terminators."""
+    def load(self, first_token: torch.Tensor, start_pos, forced, terminators) -> None:
+        """Set up a new loop, in place: each lane's first token at its
+        position in ``start_pos`` (one per lane), the forced tokens (-1 where
+        greedy) and the terminators."""
         if len(forced) > self.forced.shape[0] or len(terminators) > self.term.shape[0]:
             raise ValueError("decode loop buffers too small for this call")
         self.i.zero_()
-        self.pos.fill_(int(start_pos))
+        self.pos.copy_(torch.tensor(start_pos, dtype=torch.int32))
         self.cur.copy_(first_token)
         self.done.zero_()
         self.forced.fill_(-1)

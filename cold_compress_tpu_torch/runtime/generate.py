@@ -1,7 +1,8 @@
 """Generation runtime: prefill, then a greedy decode loop on the device.
 
 Counterpart of ``cold_compress_tpu/runtime/generate.py`` (single-prompt
-``generate``, ``decode_loop_core`` and ``reset_caches``). The JAX package
+``generate``, batched ``generate_batch``, ``decode_loop_core`` and
+``reset_caches``). The JAX package
 runs the decode loop as one jitted ``lax.while_loop``. Here one step of it
 (``_decode_body``, the JAX ``body``: ``decode_step`` over every layer, the
 softmax, greedy or teacher-forced selection, the recorded token and
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -37,6 +38,24 @@ def bucket_length(n: int, minimum: int = 16) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _prefill_bucket(specs, n: int, prefill_bucket: Optional[int]) -> int:
+    """The prefill bucket for a longest prompt of ``n`` tokens:
+    ``prefill_bucket`` or n's power of two, capped by the smallest
+    direct-fill cache (full, hybrid, and the full outer cache of debug_*),
+    which writes all P padded slots."""
+    direct_fill = [
+        s.max_cache_length for s in specs
+        if s.cache_strategy in ("full", "hybrid") or s.cache_strategy.startswith("debug_")
+    ]
+    P = prefill_bucket or bucket_length(n)
+    if direct_fill and P > min(direct_fill):
+        P = min(direct_fill)
+        if P < n:
+            raise ValueError(
+                f"Prompt ({n} tokens) exceeds the smallest direct-fill cache length ({P}).")
+    return P
 
 
 def _sync(device: torch.device) -> None:
@@ -125,20 +144,7 @@ def generate(
         forced_first = None
 
     # ---- prefill ---------------------------------------------------------
-    # Direct-fill caches (full, hybrid, and the full outer cache of debug_*)
-    # write all P padded slots, so the bucket must not exceed their length.
-    direct_fill = [
-        s.max_cache_length for s in specs
-        if s.cache_strategy in ("full", "hybrid") or s.cache_strategy.startswith("debug_")
-    ]
-    P = prefill_bucket or bucket_length(prompt_length)
-    if direct_fill and P > min(direct_fill):
-        P = min(direct_fill)
-        if P < prompt_length:
-            raise ValueError(
-                f"Prompt ({prompt_length} tokens) exceeds the smallest "
-                f"direct-fill cache length ({P})."
-            )
+    P = _prefill_bucket(specs, prompt_length, prefill_bucket)
     tokens = torch.tensor(
         [prompt + [pad_id] * (P - prompt_length)], dtype=torch.long, device=device
     )
@@ -214,6 +220,127 @@ def generate(
     return seq, info, caches
 
 
+def generate_batch(
+    model: Transformer,
+    caches,
+    prompts: Sequence[Sequence[int]],
+    max_new_tokens: int,
+    *,
+    terminator_ids: Optional[Sequence[int]] = None,
+    attn_top_k: float = 1.0,
+    pad_id: int = 0,
+    prefill_bucket: Optional[int] = None,
+    cuda_graph: Optional[bool] = None,
+) -> Tuple[List[List[int]], Dict[str, Any], Any]:
+    """Batched greedy generation, the JAX package's ``generate_batch``: B
+    prompts of different lengths share one prefill bucket and decode in
+    lock-step, each lane from its own position, with its own terminator
+    stop and its own cache state. The caches must have been built for
+    ``len(prompts)`` lanes. A lane whose prompt fills the smallest cache
+    feeds its last token through decode. A finished lane records nothing
+    more. Decode runs through the captured graph on the card, as in
+    ``generate()``.
+
+    Returns ``(sequences, info, caches)``: ``sequences[b]`` is lane b's
+    prompt (less a token fed through decode) and its generation;
+    ``info["perf_stats"]`` gives aggregate rates over the lanes, and
+    ``info`` also holds ``emitted_probs`` and ``num_generated`` per lane,
+    ``final_probs`` [B, vocab], ``prompt_lengths``, ``decode_steps`` (the
+    steps run) and ``decode_graph``."""
+    device = model.device
+    if cuda_graph is None:
+        cuda_graph = device.type == "cuda"
+    if cuda_graph and device.type != "cuda":
+        raise ValueError("cuda_graph needs the model on a CUDA device")
+    prompts = [[int(t) for t in p] for p in prompts]
+    B = len(prompts)
+    lens = [len(p) for p in prompts]
+    terminator_ids = [int(t) for t in (terminator_ids or [])]
+    specs = [c.spec for c in caches]
+
+    min_cache_length = engine.min_cache_length(specs)
+    forced_first = [-1] * B
+    for b in range(B):
+        if lens[b] == min_cache_length:
+            forced_first[b] = prompts[b][-1]
+            lens[b] -= 1
+
+    P = _prefill_bucket(specs, max(lens), prefill_bucket)
+    if P < max(lens):
+        raise ValueError(f"Longest prompt ({max(lens)} tokens) exceeds the prefill bucket ({P}).")
+    tokens = torch.tensor(
+        [p[: lens[b]] + [pad_id] * (P - lens[b]) for b, p in enumerate(prompts)],
+        dtype=torch.long, device=device,
+    )
+    plen = torch.tensor(lens, dtype=torch.int32, device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = prefill(model, caches, tokens, plen)
+        prefill_probs = torch.softmax(logits.float(), dim=-1)
+        forced = torch.tensor(forced_first, dtype=torch.long, device=device)
+        first_token = torch.where(forced >= 0, forced, logits.argmax(dim=-1))
+    prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
+    t1 = time.perf_counter()
+    first_np = first_token.cpu().numpy()
+    first_probs = [float(prefill_probs_np[b, int(first_np[b])]) for b in range(B)]
+
+    max_steps = max(max_new_tokens - 1, 0)
+    graph_info = None
+    if max_steps > 0:
+        tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
+            model, caches, first_token, lens, [], terminator_ids, max_steps, attn_top_k,
+            cuda_graph,
+        )
+        tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
+        t2 = time.perf_counter()
+        gens = [[int(t) for t in tokens_np[:, b] if int(t) != -1] for b in range(B)]
+        probs_np = probs_buf.cpu().numpy()
+        emitted_probs = [
+            [first_probs[b]] + [float(p) for p in probs_np[: len(gens[b]) - 1, b]]
+            for b in range(B)
+        ]
+        final_probs = last_probs.cpu().numpy()
+    else:
+        t2 = t1
+        steps = 0
+        gens = [[int(first_np[b])] for b in range(B)]
+        emitted_probs = [[first_probs[b]] for b in range(B)]
+        final_probs = prefill_probs_np
+
+    seqs = [prompts[b][: lens[b]] + gens[b] for b in range(B)]
+    prefill_seconds = t1 - t0
+    decode_seconds = max(t2 - t1, 1e-9)
+    decode_tokens = sum(len(g) for g in gens)
+    total_seconds = t2 - t0
+    perf_stats = {
+        "batch_size": B,
+        "prefill_tokens": int(sum(lens)),
+        "decode_tokens": decode_tokens,
+        "prefill_toks_per_sec": sum(lens) / max(prefill_seconds, 1e-9),
+        "decode_toks_per_sec": decode_tokens / decode_seconds,
+        "total_toks_per_sec": decode_tokens / max(total_seconds, 1e-9),
+        "total_seconds": total_seconds,
+        "prefill_seconds": prefill_seconds,
+        "decode_seconds": decode_seconds,
+        "decode_seconds_frac_of_total": decode_seconds / max(total_seconds, 1e-9),
+        "memory_used_gb": (
+            torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
+        ),
+    }
+    info = {
+        "perf_stats": perf_stats,
+        "emitted_probs": emitted_probs,
+        "final_probs": final_probs,
+        "prompt_lengths": lens,
+        "num_generated": [len(g) for g in gens],
+        "decode_steps": steps,
+        "decode_graph": graph_info,
+    }
+    return seqs, info, caches
+
+
 def _decode_body(model: Transformer, caches, buf: LoopBuffers, attn_top_k: float) -> None:
     """One decode step, the JAX ``body``, writing every result in place into
     ``buf`` (nothing is rebound, so a captured step keeps its buffers):
@@ -237,10 +364,12 @@ def _decode_body(model: Transformer, caches, buf: LoopBuffers, attn_top_k: float
     buf.i += 1
 
 
-def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor, start_pos: int,
-                     prefix: Sequence[int], terminator_ids: Sequence[int], max_steps: int,
-                     attn_top_k: float = 1.0, cuda_graph: bool = False):
-    """Greedy decode with everything kept on the device.
+def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor,
+                     start_pos: Union[int, Sequence[int]], prefix: Sequence[int],
+                     terminator_ids: Sequence[int], max_steps: int, attn_top_k: float = 1.0,
+                     cuda_graph: bool = False):
+    """Greedy decode with everything kept on the device, each lane from its
+    own position (``start_pos``: an int for every lane, or one per lane).
 
     Returns (tokens [max_steps + 1, B] with slot 0 the first token and -1
     after a lane finished, emitted probabilities [max_steps, B], the last
@@ -258,8 +387,12 @@ def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor, star
     B = first_token.shape[0]
     forced = list(prefix[:max_steps]) + [-1] * max(0, max_steps - len(prefix))
     terminators = list(terminator_ids)
-    if start_pos + max_steps > model.rope.shape[0]:
-        raise ValueError(f"decode positions up to {start_pos + max_steps - 1} exceed the "
+    start_pos = [int(start_pos)] * B if isinstance(start_pos, int) else [int(p) for p in start_pos]
+    if len(start_pos) != B:
+        raise ValueError(f"{len(start_pos)} start positions for {B} lanes")
+    last_pos = max(start_pos) + max_steps - 1
+    if last_pos >= model.rope.shape[0]:
+        raise ValueError(f"decode positions up to {last_pos} exceed the "
                          f"model's {model.rope.shape[0]} rope rows")
     n_term = max(1, len(terminators))
     if cuda_graph:

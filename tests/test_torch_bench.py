@@ -1,6 +1,6 @@
 """The port's benchmark driver, ``python -m cold_compress_tpu_torch.bench``:
-its CPU smoke configuration end to end, the configurations it serves and
-the flags it refuses."""
+its CPU smoke configuration end to end, the configurations it serves (at
+batch 1 and above) and the flags it refuses."""
 
 import json
 import subprocess
@@ -81,10 +81,14 @@ def test_smoke_serves_other_configurations(argv, config, capsys):
     ["--batch", "2"], ["--strategy", "hybrid", "--batch", "4"],
     ["--strategy", "debug_heavy_hitter", "--weight_bits", "8", "--batch", "2"],
 ])
-def test_unported_flags_raise(argv):
-    """``--batch`` above 1 is not ported yet, at every weight width."""
-    with pytest.raises(ValueError, match="not ported yet"):
-        bench.parse_args(["--smoke", *argv])
+def test_unported_flags_raise(argv, capsys):
+    """``--batch`` above 1, which the port refused until ``generate_batch``
+    was ported, now runs at every weight width and strategy: one JSON line
+    with ``"batch": B``."""
+    assert bench.main(["--smoke", *argv]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    _check(json.loads(lines[0]), batch=int(argv[argv.index("--batch") + 1]))
 
 
 @pytest.mark.parametrize("bits", ["8", "16"])

@@ -569,6 +569,49 @@ def test_generate_stops_at_terminator_on_card_as_on_cpu(dev):
     assert all(torch.equal(g.pos.cpu() >= 0, c.pos >= 0) for g, c in zip(caches_g, caches_c))
 
 
+def test_generate_batch_graph_is_bit_equal_to_eager_and_lanes_stop(dev):
+    """TestKernel, int4 weights and head, kv8 heavy-hitter, three lanes of
+    300, 280 and 260 tokens: ``generate_batch`` through the captured graph
+    equals the eager step bit for bit (tokens, probabilities, every cache
+    tensor); with lane 0's third token as a terminator, lane 0 stops there
+    and the others run on as before unless they emit it."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
+    from cold_compress_tpu_torch.runtime.generate import generate_batch
+
+    cfg = ModelConfig.from_name("TestKernel")
+    model = build_model(cfg, params_from_flat(random_quantized_params(cfg, seed=0), dev), dev,
+                        max_positions=512)
+    specs = build_cache_specs(cfg, {
+        "cache_strategy": ["heavy_hitter"], "max_cache_length": [0.25],
+        "prompt_compression_strategy": ["heavy_hitter"], "global_tokens": 4,
+        "recent_window": 10, "cache_bits": 8}, 512)
+    base = np.random.RandomState(0).randint(2, 500, size=300).tolist()
+    prompts = [base, base[:280], np.random.RandomState(4).randint(2, 500, size=260).tolist()]
+    out = {}
+    for graph in (True, False):
+        caches = init_caches(cfg, specs, 3, torch.bfloat16, device=dev)
+        seqs, info, caches = generate_batch(model, caches, prompts, 8, prefill_bucket=512,
+                                            cuda_graph=graph)
+        out[graph] = (seqs, info, [t.cpu() for c in caches for t in c.tensors()])
+    (seqs, info, tensors), (seqs_e, info_e, tensors_e) = out[True], out[False]
+    assert info["decode_graph"]["captured"] and info_e["decode_graph"] is None
+    assert seqs == seqs_e and info["emitted_probs"] == info_e["emitted_probs"]
+    assert np.array_equal(info["final_probs"], info_e["final_probs"])
+    assert all(torch.equal(a, b) for a, b in zip(tensors, tensors_e))
+    term = seqs[0][300 + 2]
+    caches = init_caches(cfg, specs, 3, torch.bfloat16, device=dev)
+    stopped, info_t, _ = generate_batch(model, caches, prompts, 8, prefill_bucket=512,
+                                        terminator_ids=[term])
+    k = seqs[0][300:].index(term, 1)  # the first decode step that emits it
+    assert stopped[0] == seqs[0][: 300 + k + 1]
+    for b in (1, 2):
+        if term not in seqs[b][len(prompts[b]) + 1:]:  # a first token never stops a lane
+            assert stopped[b] == seqs[b]
+
+
 @pytest.mark.parametrize("P,plen,G,windows", [
     (256, 200, 4, (51,)), (512, 475, 2, (51, 128)), (1024, 77, 8, ()),
     (512, 512, 4, (1, 30, 200, 512)), (2048, 1900, 4, (7, 64, 1000)),

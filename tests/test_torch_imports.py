@@ -95,7 +95,8 @@ def test_no_jax_import_in_source(path):
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     """With no card and no explicit ``device="cpu"``, the entry points raise
     instead of continuing on the CPU."""
-    from cold_compress_tpu_torch import generate, quantize
+    from cold_compress_tpu_torch import convert_hf_checkpoint, eval_multi, generate, quantize
+    from cold_compress_tpu_torch import eval as port_eval
     from cold_compress_tpu_torch.caches import CacheSpec
     from cold_compress_tpu_torch.models.transformer import init_caches, init_params
     from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
@@ -126,6 +127,15 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         quantize.main(["--checkpoint_path", str(path), "--mode", "int4"])
     with pytest.raises(RuntimeError):
         generate.main(["--checkpoint_path", str(path), "--prompt", "hi"])
+    eval_argv = ["--checkpoint_path", str(path), "--tasks", "rulerniah", "--num_samples", "1",
+                 "--out_dir", str(tmp_path / "eval"), "--cache_strategy", "l2",
+                 "--prompt_compression_strategy", "l2"]
+    with pytest.raises(RuntimeError):
+        port_eval.cli(eval_argv)
+    with pytest.raises(RuntimeError):
+        eval_multi.main(eval_argv)
+    with pytest.raises(RuntimeError):
+        convert_hf_checkpoint.main(["--checkpoint_dir", str(tmp_path / "hf" / "TestKernel")])
     assert load_model(path, device="cpu")[0].name == "TestKernel"
     assert resolve_device("cpu") == torch.device("cpu")
     assert isinstance(cold_compress_tpu_torch.MODEL_CONFIGS, dict)
