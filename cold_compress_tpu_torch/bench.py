@@ -114,6 +114,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "activations) instead of bf16 dequantization.")
     ap.add_argument("--attn_i8dot", default="auto", choices=list(ATTN_I8DOT),
                     help=ATTN_I8DOT_HELP)
+    ap.add_argument("--verbose", action="store_true",
+                    help="Log the build and warm-up seconds and the perf dict, as bench.py.")
     args = ap.parse_args(argv)
     if args.prefill_w4a8 and args.weight_bits != 4:
         raise ValueError("--prefill_w4a8 needs int4 layers (--weight_bits 4)")
@@ -144,6 +146,8 @@ def run(args: argparse.Namespace) -> dict:
     cache_bits = None if args.cache_bits == 16 else args.cache_bits
     kw = cache_kwargs(args.strategy, args.budget_frac, args.global_tokens, cache_bits)
     cache_compatibility(kw)
+    log = print if args.verbose else (lambda *a, **k: None)
+    t0 = time.time()
     if args.weight_bits == 16:
         params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                              torch.bfloat16, device)
@@ -153,6 +157,7 @@ def run(args: argparse.Namespace) -> dict:
     model = build_model(cfg, params, device, max_positions=args.context,
                         prefill_w4a8=args.prefill_w4a8, attn_i8dot=ATTN_I8DOT[args.attn_i8dot])
     del params
+    log(f"params built in {time.time() - t0:.1f}s")
     specs = build_cache_specs(cfg, kw, args.context)
     caches = init_caches(cfg, specs, args.batch, torch.bfloat16, device=device)
 
@@ -172,12 +177,15 @@ def run(args: argparse.Namespace) -> dict:
             return generate(model, caches, prompt, args.decode_tokens, prefill_bucket=bucket)
 
     # The warm-up run builds the kernels and, on the card, captures the decode graph.
+    t0 = time.time()
     run_once(caches)
+    log(f"compile+warmup in {time.time() - t0:.1f}s")
     reset_caches(caches)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _, info, caches = run_once(caches)
     perf = info["perf_stats"]
+    log(json.dumps(perf, indent=2))
     model_bytes = sum(t.numel() * t.element_size() for t in model.buffers())
     value = perf["decode_toks_per_sec"]
     return {

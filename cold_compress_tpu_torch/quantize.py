@@ -2,16 +2,19 @@
 
 Counterpart of the repository's ``quantize.py``: reads ``<stem>.npz`` (the
 flat key scheme; its parent directory names the architecture) and writes
-``<stem>_int8.npz`` or ``<stem>_int4.g<groupsize>.npz`` next to it, with the
-same bytes as the JAX package's CLI writes for the same input. It
-quantizes on the card unless ``--device cpu`` is given, leaf by leaf:
+``<stem>_int8.npz``, ``<stem>_int4.g<groupsize>.npz`` (with the same bytes as
+the JAX package's CLI writes for the same input) or, with GPTQ calibration
+(``quantization/gptq.py``; ``--calibration_limit`` random sequences of
+``--calibration_seq_length`` tokens; the head always int4),
+``<stem>_int4-gptq.g<groupsize>.npz`` next to it. It quantizes on the card
+unless ``--device cpu`` is given:
 
     python -m cold_compress_tpu_torch.quantize --mode int4 --groupsize 128 \\
         --checkpoint_path ckpt/byte/Meta-Llama-3-8B-Instruct/model.npz
     python -m cold_compress_tpu_torch.quantize --device cpu --mode int8 \\
         --checkpoint_path ckpt/byte/TestKernel/model.npz
-
-``--mode int4-gptq`` is not ported yet and raises.
+    python -m cold_compress_tpu_torch.quantize --device cpu --mode int4-gptq \\
+        --groupsize 64 --checkpoint_path /tmp/ckpt/TinyByteLM-hf/model.npz
 """
 
 from __future__ import annotations
@@ -21,28 +24,38 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence
 
+from .models.transformer import make_rope_table
+from .quantization.gptq import gptq_quantize_params
 from .quantization.weight_quant import quantize_params
 from .runtime.engine import load_model, save_params
 
 
 def quantize(checkpoint_path: Path, mode: str = "int8", groupsize: int = 128,
              model_name: Optional[str] = None, head_bits: Optional[int] = None,
-             device=None) -> Path:
+             device=None, calibration_limit: int = 10,
+             calibration_seq_length: int = 512) -> Path:
     """Quantize one checkpoint and return the path written. The vocab head
-    takes ``head_bits`` (default: 4 for int4 modes, else 8)."""
-    if mode == "int4-gptq":
-        raise ValueError("--mode int4-gptq is not ported yet (ROADMAP: GPTQ)")
-    if mode not in ("int8", "int4"):
+    takes ``head_bits`` (default: 4 for int4 modes, else 8); GPTQ ignores
+    it and quantizes the head to int4, as the JAX package does."""
+    if mode not in ("int8", "int4", "int4-gptq"):
         raise ValueError(f"Invalid quantization mode {mode} (needs to be one of int8, int4, "
                          "int4-gptq)")
     checkpoint_path = Path(checkpoint_path)
     if head_bits is None:
         head_bits = 4 if mode.startswith("int4") else 8
     t0 = time.time()
-    _, params = load_model(checkpoint_path, model_name=model_name, device=device)
+    cfg, params = load_model(checkpoint_path, model_name=model_name, device=device)
     print(f"Loaded model in {time.time() - t0:.02f}s")
 
-    if mode == "int8":
+    if mode == "int4-gptq":
+        print("Quantizing model weights for int4 using GPTQ calibration "
+              f"(groupsize={groupsize})")
+        rope = make_rope_table(cfg, calibration_seq_length, device=params["norm"].device)
+        quantized = gptq_quantize_params(cfg, params, rope, group_size=groupsize,
+                                         n_samples=calibration_limit,
+                                         seq_length=calibration_seq_length)
+        new_path = checkpoint_path.parent / f"{checkpoint_path.stem}_int4-gptq.g{groupsize}.npz"
+    elif mode == "int8":
         print("Quantizing model weights for int8 weight-only symmetric per-channel quantization")
         quantized = quantize_params(params, mode="int8", output_mode=f"int{head_bits}")
         new_path = checkpoint_path.parent / f"{checkpoint_path.stem}_int8.npz"
@@ -70,14 +83,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--head_bits", type=int, default=None, choices=[8, 4],
                         help="Vocab-head weight bits (default: 4 for int4 modes, else 8).")
     parser.add_argument("--calibration_limit", type=int, default=10,
-                        help="GPTQ only (not ported yet).")
+                        help="GPTQ: calibration sequences.")
     parser.add_argument("--calibration_seq_length", type=int, default=512,
-                        help="GPTQ only (not ported yet).")
+                        help="GPTQ: tokens per calibration sequence.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) | cpu")
     args = parser.parse_args(argv)
     quantize(args.checkpoint_path, args.mode, args.groupsize, model_name=args.model_name,
-             head_bits=args.head_bits, device=args.device)
+             head_bits=args.head_bits, device=args.device,
+             calibration_limit=args.calibration_limit,
+             calibration_seq_length=args.calibration_seq_length)
     return 0
 
 

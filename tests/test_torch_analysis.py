@@ -21,6 +21,7 @@ from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
 from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
 from cold_compress_tpu_torch.runtime.stats import get_cache_stats
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SEQ = 96
 PROMPT = list(range(1, 41))

@@ -33,6 +33,7 @@ from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.ops import kernel_launches
 from cold_compress_tpu_torch.runtime.engine import build_model, params_from_flat
 from cold_compress_tpu_torch.runtime.generate import generate, generate_batch, reset_caches
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SEQ = 64
 PROMPTS = [

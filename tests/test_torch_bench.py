@@ -3,6 +3,7 @@ its CPU smoke configuration end to end, the configurations it serves (at
 batch 1 and above) and the flags it refuses."""
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from cold_compress_tpu_torch import bench
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -89,6 +91,21 @@ def test_unported_flags_raise(argv, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     _check(json.loads(lines[0]), batch=int(argv[argv.index("--batch") + 1]))
+
+
+def test_verbose_logs_as_bench_py(capsys):
+    """``--verbose`` logs what ``bench.py --verbose`` logs, on stdout before
+    the JSON line: the build seconds, the warm-up seconds and the measured
+    run's perf dict."""
+    assert bench.main(["--smoke", "--verbose"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert re.fullmatch(r"params built in \d+\.\ds", lines[0])
+    assert re.fullmatch(r"compile\+warmup in \d+\.\ds", lines[1])
+    perf = json.loads("\n".join(lines[2:-1]))
+    assert perf["decode_toks_per_sec"] > 0 and "prefill_toks_per_sec" in perf
+    result = json.loads(lines[-1])
+    _check(result, strategy="heavy_hitter")
+    assert result["value"] == round(perf["decode_toks_per_sec"], 2)
 
 
 @pytest.mark.parametrize("bits", ["8", "16"])

@@ -27,6 +27,7 @@ from cold_compress_tpu_torch.caches import (
 )
 from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.runtime.engine import build_cache_specs, cache_compatibility
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

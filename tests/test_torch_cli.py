@@ -29,6 +29,7 @@ from cold_compress_tpu_torch.ops import kernel_launches
 from cold_compress_tpu_torch.quantization import weight_quant as TW
 from cold_compress_tpu_torch.runtime import engine as TE
 from cold_compress_tpu_torch.utils import cli as port_cli
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((REPO / "cache_configs").glob("*.yaml"))
@@ -138,9 +139,7 @@ def test_quantize_weight_bytes_match_jax(in_dim, out_dim, gs):
             assert ref[key].dtype == got[key].dtype and ref[key].tobytes() == got[key].tobytes(), key
 
 
-def test_gptq_and_unknown_modes_raise(tmp_path):
-    with pytest.raises(ValueError, match="not ported yet"):
-        port_quantize.quantize(tmp_path / "TestKernel" / "model.npz", "int4-gptq", device="cpu")
+def test_unknown_mode_raises(tmp_path):
     with pytest.raises(ValueError, match="Invalid quantization mode"):
         port_quantize.quantize(tmp_path / "TestKernel" / "model.npz", "int2", device="cpu")
 

@@ -20,6 +20,7 @@ from cold_compress_tpu_torch.convert_hf_checkpoint import (
     read_safetensors,
 )
 from cold_compress_tpu_torch.runtime.engine import load_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = ["TinyByteLM-hf", "TinyByteLM128-hf"]

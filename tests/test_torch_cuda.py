@@ -922,3 +922,55 @@ def test_graph_recaptures_when_the_i8dot_mode_changes(graph_models):
         assert not np.array_equal(runs["auto"][1], runs[False][1])
     finally:
         set_attn_i8dot(model, "auto")
+
+
+def _gptq_calibration(IN, OUT, seed=0):
+    """Correlated activations and W, as tests/test_torch_gptq.py draws them."""
+    rng = np.random.RandomState(seed)
+    basis = rng.standard_normal((16, IN))
+    x = (rng.standard_normal((4 * IN, 16)) @ basis
+         + 0.1 * rng.standard_normal((4 * IN, IN))).astype(np.float32)
+    W = (rng.standard_normal((IN, OUT)) * 0.05).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(W)
+
+
+@pytest.mark.parametrize("IN,OUT,gs", [(256, 768, 64), (768, 256, 64), (1024, 512, 128),
+                                       (200, 96, 64)])
+def test_gptq_blocked_on_card_within_bound_of_cpu_contract(dev, IN, OUT, gs):
+    """GPTQ's blocked form on the card (a group's row loop replayed as a
+    CUDA graph) against the row-by-row contract on the CPU, on one W and
+    H, within the bounds ``chip_smoke.py`` holds the 8B run to."""
+    from chip_smoke import GPTQ_BLOCKED_BOUNDS, blocked_differences
+    from cold_compress_tpu_torch.quantization.gptq import _hessian, gptq_quantize_matrix
+
+    x, W = _gptq_calibration(IN, OUT)
+    H = _hessian(x)
+    rows = gptq_quantize_matrix(W, H, gs)
+    card = gptq_quantize_matrix(W.to(dev), H.to(dev), gs, blocked=True)
+    assert card["w"].device.type == "cuda"
+    diff = blocked_differences(rows, card, x.to(dev), W.to(dev))
+    assert all(diff[k] <= GPTQ_BLOCKED_BOUNDS[k] for k in diff), diff
+
+
+def test_gptq_params_on_card_launch_flash_prefill_per_layer(dev):
+    """``gptq_quantize_params`` on TestKernel on the card: its calibration
+    attention (head_dim 128, P = 512) is K4, once per layer; the int4 tree
+    runs."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_params, make_rope_table
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.quantization.gptq import gptq_quantize_params
+    from cold_compress_tpu_torch.runtime.engine import build_model
+
+    cfg = ModelConfig.from_name("TestKernel")
+    params = init_params(cfg, _gen(dev, 0), torch.bfloat16, dev)
+    reset_kernel_launches()
+    tree = gptq_quantize_params(cfg, params, make_rope_table(cfg, 512, device=dev),
+                                n_samples=2, seq_length=512, verbose=False)
+    assert {k: v for k, v in kernel_launches().items() if v} == {
+        "flash_prefill_summary": cfg.n_layer}
+    assert tree["output"]["w"].device.type == "cuda"
+    model = build_model(cfg, tree, dev, max_positions=512)
+    with torch.inference_mode():
+        logits = model.output(model.tok_embeddings[None, :4])  # the int4 head, K2
+    assert bool(torch.isfinite(logits.float()).all())

@@ -19,6 +19,7 @@ from cold_compress_tpu.ops.pallas_decode_attn import quantized_decode_attention
 
 from cold_compress_tpu_torch.ops import decode_attn
 from cold_compress_tpu_torch.ops.attention import gqa_attention
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, KVH, G, C, D = 2, 2, 4, 256, 128
 H = KVH * G

@@ -23,6 +23,7 @@ from cold_compress_tpu_torch.evals import task as port_task
 from cold_compress_tpu_torch.evals.metric import AutoMetric
 from cold_compress_tpu_torch.ops import kernel_launches
 from cold_compress_tpu_torch.tokenizer import get_tokenizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CKPT = REPO / "tests" / "fixtures" / "TinyByteLM128-hf" / "model.npz"
@@ -181,8 +182,8 @@ def both_evals(tmp_path_factory):
     directory, port results directory, the JAX ``generate_batch`` calls'
     lanes, the port's calls as (model, cache specs, prefill bucket,
     sequences, emitted probabilities)).
-    Both run one thread to a process: the suite's workers share the
-    cores."""
+    Both run one thread to a process (the port's through
+    ``one_torch_thread``): the suite's workers share the cores."""
     import os
 
     tmp = tmp_path_factory.mktemp("evals")
@@ -195,8 +196,6 @@ def both_evals(tmp_path_factory):
                           *_eval_argv(["rulerniah", "localtext"], jax_dir, extra)],
                          cwd=REPO, capture_output=True, text=True, timeout=900, env=env)
     assert out.returncode == 0 and "ALL_TASKS_DONE" in out.stdout, out.stderr[-3000:]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     calls, batch = [], port_eval.generate_batch
 
     def recorded(model, caches, prompts, max_new_tokens, **kw):
@@ -212,7 +211,6 @@ def both_evals(tmp_path_factory):
         assert kernel_launches() == before  # the CPU runs the plain versions
     finally:
         port_eval.generate_batch = batch
-        torch.set_num_threads(threads)
     return jax_dir, port_dir, json.loads((tmp / "jax_calls.json").read_text()), calls
 
 

@@ -23,6 +23,7 @@ from cold_compress_tpu_torch.ops import kernel_launches
 from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
 from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
 from cold_compress_tpu_torch.runtime.stats import get_cache_stats
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HH_KW = {
     "cache_strategy": ["heavy_hitter"],

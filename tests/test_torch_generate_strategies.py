@@ -36,6 +36,7 @@ from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.ops import kernel_launches
 from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
 from cold_compress_tpu_torch.runtime.generate import generate
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROMPT = np.random.RandomState(0).randint(2, 500, size=300).tolist()
 FORCED = np.random.RandomState(1).randint(2, 500, size=16).tolist()

@@ -30,6 +30,7 @@ from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.ops import kernel_launches
 from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
 from cold_compress_tpu_torch.runtime.generate import generate
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MENU = [
     {"strategy": "special"},

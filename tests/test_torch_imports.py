@@ -14,6 +14,7 @@ import torch
 import cold_compress_tpu_torch
 from cold_compress_tpu_torch import resolve_device
 from cold_compress_tpu_torch.models.config import ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "cold_compress_tpu_torch"

@@ -10,6 +10,7 @@ import math
 import pytest
 
 from cold_compress_tpu_torch.ops import decode_attn, prefill_attn, qmm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("C", [1, 2, 127, 128, 129, 300, 1024, 1025, 2048, 2049, 4093,

@@ -14,6 +14,7 @@ from cold_compress_tpu.ops.attention import _chunked_prefill
 from cold_compress_tpu.ops.pallas_prefill import flash_prefill as jax_flash_prefill
 
 from cold_compress_tpu_torch.ops import attention, prefill_attn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, KVH, G, P, D = 1, 2, 2, 512, 128
 H = KVH * G

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from cold_compress_tpu_torch.utils import prng
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_jax_uses_the_partitionable_counter_layout():

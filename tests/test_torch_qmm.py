@@ -25,6 +25,7 @@ from cold_compress_tpu_torch.ops import linear as TL
 from cold_compress_tpu_torch.ops import qmm
 from cold_compress_tpu_torch.quantization import weight_quant as TW
 from cold_compress_tpu_torch.runtime.engine import params_from_flat
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _leaf(rng, IN, OUT, gs=128):

@@ -38,6 +38,7 @@ from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.ops.attention import gqa_attention
 from cold_compress_tpu_torch.runtime.engine import build_cache_specs
 from cold_compress_tpu_torch.runtime.stats import get_cache_stats
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

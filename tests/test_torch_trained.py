@@ -26,6 +26,7 @@ from cold_compress_tpu.runtime.engine import load_model as jax_load_model
 from cold_compress_tpu.runtime.generate import generate as jax_generate
 
 from cold_compress_tpu_torch.ops import kernel_launches
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 #: |port NLL - JAX NLL| in nats per byte; the bound of
 #: test_quality_gates.py (0.02) where more than rounding moves it.
