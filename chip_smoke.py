@@ -35,7 +35,11 @@ Phases; any failure raises and the script exits non-zero:
    i8dot branch (the cluster size printed), K4 at B = 4 with prompt lengths
    7928/7920/7912/7904 (each lane's summaries checked) and K7 at B = 4;
    K4 also at GPTQ's calibration shape (10 sequences of 512, no
-   summaries), beside SDPA;
+   summaries), beside SDPA; and one tensor-parallel rank's shapes at
+   tp = 2 and 4 (phase 5 launches them): K1 at the four projections' shards
+   (wqkv and w13 a tp-th of the columns, wo and w2 of the inputs), K2 at a
+   tp-th of the vocabulary, decode attention kv8 pooled in its i8dot branch
+   over 8/tp KV heads, K7 over 8/tp rows;
 3. small in-situ parity: the port on the card (decoding through the
    captured CUDA graph of one step) against the port on the CPU (plain
    versions), TestKernel with int4 weights, teacher-forced, over
@@ -96,6 +100,24 @@ Phases; any failure raises and the script exits non-zero:
    device operations of a few more decode steps, eager and replayed, and
    ``generate()``'s decode time per step without and with the per-step
    read of the stop flags (a terminator never emitted).
+
+5. tensor and data parallelism at full width (``parallel/``), ranks
+   started by ``parallel/launch.py``: with four cards, NCCL with one card
+   per rank, tp = 2 and tp = 4 over the main path (64 tokens decoding
+   through the captured graph, which holds the collectives) and
+   ``generate_batch`` at dp = 2 x tp = 2 over the batch run's four lanes;
+   with fewer, tp = 2 (NCCL where there are two cards) and dp = 2 x tp = 1
+   over two ranks, and tp = 4 (16 tokens) over four, ranks sharing the
+   card over gloo (eager decode, correctness only, no timing). Each tp run:
+   every rank's greedy tokens equal to the single-card main path's (phase
+   4's run); those tokens teacher-forced, every step's probability within
+   TP_PROB_REL of the largest of the single-card run's; an exact launch
+   witness on every rank (K1 4 x 32, K2 1, K3 32, K7 32 per token, K4 32
+   per prefill); per rank the prefill seconds, decode tok/s and peak
+   memory, and over NCCL the all-reduce and all-gather device time per
+   replayed step. The dp run: each lane's greedy tokens equal to phase 4's
+   single-card lane's, its probabilities within the same bound, and each
+   rank's launch witness.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing every kernel, and the result line.
@@ -332,24 +354,26 @@ def record(records, name, counter, source, replaces, err, tol, ratio, ms, plain_
 # ---------------------------------------------------------------------------
 
 
-def check_w4a8(dev, records, L: int = 1, also_L=(), from_run=None):
+def check_w4a8(dev, records, L: int = 1, also_L=(), from_run=None, tp: int = 1):
     """K1 at the four layer projections and K2 at the head, L activation
     rows (``bench --batch L``: one row per lane), each held against its
     plain version and timed beside its bound; at each ``also_L`` too (a
-    second row block: the weights stream again)."""
+    second row block: the weights stream again). With ``tp`` at one rank's
+    shard of each: the column-parallel wqkv, w13 and head a tp-th of the
+    columns, the row-parallel wo and w2 a tp-th of the inputs."""
     from cold_compress_tpu_torch.ops import qmm
 
     gs = 128
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(1 + tp)
     shapes = [  # (counter, IN, OUT, replaces)
-        ("w4a8_gemv.wqkv", 4096, 6144, "ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.wo", 4096, 4096, "ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.w13", 4096, 28672, "ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.w2", 14336, 4096, "ops/pallas_qmm.py:712"),
-        ("w4a8_gemv.head", 4096, 128256, "ops/pallas_qmm.py:407"),
+        ("w4a8_gemv.wqkv", 4096, 6144 // tp, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.wo", 4096 // tp, 4096, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.w13", 4096, 28672 // tp, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.w2", 14336 // tp, 4096, "ops/pallas_qmm.py:712"),
+        ("w4a8_gemv.head", 4096, 128256 // tp, "ops/pallas_qmm.py:407"),
     ]
     for counter, IN, OUT, replaces in shapes:
-        name = counter if L == 1 else f"{counter}@L{L}"
+        name = counter + (f"@L{L}" if L > 1 else "") + (f"@tp{tp}" if tp > 1 else "")
         ng = IN // gs
 
         def nbytes_at(rows):
@@ -397,7 +421,7 @@ def check_w4a8(dev, records, L: int = 1, also_L=(), from_run=None):
         if from_run:
             extra["from_run"] = from_run
         record(records, name, counter, "w4a8_gemv.cu", replaces, err, "1e-4*max|ref| + 1e-6",
-               err / tol, ms, plain_ms, b_ms, b_by, None, cols=cols, L=L,
+               err / tol, ms, plain_ms, b_ms, b_by, None, cols=cols, L=L, IN=IN, OUT=OUT,
                launch_floor_ms=launch_floor_ms(), **extra)
         del ws, szs
 
@@ -422,20 +446,21 @@ def _decode_inputs(dev, gen, bits, B, KVH, C, D):
 
 
 def check_decode(dev, records, bits: int, need_attn: bool, C: int, i8dot: bool = False,
-                 B: int = 1, from_run=None):
+                 B: int = 1, from_run=None, tp: int = 1):
     """K3 (C = 2048, the main path's budget) or K5 (C = 32768, a full
     cache above the TPU's one-shot budget) at one (bits, need_attn), in the
     dequantizing branch or in the ``i8dot`` one (then also the dequantizing
-    variant's time on the same inputs), over B lanes (``bench --batch``)."""
+    variant's time on the same inputs), over B lanes (``bench --batch``),
+    at one tensor-parallel rank's heads (a tp-th of them) with ``tp``."""
     from cold_compress_tpu_torch.ops import decode_attn
 
-    H, KVH, D = 32, 8, 128
+    H, KVH, D = 32 // tp, 8 // tp, 128
     G = H // KVH
-    gen = torch.Generator(device=dev).manual_seed(2 + bits + C + int(need_attn) + B)
+    gen = torch.Generator(device=dev).manual_seed(2 + bits + C + int(need_attn) + B + tp)
     counter = decode_attn.variant(bits, need_attn, i8dot)
     plain = (decode_attn.decode_attention_i8dot_plain if i8dot
              else decode_attn.decode_attention_plain)
-    name = f"{counter}@C{C}" + (f"B{B}" if B > 1 else "")
+    name = f"{counter}@C{C}" + (f"B{B}" if B > 1 else "") + (f"tp{tp}" if tp > 1 else "")
     row_bytes = decode_attn.packed_width(bits, D) * (2 if bits == 16 else 1)
     side = 0 if bits == 16 else 4 * 4 * B * KVH * C  # f32 scales and zeros of K and V
     nbytes = (2 * B * KVH * C * row_bytes + side + B * KVH * C  # K, V, their sides, mask
@@ -512,16 +537,18 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int, i8dot: bool =
     if from_run:
         extra["from_run"] = from_run
     record(records, name, counter, "decode_attn.cu", replaces, err, tol, ratio, ms, plain_ms,
-           b_ms, b_by, library_ms, C=C, B=B, device_kernels_per_call=n_dev, cluster=nc, **extra)
+           b_ms, b_by, library_ms, C=C, B=B, KVH=KVH, device_kernels_per_call=n_dev, cluster=nc,
+           **extra)
 
 
-def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None):
-    """K7 over B lanes of 8 heads' C histories, each lane at its own
-    position; at B = 1 also rows off a 16-byte boundary."""
+def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None, tp: int = 1):
+    """K7 over B lanes of 8 heads' C histories (a tp-th of the heads with
+    ``tp``: one rank's), each lane at its own position; at B = 1 and tp = 1
+    also rows off a 16-byte boundary."""
     from cold_compress_tpu_torch.ops import evict
 
-    H, g_tok, recent = 8, 4, 10
-    gen = torch.Generator(device=dev).manual_seed(4 + B + C)
+    H, g_tok, recent = 8 // tp, 4, 10
+    gen = torch.Generator(device=dev).manual_seed(4 + B + C + tp)
     nbytes = 3 * 4 * B * H * C + 4 * B + 4 * B * H + 2 * 4 * B * H
     n = copies_for(nbytes)
     rows = []
@@ -559,7 +586,7 @@ def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None):
 
     # Rows off a 16-byte boundary (C % 4 != 0, B = 2): the scalar head and
     # tail inside the kernel.
-    for Cm in ((2047, 301) if B == 1 else ()):
+    for Cm in ((2047, 301) if B == 1 and tp == 1 else ()):
         num = torch.randint(1, 64, (2, H, Cm), device=dev, generator=gen).float() / 4
         denom = torch.randint(0, 9, (2, H, Cm), device=dev, generator=gen, dtype=torch.int32)
         pos = torch.stack([torch.randperm(Cm, device=dev, generator=gen) for _ in range(2 * H)])
@@ -577,13 +604,14 @@ def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None):
     ms = time_ms(run, 200)
     plain_ms = time_ms(lambda i: evict.hh_evict_plain(*rows[i % n], ipos, g_tok, recent), 20)
     b_ms, b_by = bound(nbytes, 4 * B * H * C, "bf16")
-    shape = ("" if C == 2048 else f"C{C}") + ("" if B == 1 else f"B{B}")
+    shape = ("" if C == 2048 else f"C{C}") + ("" if B == 1 else f"B{B}") + (
+        "" if tp == 1 else f"tp{tp}")
     name = "hh_evict" + (f"@{shape}" if shape else "")
     log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
         f"{plain_ms:.4f} ms, library: none; launch floor {launch_floor_ms():.4f} ms")
     extra = {"from_run": from_run} if from_run else {}
     record(records, name, "hh_evict", "hh_evict.cu", "ops/pallas_evict.py:57", 0.0,
-           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, B=B, C=C,
+           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, B=B, C=C, H=H,
            launch_floor_ms=launch_floor_ms(), **extra)
 
 
@@ -1575,7 +1603,7 @@ def e2e_run(run_name, cfg, model, kw, context, new_tokens, dev, card, runs, head
     if profile:
         profile_decode(model, caches, [seq[-1]], [len(seq)], 8, card, run_name)
         stop_read_cost(model, caches, prompt, cfg.vocab_size, card, run_name)
-    return perf, seq
+    return perf, seq, info
 
 
 def log_capture(run_name, info, card):
@@ -1994,7 +2022,7 @@ def end_to_end(dev, card, runs, profile=False):
 
     # The main path: bench.py's default configuration (decode attention in
     # the i8dot branch, as the TPU program routes it).
-    main, main_seq = e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model,
+    main, main_seq, main_info = e2e_run("main path (heavy_hitter kv8, int4 head)", cfg, model,
                    cache_kw("heavy_hitter", 8), 8192, 128, dev, card, runs, "w4a8_gemv.head",
                    profile, eager_check=True)
 
@@ -2002,7 +2030,7 @@ def end_to_end(dev, card, runs, profile=False):
     # --attn_i8dot off), beside it.
     set_attn_i8dot(model, False)
     try:
-        off, _ = e2e_run("main path, attn_i8dot off", cfg, model, cache_kw("heavy_hitter", 8),
+        off, _, _ = e2e_run("main path, attn_i8dot off", cfg, model, cache_kw("heavy_hitter", 8),
                          8192, 64, dev, card, runs, "w4a8_gemv.head")
     finally:
         set_attn_i8dot(model, "auto")
@@ -2011,7 +2039,8 @@ def end_to_end(dev, card, runs, profile=False):
         f"{off['decode_toks_per_sec']:.3f} over {off['decode_steps']} steps  [{card}]")
 
     # The main path at 4 lanes (bench --batch 4).
-    batch = batch_bench_run(cfg, model, dev, card, runs, main_seq, profile)
+    batch, batch_seqs, batch_info = batch_bench_run(cfg, model, dev, card, runs, main_seq,
+                                                    profile)
     log(f"[e2e] main path decode tok/s: batch 1 {main['decode_toks_per_sec']:.3f}, batch "
         f"{BATCH} aggregate {batch['decode_toks_per_sec']:.3f}  [{card}]")
 
@@ -2047,6 +2076,8 @@ def end_to_end(dev, card, runs, profile=False):
     torch.cuda.empty_cache()
     e2e_run("full bf16, 32k, Llama-3.1-8B", cfg31, model, cache_kw("full", 16), 32768, 64, dev,
             card, runs, "w4a8_gemv.head", profile)
+    return {"main_seq": main_seq, "main_probs": main_info["emitted_probs"],
+            "batch_seqs": batch_seqs, "batch_probs": batch_info["emitted_probs"]}
 
 
 #: The batched runs: ``bench --batch 4`` on the main path (lane b's prompt
@@ -2415,10 +2446,10 @@ def batch_bench_run(cfg, model, dev, card, runs, main_seq, profile=False):
     reset_caches(caches)
     graph_matches_eager(BATCH_RUN, model, caches, prompts, dev)
     if profile:
-        seqs, info, caches = generate_batch(model, caches, prompts, 2, prefill_bucket=8192)
-        profile_decode(model, caches, [s[-1] for s in seqs],
-                       [len(s) for s in seqs], 8, card, BATCH_RUN)
-    return perf
+        short, _, caches = generate_batch(model, caches, prompts, 2, prefill_bucket=8192)
+        profile_decode(model, caches, [s[-1] for s in short],
+                       [len(s) for s in short], 8, card, BATCH_RUN)
+    return perf, seqs, info
 
 
 def eval_full_run(dev, card, runs):
@@ -2458,6 +2489,263 @@ def eval_full_run(dev, card, runs):
     return lengths[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: tensor and data parallelism across ranks
+# ---------------------------------------------------------------------------
+
+MAIN_MODEL = "Meta-Llama-3-8B-Instruct"
+TP_CONTEXT = 8192  # the main path's context; its prompt is 264 tokens shorter
+#: Tokens of each tensor-parallel run: greedy, then teacher-forced on the
+#: single-card run's tokens (fewer where four ranks share one card).
+TP_TOKENS = 64
+TP_SHARED_TOKENS = {2: 64, 4: 16}
+#: Replays of the decode graph profiled for the collectives' device time.
+TP_PROFILE_STEPS = 8
+#: Probabilities against the single card's, as a share of the largest
+#: single-card probability compared (1.75e-4 on the main path): the gaps
+#: measured on the H100 came to 0.18-0.81% of it (tp = 2 and 4, dp = 2).
+TP_PROB_REL = 2e-2
+TP_TIMEOUT_S = 300
+
+
+def tp_run_name(tp: int) -> str:
+    return f"tensor parallel tp={tp} (main path, heavy_hitter kv8, int4 head)"
+
+
+def dp_run_name(tp: int) -> str:
+    return f"generate_batch dp=2 x tp={tp} (main path, {BATCH} lanes)"
+
+
+def main_prompt(cfg, lane: int = 0) -> list:
+    """The main path's 7928-token prompt (``e2e_run``'s at an 8192
+    context), less 8 tokens for each lane (``batch_bench_run``'s lanes)."""
+    n = TP_CONTEXT - 256 - 8
+    prompt = np.random.RandomState(0).randint(5, cfg.vocab_size - 5, size=n).tolist()
+    return prompt[: n - 8 * lane]
+
+
+@functools.lru_cache(maxsize=1)
+def rank_params():
+    """(config, parameter tree on the host) of the main path's random int4
+    Llama-3-8B weights from seed 0, drawn once in each rank's process."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.quantization.weight_quant import random_quantized_params
+    from cold_compress_tpu_torch.runtime.engine import params_from_flat
+
+    cfg = ModelConfig.from_name(MAIN_MODEL)
+    return cfg, params_from_flat(random_quantized_params(cfg, seed=0, head_mode="int4"), "cpu")
+
+
+def rank_model(ctx, batch: int = 1):
+    """This rank's shard of the main path's model and its caches (its KV
+    heads, its replica's lanes), with the seconds the build took."""
+    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.parallel.tp_decode import build_tp_model
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs
+
+    cfg, params = rank_params()
+    t0 = time.perf_counter()
+    model = build_tp_model(cfg, params, ctx, max_positions=TP_CONTEXT)
+    torch.cuda.synchronize(ctx.device)
+    build_s = time.perf_counter() - t0
+    specs = build_cache_specs(cfg, cache_kw("heavy_hitter", 8), TP_CONTEXT)
+    caches = init_caches(model.cfg, specs, batch // ctx.dp, torch.bfloat16, device=ctx.device)
+    return cfg, model, caches, build_s
+
+
+def collective_ms(model, steps: int) -> dict:
+    """Device ms per step of the tp group's all-reduces and all-gather, and
+    of the whole step, over ``steps`` replays of the model's captured
+    decode graph (``torch.profiler``)."""
+    from cold_compress_tpu_torch.runtime.cuda_graph import model_decode_graph
+
+    graph = model_decode_graph(model)
+
+    def replay():
+        with graph.on_stream():
+            for _ in range(steps):
+                graph.replay()
+
+    with torch.inference_mode():
+        busy, _, rows = device_profile(replay, steps)
+    out = {kind: sum(e.self_device_time_total for e in rows if kind in e.key) / 1e3 / steps
+           for kind in ("AllReduce", "AllGather")}
+    return {**out, "busy": busy}
+
+
+def tp_rank(ctx, new_tokens: int, teacher: list, profile: bool) -> dict:
+    """One rank of the tensor-parallel main path: a warm-up ``generate``
+    (capturing the decode graph over NCCL), ``new_tokens`` greedy tokens
+    with the rank's exact launch witness and output checks, then the
+    tokens ``teacher`` teacher-forced; with ``profile``, the collectives'
+    device time per replayed step."""
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
+
+    dev, run = ctx.device, tp_run_name(ctx.tp)
+    cfg, model, caches, build_s = rank_model(ctx)
+    kw = cache_kw("heavy_hitter", 8)
+    prompt = main_prompt(cfg)
+    _, warm, _ = generate(model, caches, prompt, 8)
+    reset_caches(caches)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_launches()
+    seq, info, caches = generate(model, caches, prompt, new_tokens)
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check_outputs(run, cfg, seq, info, caches, len(prompt), new_tokens)
+    steps = info["perf_stats"]["decode_steps"]
+    want = expected_launches(model.cfg, kw, steps, cache_lengths(caches), i8dot=model.attn_i8dot)
+    assert launches == want, f"{run}, rank {ctx.rank}: launches {launches}, want {want}"
+    graph = info["decode_graph"]
+    assert (graph is not None) == ctx.capturable, run
+    assert graph is None or not graph["captured"], f"{run}: the timed run captured again"
+    reset_caches(caches)
+    _, forced, _ = generate(model, caches, prompt, len(teacher), next_tokens=teacher)
+    return {"rank": ctx.rank, "device": str(dev), "build_s": build_s, "tokens": seq[len(prompt):],
+            "perf": info["perf_stats"], "peak_gb": peak_gb, "launches": launches,
+            "C": caches[0].spec.max_cache_length, "heads": (model.cfg.n_head, model.cfg.n_kv_head),
+            "teacher_probs": forced["emitted_probs"], "capture": warm["decode_graph"],
+            "collectives": collective_ms(model, TP_PROFILE_STEPS) if profile else None}
+
+
+def dp_rank(ctx, new_tokens: int) -> dict:
+    """One rank of ``generate_batch`` over the batch run's four lanes, dp = 2
+    replicas of two lanes each: a warm-up call, then ``new_tokens`` tokens
+    per lane with the rank's exact launch witness."""
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate_batch, reset_caches
+
+    dev, run = ctx.device, dp_run_name(ctx.tp)
+    cfg, model, caches, build_s = rank_model(ctx, BATCH)
+    kw = cache_kw("heavy_hitter", 8)
+    prompts = [main_prompt(cfg, b) for b in range(BATCH)]
+    generate_batch(model, caches, prompts, 8, prefill_bucket=TP_CONTEXT)
+    reset_caches(caches)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_launches()
+    seqs, info, caches = generate_batch(model, caches, prompts, new_tokens,
+                                        prefill_bucket=TP_CONTEXT)
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    steps = info["decode_steps"]
+    want = expected_launches(model.cfg, kw, steps, cache_lengths(caches), i8dot=model.attn_i8dot)
+    assert launches == want, f"{run}, rank {ctx.rank}: launches {launches}, want {want}"
+    assert steps == new_tokens - 1 and info["num_generated"] == [new_tokens] * BATCH, run
+    return {"rank": ctx.rank, "build_s": build_s, "seqs": seqs, "emitted": info["emitted_probs"],
+            "perf": info["perf_stats"], "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": launches, "C": caches[0].spec.max_cache_length,
+            "graph": info["decode_graph"] is not None}
+
+
+def prob_gap(got, ref) -> tuple:
+    """(largest gap, its bound): probabilities against the single card's,
+    within TP_PROB_REL of the largest single-card one."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape and np.all(np.isfinite(got)), (got.shape, ref.shape)
+    return float(np.abs(got - ref).max()), TP_PROB_REL * float(ref.max())
+
+
+def check_tp_ranks(results, refs, n_teacher: int, backend: str, card: str, runs: list) -> None:
+    """Every rank's greedy tokens the single-card run's; teacher-forced
+    probabilities within TP_PROB_REL of its largest; per-rank numbers
+    printed (timing only where each rank has its own card)."""
+    tp = len(results)
+    run = tp_run_name(tp)
+    prompt_len = TP_CONTEXT - 256 - 8
+    ref_tokens = refs["main_seq"][prompt_len:]
+    ref_probs = refs["main_probs"][:n_teacher]
+    for res in results:
+        gap, tol = prob_gap(res["teacher_probs"], ref_probs)
+        perf = res["perf"]
+        timing = (f"prefill {perf['prefill_seconds']:.4f} s, decode "
+                  f"{perf['decode_toks_per_sec']:.3f} tok/s over {perf['decode_steps']} steps "
+                  f"(graph replays), peak memory {res['peak_gb']:.3f} GB" if backend == "nccl"
+                  else f"eager decode over {perf['decode_steps']} steps (no timing)")
+        log(f"[phase5] {run}, rank {res['rank']} on {res['device']} ({res['heads'][0]} query / "
+            f"{res['heads'][1]} KV heads): built in {res['build_s']:.1f} s; {timing}; launches "
+            f"{json.dumps(res['launches'])}; greedy tokens equal to the single card's for "
+            f"{common_prefix(res['tokens'], ref_tokens)} of {len(res['tokens'])}; {n_teacher} "
+            f"teacher-forced steps within {gap:.3e} of the single card's probabilities (bound "
+            f"{tol:.3e}, {TP_PROB_REL} of the largest)  [{card}]")
+        if res["collectives"]:
+            c = res["collectives"]
+            log(f"[phase5] {run}, rank {res['rank']}: one profiled replay of "
+                f"{TP_PROFILE_STEPS} steps: all-reduce {c['AllReduce']:.4f} ms, all-gather "
+                f"{c['AllGather']:.4f} ms, device busy {c['busy']:.3f} ms per step  [{card}]")
+        if res["capture"]:
+            log_capture(f"{run}, rank {res['rank']}", {"decode_graph": res["capture"]}, card)
+        assert res["tokens"] == ref_tokens[:len(res["tokens"])], (
+            f"{run}, rank {res['rank']}: greedy tokens {res['tokens']}, single card {ref_tokens}")
+        assert gap <= tol, f"{run}, rank {res['rank']}: probabilities {gap} apart, bound {tol}"
+    runs.append((run, results[0]["C"], results[0]["launches"]))
+
+
+def check_dp_ranks(results, tp: int, refs, backend: str, card: str, runs: list) -> None:
+    """Each lane of every rank's gathered lanes against the single-card
+    ``generate_batch`` lane: the same greedy tokens, and probabilities
+    within TP_PROB_REL of the largest of the single card's."""
+    run = dp_run_name(tp)
+    seqs = results[0]["seqs"]
+    for res in results:
+        assert res["seqs"] == seqs, f"{run}: rank {res['rank']}'s lanes differ from rank 0's"
+    for b, (seq, ref) in enumerate(zip(seqs, refs["batch_seqs"])):
+        plen = TP_CONTEXT - 256 - 8 - 8 * b
+        gen, ref_gen = seq[plen:], ref[plen:len(seq)]
+        same = common_prefix(gen, ref_gen)
+        gap, tol = prob_gap(results[0]["emitted"][b], refs["batch_probs"][b][:len(gen)])
+        log(f"[phase5] {run}, lane {b}: greedy tokens equal to the single card's for {same} of "
+            f"{len(gen)}; probabilities within {gap:.3e} (bound {tol:.3e}, {TP_PROB_REL} of the "
+            f"largest)")
+        assert seq[:plen] == ref[:plen] and gen == ref_gen and gap <= tol, run
+    for res in results:
+        perf = res["perf"]
+        log(f"[phase5] {run}, rank {res['rank']}: launches {json.dumps(res['launches'])}; "
+            + (f"prefill {perf['prefill_seconds']:.4f} s, decode {perf['decode_toks_per_sec']:.3f}"
+               f" tok/s aggregate over {BATCH} lanes (graph: {res['graph']}), peak memory "
+               f"{res['peak_gb']:.3f} GB" if backend == "nccl" else "(ranks share a card: no "
+               "timing)") + f"  [{card}]")
+    runs.append((run, results[0]["C"], results[0]["launches"]))
+
+
+def parallel_phase(card: str, runs: list, refs: dict) -> None:
+    """Tensor and data parallelism at full width over ranks: NCCL with one
+    card per rank where the machine lends enough cards, else gloo with the
+    ranks sharing the card (eager decode, correctness only)."""
+    from cold_compress_tpu_torch.parallel.launch import launch, run_jobs
+
+    n = torch.cuda.device_count()
+    prompt_len = TP_CONTEXT - 256 - 8
+    teacher = refs["main_seq"][prompt_len:prompt_len + TP_TOKENS]
+    if n >= 4:
+        worlds = [(2, [(2, 1, tp_rank, (TP_TOKENS, teacher, True))]),
+                  (4, [(4, 1, tp_rank, (TP_TOKENS, teacher, True)), (2, 2, dp_rank, (TP_TOKENS,))])]
+    else:
+        short = teacher[:TP_SHARED_TOKENS[4]]
+        worlds = [(2, [(2, 1, tp_rank, (TP_SHARED_TOKENS[2], teacher, n >= 2)),
+                       (1, 2, dp_rank, (TP_TOKENS,))]),
+                  (4, [(4, 1, tp_rank, (TP_SHARED_TOKENS[4], short, False))])]
+    log(f"[phase5] {n} card(s) visible: {torch.cuda.get_device_name(0)}")
+    for world, jobs in worlds:
+        backend = "nccl" if n >= world else "gloo"
+        log(f"[phase5] {world} ranks over {backend}: " + (
+            "one card per rank" if backend == "nccl"
+            else f"ranks share {n} card(s): correctness only, no timing"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        per_rank = launch(run_jobs, jobs, tp=world, device="cuda", backend=backend,
+                          timeout_s=TP_TIMEOUT_S)
+        log(f"[phase5] {world} ranks ran {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s")
+        for j, (tp, dp, fn, args) in enumerate(jobs):
+            results = [r[j] for r in per_rank if r[j] is not None]
+            if fn is tp_rank:
+                check_tp_ranks(results, refs, len(args[1]), backend, card, runs)
+            else:
+                check_dp_ranks(results, tp, refs, backend, card, runs)
+
+
 def main() -> int:
     import argparse
 
@@ -2491,6 +2779,12 @@ def main() -> int:
                 log(f"[ptxas] {name}: {line.strip()}")
 
     records = []
+    # One tensor-parallel rank's shapes (phase 5's runs launch them).
+    for tp in (2, 4):
+        check_w4a8(dev, records, tp=tp, from_run=tp_run_name(tp))
+        check_decode(dev, records, 8, True, 2048, i8dot=True, tp=tp, from_run=tp_run_name(tp))
+        check_hh_evict(dev, records, tp=tp, from_run=tp_run_name(tp))
+    runs = []  # (run name, its cache length, its launches), phase 4 first
     check_w4a8(dev, records)
     check_w4a8(dev, records, L=BATCH, also_L=(8,), from_run=BATCH_RUN)
     check_k10(dev, records)
@@ -2521,7 +2815,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[phase2] done at {time.perf_counter() - t_start:.1f} s")
 
-    runs = []  # (run name, its cache length, its launches), phase 4 first
     in_situ = []
     in_situ_parity(dev, in_situ)
     in_situ_cli(dev, in_situ)
@@ -2530,7 +2823,7 @@ def main() -> int:
     in_situ_eval(dev, in_situ)
     quantize_on_card_matches_cpu(dev)
     log(f"[phase3] done at {time.perf_counter() - t_start:.1f} s")
-    end_to_end(dev, card, runs, profile=args.profile)
+    refs = end_to_end(dev, card, runs, profile=args.profile)
     log(f"[phase4] bench paths done at {time.perf_counter() - t_start:.1f} s")
     cli_full_run(dev, card, runs)
     log(f"[phase4] CLI run done at {time.perf_counter() - t_start:.1f} s")
@@ -2546,8 +2839,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_decode(dev, records, 8, True, C_eval, B=BATCH, from_run=EVAL_RUN)
     check_hh_evict(dev, records, B=BATCH, C=C_eval, from_run=EVAL_RUN)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_phase(card, runs, refs)
+    log(f"[phase5] done at {time.perf_counter() - t_start:.1f} s")
     runs += in_situ
+    return finish(records, runs, card, t_start)
 
+
+def finish(records, runs, card, t_start) -> int:
+    """The last three lines: the card, every kernel with its launches, and
+    the result line."""
     # Each kernel's launches come from the run its record names (K10's: the
     # CLI run), else from the first run that drives it: the full-width runs
     # of phase 4, else the in-situ runs of phase 3. A record's C is where

@@ -16,7 +16,11 @@ padded with its last prompt); perplexity tasks and ``--feed_long_prompts``
 teacher-forced for perplexity. It runs on the card unless ``--device cpu``
 is given; decode replays a captured CUDA graph of one step there, and a
 task's batches replay one graph. ``--profile DIR`` writes a
-``torch.profiler`` trace per task. ``--tp/--sp/--pp/--dp`` above 1 raise.
+``torch.profiler`` trace per task. ``--tp N`` (with or without
+``--tp_kernels``) and ``--dp M`` run N * M ranks (``parallel/``): each
+holds its shard of the weights and KV heads, a dp replica runs
+``--batch_size / M`` lanes of each batch (the batch size must divide), and
+rank 0 writes the files. ``--sp/--pp`` above 1 raise.
 
     python -m cold_compress_tpu_torch.eval --tasks rulerniah --batch_size 4 \\
         --random_weights Meta-Llama-3-8B-Instruct --random_quantize int4 \\
@@ -66,6 +70,8 @@ from .utils.cli import (
 )
 
 RESULTS_DIR = Path(__file__).resolve().parents[1] / "results"
+DP_LANES = ("--tp_kernels --dp shards batch lanes: needs --batch_size divisible by dp (and a "
+            "batchable task config)")
 
 _SIZE = ["max_cache_length", "max_seq_length", "cache_bits"]
 #: The cache options that name a strategy's results directory (the JAX
@@ -151,8 +157,11 @@ def _strip_terminator(y: List[int], terminator_ids) -> List[int]:
 def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
              terminator_ids: List[int], task_name: str = "task"):
     """One task: (metrics, prediction rows or None, the task's cache
-    options), or (None, None, None) for a task with no test rows."""
+    options), or (None, None, None) for a task with no test rows. On a rank
+    of ``--tp/--dp`` the model is the rank's shard (``model.tp``) and its
+    caches hold its KV heads and its replica's lanes."""
     device = model.device
+    tp_ctx = model.tp
     aggregate = defaultdict(list)
     predictions, all_probs = [], []
     task_metrics = {}
@@ -195,7 +204,10 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
         and not args.decode_first_token
     )
     bs = args.batch_size if use_batch else 1
-    caches = init_caches(cfg, specs, bs, torch.bfloat16, device=device)
+    dp = 1 if tp_ctx is None else tp_ctx.dp
+    if dp > 1 and not (use_batch and bs % dp == 0):
+        raise ValueError(DP_LANES)
+    caches = init_caches(model.cfg, specs, bs // dp, torch.bfloat16, device=device)
     mcl = min_cache_length(specs)
 
     # One prefill bucket per task (the longest prompt's power of two), unless
@@ -205,7 +217,8 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
         task_bucket = bucket_length(max(len(i) for i in inputs))
 
     profiler = nullcontext()
-    if args.profile:
+    trace_dir = args.profile if tp_ctx is None or tp_ctx.rank == 0 else None  # rank 0 writes
+    if trace_dir:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -310,8 +323,8 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
                 print(f"  {i + 1}/{len(inputs)} examples; "
                       f"decode tok/s={np.mean(aggregate['decode_toks_per_sec']):.1f}")
 
-    if args.profile:
-        trace = Path(args.profile) / f"{task_name}.trace.json"
+    if trace_dir:
+        trace = Path(trace_dir) / f"{task_name}.trace.json"
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
         print(f"Profile written to {trace}")
@@ -346,11 +359,11 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
     return task_metrics, pred_rows, task_args
 
 
-def load(args, device: torch.device):
+def load(args, device: torch.device, tp_ctx=None):
     """(cfg, model, tokenizer, is_chat) for ``--random_weights`` (byte
     tokenizer; ``--random_quantize`` draws int8/int4 weights directly in
     quantized form, seed 0, else ``init_params`` bf16 weights, seed 0) or
-    a checkpoint."""
+    a checkpoint; with ``tp_ctx`` the model is the rank's shard."""
     if args.random_weights:
         cfg = ModelConfig.from_name(args.random_weights)
         if args.random_quantize:
@@ -377,15 +390,35 @@ def load(args, device: torch.device):
         is_chat = "chat" in str(checkpoint_path).lower() or "instruct" in str(
             checkpoint_path).lower()
         tokenizer = get_tokenizer(tokenizer_path, checkpoint_path, is_chat=is_chat)
-    model = build_model(cfg, params, device,
-                        attn_i8dot=ATTN_I8DOT[getattr(args, "attn_i8dot", "auto")])
+    i8dot = ATTN_I8DOT[getattr(args, "attn_i8dot", "auto")]
+    if tp_ctx is None:
+        model = build_model(cfg, params, device, attn_i8dot=i8dot)
+    else:
+        from .parallel.tp_decode import build_tp_model
+
+        model = build_tp_model(cfg, params, tp_ctx, attn_i8dot=i8dot)
     return cfg, model, tokenizer, is_chat
 
 
-def main(args, out_dir: Path) -> None:
+def _rank_main(tp_ctx, args, out_dir: Path) -> None:
+    main(args, out_dir, tp_ctx)
+
+
+def main(args, out_dir: Path, tp_ctx=None) -> None:
+    """Run every task of ``args`` and write its files into ``out_dir``.
+    With ``--tp/--dp`` above 1 this starts the ranks (``parallel/launch.py``),
+    each of which runs ``main`` with its ``tp_ctx``; rank 0 writes."""
     refuse_unported(args)
-    device = resolve_device(args.device)
-    cfg, model, tokenizer, is_chat = load(args, device)
+    if args.batch_size % args.dp:
+        raise ValueError(DP_LANES)
+    if tp_ctx is None and args.tp * args.dp > 1:
+        from .parallel.launch import launch
+
+        launch(_rank_main, args, out_dir, tp=args.tp, dp=args.dp, device=args.device)
+        return
+    device = tp_ctx.device if tp_ctx is not None else resolve_device(args.device)
+    cfg, model, tokenizer, is_chat = load(args, device, tp_ctx)
+    writes = tp_ctx is None or tp_ctx.rank == 0
 
     terminator_ids = tokenizer.get_terminator_ids()
     task_kwargs = {
@@ -424,6 +457,8 @@ def main(args, out_dir: Path) -> None:
         if metrics is None:
             continue
         task_metrics[task_name] = metrics
+        if not writes:
+            continue
         if pred_rows is not None:
             with open(out_dir / f"{task_name}_predictions.csv", "w") as fd:
                 w = csv.writer(fd)
@@ -434,7 +469,9 @@ def main(args, out_dir: Path) -> None:
             json.dumps(task_args, indent=4, default=str))
         if not args_fn.exists():
             args_fn.write_text(json.dumps({k: str(v) for k, v in vars(args).items()}, indent=4))
-    (out_dir / "all_metrics.json").write_text(json.dumps(task_metrics, indent=4, default=str))
+    if writes:
+        (out_dir / "all_metrics.json").write_text(
+            json.dumps(task_metrics, indent=4, default=str))
     print("ALL_TASKS_DONE")
 
 

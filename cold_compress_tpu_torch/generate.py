@@ -24,6 +24,13 @@ quantized cache (auto: the JAX program's default on a TPU).
 ``--profile PATH`` writes a ``torch.profiler`` trace of the run;
 ``--compile`` is accepted and does nothing. ``run(args)`` returns
 ``(sequence, info, caches)`` for programs that drive the CLI.
+
+``--tp N`` runs N ranks, each with its shard of the weights, caches and
+heads (``parallel/``; with or without ``--tp_kernels``, which the JAX
+package needs to keep its kernels under tensor parallelism and the port
+always does), one card per rank over NCCL (``--device cpu``: gloo ranks on
+the CPU); rank 0 prints. Under ``torchrun`` the processes it started are
+the ranks.
 """
 
 from __future__ import annotations
@@ -85,16 +92,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.prompt.endswith(".txt"):
         args.prompt = (PROMPTS_DIR / args.prompt).read_text().strip()
     refuse_unported(args)
+    if args.dp > 1:
+        raise ValueError(f"--dp {args.dp}: data parallelism shards batch lanes; generate runs "
+                         "one prompt (eval --batch_size takes --dp)")
     cache_compatibility(vars(args))
     return args
 
 
-def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None):
+def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None, tp_ctx=None):
     """Load, build and generate; returns ``(sequence, info, caches)``.
     ``info`` is ``generate()``'s, plus ``generation`` (the decoded new
     text), ``model_size_bytes`` and ``load_seconds``. ``next_tokens``
-    teacher-forces the generated tokens (for comparisons)."""
-    device = resolve_device(args.device)
+    teacher-forces the generated tokens (for comparisons). With ``tp_ctx``
+    (inside a rank of ``parallel/launch.py``) the model is the rank's
+    tensor-parallel shard and the caches hold its KV heads."""
+    device = tp_ctx.device if tp_ctx is not None else resolve_device(args.device)
     path = str(args.checkpoint_path).lower()
     is_chat = "chat" in path or "instruct" in path
 
@@ -138,13 +150,20 @@ def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None):
                      "punctuation": tokenizer.punctuation_ids()}
     specs = build_cache_specs(cfg, vars(args), max_seq_length, token_ids=token_ids)
     # Rope rows for the prefill bucket (a power of two) and every decode step.
-    model = build_model(cfg, params, device, max_positions=bucket_length(max_seq_length),
-                        attn_i8dot=ATTN_I8DOT[getattr(args, "attn_i8dot", "auto")])
+    build_kw = dict(max_positions=bucket_length(max_seq_length),
+                    attn_i8dot=ATTN_I8DOT[getattr(args, "attn_i8dot", "auto")])
+    if tp_ctx is None:
+        model = build_model(cfg, params, device, **build_kw)
+    else:
+        from .parallel.tp_decode import build_tp_model
+
+        model = build_tp_model(cfg, params, tp_ctx, **build_kw)
     del params
-    caches = init_caches(cfg, specs, 1, torch.bfloat16, device=device)
+    caches = init_caches(model.cfg, specs, 1, torch.bfloat16, device=device)
 
     profiler = nullcontext()
-    if args.profile:
+    trace = args.profile if tp_ctx is None or tp_ctx.rank == 0 else None  # rank 0 writes files
+    if trace:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -157,10 +176,10 @@ def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None):
             terminator_ids=terminator_ids, attn_top_k=args.attn_top_k,
             feed_long_prompts=args.feed_long_prompts,
         )
-    if args.profile:
-        Path(args.profile).parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(args.profile))
-        print(f"Profile written to {args.profile}")
+    if trace:
+        Path(trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        print(f"Profile written to {trace}")
 
     info["generation"] = tokenizer.decode(seq[info["prompt_length"]:])
     info["model_size_bytes"] = model_size
@@ -168,9 +187,30 @@ def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None):
     return seq, info, caches
 
 
+def report(seq, info, caches) -> dict:
+    """What ``main`` prints of a run: ``info`` without its arrays, and the
+    cache statistics."""
+    keep = {k: v for k, v in info.items() if k != "final_probs"}
+    return {"info": keep, "cache_stats": get_cache_stats(caches, info["prompt_length"],
+                                                         info["num_generated"])}
+
+
+def _rank_report(tp_ctx, args) -> dict:
+    """One rank of ``--tp``: its run's report."""
+    return report(*run(args, tp_ctx=tp_ctx))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    seq, info, caches = run(args)
+    if args.tp > 1:
+        from .parallel.launch import launch
+
+        out = launch(_rank_report, args, tp=args.tp, device=args.device)[0]
+        if out is None:  # a rank other than 0 under torchrun
+            return 0
+    else:
+        out = report(*run(args))
+    info = out["info"]
     perf_stats = info["perf_stats"]
     print("\n==========\n")
     print("GENERATION:")
@@ -187,7 +227,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print_stats(perf_stats)
     print("\n==========\n")
     print("KV CACHE STATISTICS:")
-    print_stats(get_cache_stats(caches, info["prompt_length"], info["num_generated"]))
+    print_stats(out["cache_stats"])
     return 0
 
 

@@ -86,12 +86,18 @@ class Transformer(nn.Module):
     """The model: embeddings, blocks, final norm, vocab head and the rope
     table. ``params`` is a fused parameter tree of tensors on one device
     (``runtime/engine.py::params_from_flat`` builds it). ``attn_i8dot`` is
-    decode attention's ``i8dot`` mode (``set_attn_i8dot``)."""
+    decode attention's ``i8dot`` mode (``set_attn_i8dot``). ``tp`` is the
+    rank's ``parallel.mesh.TpContext`` when the model is one rank of a
+    (dp, tp) layout (``parallel/tp_decode.py::build_tp_model``; ``cfg`` is
+    then the local config): at tp > 1 the blocks' two residual adds sum
+    their branch over the tp group and the vocab-sharded logits are
+    gathered. None on a single device."""
 
     def __init__(self, cfg: ModelConfig, params: Params, rope: torch.Tensor):
         super().__init__()
         self.cfg = cfg
         self.attn_i8dot = "auto"
+        self.tp = None
         self.register_buffer("tok_embeddings", params["tok_embeddings"])
         self.layers = nn.ModuleList(Block(lp) for lp in params["layers"])
         self.register_buffer("norm", params["norm"])
@@ -274,20 +280,28 @@ def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freq
 # --------------------------------------------------------------------------
 
 
-def _block(cfg, layer: Block, x, attn_out):
-    h = x + attn_out
-    return h + feed_forward(layer.feed_forward, rms_norm(h, layer.ffn_norm, cfg.norm_eps))
+def _block(cfg, layer: Block, x, attn_out, tp=None):
+    """The two residual adds of a block. A tensor-parallel shard's attention
+    and FFN outputs are partial sums over its heads and columns: each is
+    summed over the tp group first (the JAX package's two ``psum``s)."""
+    total = (lambda y: y) if tp is None else tp.all_reduce
+    h = x + total(attn_out)
+    return h + total(feed_forward(layer.feed_forward, rms_norm(h, layer.ffn_norm, cfg.norm_eps)))
 
 
 def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits of the final hidden states."""
+    """f32 logits of the final hidden states. A tensor-parallel shard's head
+    holds a block of the vocabulary: the blocks are gathered in shard order
+    (tied embeddings stay whole on every rank, with no gather)."""
     cfg = model.cfg
     x = rms_norm(x, model.norm, cfg.norm_eps)
     if model.output is None:  # tied embeddings
         return torch.matmul(x.float(), model.tok_embeddings.float().t())
     if isinstance(model.output, (QuantizedLinear, Int8Linear)):
-        return model.output(x).float()
-    return torch.matmul(x.float(), model.output.weight.float())
+        logits = model.output(x).float()
+    else:
+        logits = torch.matmul(x.float(), model.output.weight.float())
+    return logits if model.tp is None else model.tp.gather_last(logits)
 
 
 def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -312,7 +326,7 @@ def prefill(model: Transformer, caches: Sequence[CacheState], tokens: torch.Tens
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
             cache, input_pos, valid, prompt_len, freqs, tokens=tokens,
         )
-        x = _block(cfg, layer, x, attn_out)
+        x = _block(cfg, layer, x, attn_out, model.tp)
     last = x[torch.arange(B, device=dev), plen.expand(B).long() - 1]
     return _logits(model, last[:, None])[:, 0]
 
@@ -337,7 +351,7 @@ def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.T
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
             cache, input_pos, freqs, attn_top_k, token=token, i8dot=model.attn_i8dot,
         )
-        x = _block(cfg, layer, x, attn_out)
+        x = _block(cfg, layer, x, attn_out, model.tp)
     return _logits(model, x)[:, 0]
 
 

@@ -17,6 +17,13 @@ the graph owns. The graph is kept on the model and replayed by a later
 attention's ``i8dot`` mode and terminator count match (``graph_key``): a second call after ``reset_caches`` replays
 without capturing.
 
+A tensor-parallel shard's step holds its tp group's collectives (two
+all-reduces per layer, the logits' all-gather). NCCL's are captured with
+the step: one eager collective on each of the rank's groups runs first, so
+that no communicator is created under capture, and the capture is
+thread-local (NCCL's watchdog thread keeps polling its events meanwhile).
+gloo's cannot be captured (``runtime/generate.py`` decodes eagerly there).
+
 Launch counters (``ops.kernel_launches``) are Python increments that a
 replay does not run. The capture records how many launches of each kernel
 the step made (and takes them back: a capture runs nothing), and each
@@ -94,8 +101,8 @@ def graph_key(model, caches, B: int, attn_top_k: float, n_term: int) -> tuple:
     """What a captured step depends on: the model's config and the address,
     type and shape of every weight, the cache specs and the address, type
     and shape of every cache tensor, the batch, ``attn_top_k``, the
-    terminator count and decode attention's ``i8dot`` mode (a Python
-    attribute, which no tensor holds)."""
+    terminator count, decode attention's ``i8dot`` mode (a Python
+    attribute, which no tensor holds) and the tensor-parallel context."""
 
     def where(t: torch.Tensor):
         return t.data_ptr(), t.dtype, tuple(t.shape)
@@ -103,7 +110,8 @@ def graph_key(model, caches, B: int, attn_top_k: float, n_term: int) -> tuple:
     weights = tuple((type(m).__name__, tuple(where(b) for b in m.buffers(recurse=False)))
                     for m in model.modules())
     cache_part = tuple((c.spec, tuple(where(t) for t in c.tensors())) for c in caches)
-    return (model.cfg, weights, cache_part, B, float(attn_top_k), n_term, model.attn_i8dot)
+    tp = None if model.tp is None else model.tp.key()
+    return (model.cfg, weights, cache_part, B, float(attn_top_k), n_term, model.attn_i8dot, tp)
 
 
 @dataclass
@@ -115,6 +123,7 @@ class DecodeGraph:
     buffers: LoopBuffers
     body: Callable[[LoopBuffers], None]  # one step over ``buffers``
     stream: torch.cuda.Stream
+    tp: Optional[object] = None  # the model's TpContext where the step holds its collectives
     graph: Optional[torch.cuda.CUDAGraph] = None
     launches: Dict[str, int] = field(default_factory=dict)  # kernel launches per replay
     capture_seconds: float = 0.0
@@ -131,11 +140,17 @@ class DecodeGraph:
         torch.cuda.synchronize(dev)
         gc.collect()  # as torch.cuda.graph does first, so that the pool's bytes stand alone
         torch.cuda.empty_cache()
+        mode = "global"
+        if self.tp is not None:
+            with torch.cuda.stream(self.stream):
+                self.tp.warm()
+            torch.cuda.synchronize(dev)
+            mode = "thread_local"
         before = ops.kernel_launches()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream):
+        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=mode):
             self.body(self.buffers)
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
@@ -179,7 +194,8 @@ def decode_graph(model, caches, B: int, attn_top_k: float, n_term: int,
     del old  # its memory pool goes before the new capture
     dev = model.device
     buffers = LoopBuffers.empty(B, model.cfg.vocab_size, model.rope.shape[0], n_term, dev)
-    graph = DecodeGraph(key, buffers, body, torch.cuda.Stream(dev))
+    tp = model.tp if model.tp is not None and model.tp.tp > 1 else None
+    graph = DecodeGraph(key, buffers, body, torch.cuda.Stream(dev), tp=tp)
     model._decode_graph = graph
     return graph
 

@@ -22,8 +22,9 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..caches import reset_state
@@ -61,6 +62,23 @@ def _prefill_bucket(specs, n: int, prefill_bucket: Optional[int]) -> int:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _use_graph(model: Transformer, cuda_graph: Optional[bool]) -> bool:
+    """Whether this call decodes through the captured graph: by default on
+    the card unless the model's tensor-parallel collectives cannot be
+    captured (gloo's run on the host); asking for the graph there, or on the
+    CPU, raises."""
+    device = model.device
+    capturable = model.tp is None or model.tp.capturable
+    if cuda_graph is None:
+        return device.type == "cuda" and capturable
+    if cuda_graph and device.type != "cuda":
+        raise ValueError("cuda_graph needs the model on a CUDA device")
+    if cuda_graph and not capturable:
+        raise ValueError(f"{model.tp.backend} collectives cannot be captured in a CUDA graph; "
+                         "pass cuda_graph=False")
+    return cuda_graph
 
 
 def generate(
@@ -101,6 +119,13 @@ def generate(
       (the default on the card; ``False`` runs the same step eagerly). A
       capture or replay that fails raises.
 
+    A rank's tensor-parallel shard (``parallel/tp_decode.py::build_tp_model``)
+    holds its ``TpContext`` as ``model.tp``, the JAX package's ``tp_ctx``:
+    every rank of the tp group calls ``generate`` with the same arguments
+    and gets the same tokens (each argmaxes the same gathered logits). One
+    prompt takes dp = 1. Over gloo the graph cannot be captured: decode is
+    eager and ``cuda_graph=True`` raises.
+
     ``info`` holds ``perf_stats`` (seconds and tokens per second, timed
     with the device synchronised; a call that captures the graph counts
     the capture in its decode time), ``emitted_probs`` (the probability of
@@ -110,10 +135,10 @@ def generate(
     graph pool's bytes and the kernel launches of one replay).
     """
     device = model.device
-    if cuda_graph is None:
-        cuda_graph = device.type == "cuda"
-    if cuda_graph and device.type != "cuda":
-        raise ValueError("cuda_graph needs the model on a CUDA device")
+    cuda_graph = _use_graph(model, cuda_graph)
+    if model.tp is not None and model.tp.dp > 1:
+        raise ValueError("generate() runs one prompt: dp must be 1 (generate_batch shards "
+                         "lanes over dp)")
     cfg = model.cfg
     prompt = [int(t) for t in prompt]
     prompt_length = len(prompt)
@@ -241,29 +266,88 @@ def generate_batch(
     more. Decode runs through the captured graph on the card, as in
     ``generate()``.
 
+    On a rank of a (dp, tp) layout (``model.tp``; see ``generate()``)
+    with dp > 1, every rank is given all B prompts and runs
+    the ``B / dp`` lanes of its replica (its caches built for that many),
+    in the bucket of all B; the loop stops when every replica's lanes are
+    done, and the lanes of every replica are gathered, so that each rank
+    returns all B in lane order (with its own caches).
+
     Returns ``(sequences, info, caches)``: ``sequences[b]`` is lane b's
     prompt (less a token fed through decode) and its generation;
     ``info["perf_stats"]`` gives aggregate rates over the lanes, and
     ``info`` also holds ``emitted_probs`` and ``num_generated`` per lane,
     ``final_probs`` [B, vocab], ``prompt_lengths``, ``decode_steps`` (the
     steps run) and ``decode_graph``."""
-    device = model.device
-    if cuda_graph is None:
-        cuda_graph = device.type == "cuda"
-    if cuda_graph and device.type != "cuda":
-        raise ValueError("cuda_graph needs the model on a CUDA device")
+    cuda_graph = _use_graph(model, cuda_graph)
     prompts = [[int(t) for t in p] for p in prompts]
+    kw = dict(terminator_ids=terminator_ids, attn_top_k=attn_top_k, pad_id=pad_id,
+              cuda_graph=cuda_graph)
+    if model.tp is None or model.tp.dp == 1:
+        return _batch_lanes(model, caches, prompts, max_new_tokens,
+                            prefill_bucket=prefill_bucket, **kw)
+    return _batch_over_dp(model, caches, prompts, max_new_tokens,
+                          prefill_bucket=prefill_bucket, **kw)
+
+
+def _prefill_lengths(specs, prompts) -> List[int]:
+    """Each lane's prefill length: a prompt exactly as long as the shortest
+    cache feeds its last token through decode instead."""
+    mcl = engine.min_cache_length(specs)
+    return [len(p) - (len(p) == mcl) for p in prompts]
+
+
+def _batch_over_dp(model: Transformer, caches, prompts, max_new_tokens: int, *,
+                   prefill_bucket, **kw):
+    """``generate_batch`` on one dp replica's lanes, in the bucket of every
+    replica's lanes, then every replica's lanes gathered in lane order."""
+    tp_ctx = model.tp
+    B, dp = len(prompts), tp_ctx.dp
+    if B % dp:
+        raise ValueError(f"dp shards batch lanes: {B} lanes do not divide over dp={dp}")
+    Bl = B // dp
+    if caches[0].k.shape[0] != Bl:
+        raise ValueError(f"caches hold {caches[0].k.shape[0]} lanes; a dp={dp} replica of {B} "
+                         f"lanes runs {Bl}")
+    specs = [c.spec for c in caches]
+    bucket = _prefill_bucket(specs, max(_prefill_lengths(specs, prompts)), prefill_bucket)
+    lo = tp_ctx.d * Bl
+    seqs, info, caches = _batch_lanes(model, caches, prompts[lo:lo + Bl], max_new_tokens,
+                                      prefill_bucket=bucket, all_done=tp_ctx.all_done, **kw)
+    lane_keys = ("emitted_probs", "prompt_lengths", "num_generated")
+    parts = tp_ctx.gather_lanes((seqs, {k: info[k] for k in lane_keys}, info["final_probs"],
+                                 info["perf_stats"]))
+    seqs = [s for part in parts for s in part[0]]
+    merged = {k: [v for part in parts for v in part[1][k]] for k in lane_keys}
+    perfs = [part[3] for part in parts]
+    tokens = {k: sum(p[k] for p in perfs) for k in ("prefill_tokens", "decode_tokens")}
+    secs = {k: max(p[k] for p in perfs)
+            for k in ("prefill_seconds", "decode_seconds", "total_seconds")}
+    perf = {
+        "batch_size": B, **tokens,
+        "prefill_toks_per_sec": tokens["prefill_tokens"] / max(secs["prefill_seconds"], 1e-9),
+        "decode_toks_per_sec": tokens["decode_tokens"] / secs["decode_seconds"],
+        "total_toks_per_sec": tokens["decode_tokens"] / max(secs["total_seconds"], 1e-9),
+        **secs,
+        "decode_seconds_frac_of_total": secs["decode_seconds"] / max(secs["total_seconds"],
+                                                                     1e-9),
+        "memory_used_gb": max(p["memory_used_gb"] for p in perfs),
+    }
+    info = {**info, **merged, "perf_stats": perf,
+            "final_probs": np.concatenate([part[2] for part in parts])}
+    return seqs, info, caches
+
+
+def _batch_lanes(model: Transformer, caches, prompts: List[List[int]], max_new_tokens: int, *,
+                 terminator_ids, attn_top_k: float, pad_id: int, prefill_bucket: Optional[int],
+                 cuda_graph: bool, all_done: Optional[Callable[[torch.Tensor], bool]] = None):
+    """``generate_batch`` over the lanes this process holds."""
+    device = model.device
     B = len(prompts)
-    lens = [len(p) for p in prompts]
     terminator_ids = [int(t) for t in (terminator_ids or [])]
     specs = [c.spec for c in caches]
-
-    min_cache_length = engine.min_cache_length(specs)
-    forced_first = [-1] * B
-    for b in range(B):
-        if lens[b] == min_cache_length:
-            forced_first[b] = prompts[b][-1]
-            lens[b] -= 1
+    lens = _prefill_lengths(specs, prompts)
+    forced_first = [p[-1] if n < len(p) else -1 for p, n in zip(prompts, lens)]
 
     P = _prefill_bucket(specs, max(lens), prefill_bucket)
     if P < max(lens):
@@ -291,7 +375,7 @@ def generate_batch(
     if max_steps > 0:
         tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
             model, caches, first_token, lens, [], terminator_ids, max_steps, attn_top_k,
-            cuda_graph,
+            cuda_graph, all_done,
         )
         tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
         t2 = time.perf_counter()
@@ -367,7 +451,8 @@ def _decode_body(model: Transformer, caches, buf: LoopBuffers, attn_top_k: float
 def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor,
                      start_pos: Union[int, Sequence[int]], prefix: Sequence[int],
                      terminator_ids: Sequence[int], max_steps: int, attn_top_k: float = 1.0,
-                     cuda_graph: bool = False):
+                     cuda_graph: bool = False,
+                     all_done: Optional[Callable[[torch.Tensor], bool]] = None):
     """Greedy decode with everything kept on the device, each lane from its
     own position (``start_pos``: an int for every lane, or one per lane).
 
@@ -376,7 +461,9 @@ def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor,
     distribution [B, vocab] of each lane while it was running, the number
     of steps run, the graph's record or None). ``prefix`` forces the first
     steps' tokens. With terminators, the loop ends after the first step
-    that is not teacher-forced and leaves every lane done.
+    that is not teacher-forced and leaves every lane done: ``all_done``
+    (``done`` [B] -> bool, read on the host) decides that when lanes live
+    on other ranks too (``TpContext.all_done``), else ``done.all()``.
 
     With ``cuda_graph`` every step replays the model's captured step. Where
     the model holds none for these caches yet, step 0 runs eagerly first
@@ -411,7 +498,8 @@ def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor,
             else:
                 graph.replay()
             steps = i + 1
-            if terminators and forced[i] < 0 and bool(buf.done.all()):
+            if terminators and forced[i] < 0 and (
+                    bool(buf.done.all()) if all_done is None else all_done(buf.done)):
                 break
     info = None if graph is None else {
         "captured": eager_first and graph.captured, "capture_seconds": graph.capture_seconds,

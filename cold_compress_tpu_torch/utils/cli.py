@@ -5,15 +5,18 @@ nothing of the JAX package): the same cache and generation flags, so that
 ``cache_configs/*.yaml`` and the JAX package's command lines work unchanged.
 The overlay reads YAML with PyYAML, as the JAX package does, imported
 where a file is read (a missing PyYAML raises there). ``--device`` defaults
-to the card. The parallelism flags are accepted for parity, and
-``refuse_unported`` raises on any that asks for more than one device: they
-are not ported yet.
+to the card. ``--tp``, ``--tp_kernels`` and ``--dp`` run ranks of the
+port's tensor and data parallelism (``parallel/``); ``--sp`` and ``--pp``
+are accepted for parity, and ``refuse_unported`` raises on either above 1:
+they are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
+
+from ..models.config import ModelConfig
 
 CACHE_STRATEGIES = [
     "full",
@@ -121,25 +124,43 @@ def add_generation_arguments(parser: argparse.ArgumentParser):
     group.add_argument("--attn_i8dot", default="auto", choices=list(ATTN_I8DOT),
                        help=ATTN_I8DOT_HELP)
     group.add_argument("--tp", type=int, default=1,
-                       help=f"Tensor-parallel degree; only 1 (more {NOT_PORTED_PARALLEL}).")
+                       help="Tensor-parallel degree: ranks (one card each) holding a shard of "
+                       "the heads, FFN columns and vocabulary, each running the single-card "
+                       "kernels on it.")
     group.add_argument("--tp_kernels", action="store_true",
-                       help=f"Explicit tensor parallelism with per-device kernels; "
-                       f"{NOT_PORTED_PARALLEL}.")
+                       help="Explicit tensor parallelism with per-device kernels; the port's "
+                       "--tp always runs its kernels per rank, so this changes nothing.")
     group.add_argument("--pp", type=int, default=1,
                        help=f"Pipeline-parallel prefill degree; only 1 (more {NOT_PORTED_PARALLEL}).")
     group.add_argument("--sp", type=int, default=1,
                        help=f"Sequence-parallel prefill degree; only 1 (more {NOT_PORTED_PARALLEL}).")
     group.add_argument("--dp", type=int, default=1,
-                       help=f"Data-parallel degree; only 1 (more {NOT_PORTED_PARALLEL}).")
+                       help="Data-parallel degree: batch lanes split over dp replicas of the "
+                       "(tensor-parallel) model.")
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise on any parallelism flag that asks for more than one device."""
-    for flag in ("tp", "sp", "pp", "dp"):
+    """Raise on a parallelism flag that is not ported (``--sp`` or ``--pp``
+    above 1), a degree below 1, or a ``--tp`` that does not divide the named
+    model's heads (``parallel/mesh.py::validate_tp``)."""
+    for flag in ("sp", "pp"):
         if getattr(args, flag, 1) > 1:
             raise ValueError(f"--{flag} {getattr(args, flag)} {NOT_PORTED_PARALLEL}")
-    if getattr(args, "tp_kernels", False):
-        raise ValueError(f"--tp_kernels {NOT_PORTED_PARALLEL}")
+    for flag in ("tp", "dp", "sp", "pp"):
+        if getattr(args, flag, 1) < 1:
+            raise ValueError(f"--{flag} {getattr(args, flag)}: a degree is at least 1")
+    if getattr(args, "tp", 1) > 1:
+        from ..parallel.mesh import validate_tp
+
+        validate_tp(named_config(args), args.tp)
+
+
+def named_config(args: argparse.Namespace) -> ModelConfig:
+    """The architecture the flags name (``--random_weights``, else
+    ``--model_name``, else the checkpoint's parent directory), before
+    anything is loaded."""
+    return ModelConfig.from_name(getattr(args, "random_weights", None) or args.model_name
+                                 or Path(args.checkpoint_path).parent.name)
 
 
 def merge_cache_config(args: argparse.Namespace) -> argparse.Namespace:

@@ -194,9 +194,14 @@ def test_missing_cache_config_or_yaml_reader_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--tp", "2"], ["--sp", "4"], ["--pp", "2"], ["--dp", "2"],
-                                  ["--tp_kernels"]])
+                                  ["--tp", "2", "--tp_kernels"]])
 def test_parallel_flags_raise(argv):
-    with pytest.raises(ValueError, match="not ported yet"):
+    """``--sp``/``--pp`` are not ported; ``--dp`` shards lanes, which one
+    prompt has not; a ``--tp`` that does not divide TestKernel's one KV head
+    raises ``validate_tp``'s message, with or without ``--tp_kernels``."""
+    match = {"--tp": "must divide n_kv_head=1", "--dp": "shards batch lanes"}.get(
+        argv[0], "not ported yet")
+    with pytest.raises(ValueError, match=match):
         cli.parse_args(["--device", "cpu", "--random_weights", "TestKernel", *argv])
 
 

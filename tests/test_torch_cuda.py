@@ -10,6 +10,8 @@ machine with one, from the repository root:
 machine need not have; these tests import only the port.)
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -974,3 +976,46 @@ def test_gptq_params_on_card_launch_flash_prefill_per_layer(dev):
     with torch.inference_mode():
         logits = model.output(model.tok_embeddings[None, :4])  # the int4 head, K2
     assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_tp2_generate_matches_the_single_card(dev):
+    """``generate`` at tp = 2 on TestKernel widened (four query heads over
+    two KV heads, head_dim 128), int4 layers and head, a kv8 heavy-hitter
+    cache, teacher-forced: NCCL with one card per rank where two are
+    visible (decode through the captured graph), else two gloo ranks
+    sharing the card (eager decode); probabilities within 5e-2 of the
+    single-card run's largest (row-parallel W4A8 quantizes activations per
+    local input segment; on the CPU the same comparison is 2.2% apart)."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_caches, init_params
+    from cold_compress_tpu_torch.parallel.launch import launch
+    from cold_compress_tpu_torch.parallel.tp_decode import rank_generate
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_params
+    from cold_compress_tpu_torch.runtime.engine import (
+        build_cache_specs, build_model, flatten_params, params_from_flat,
+    )
+    from cold_compress_tpu_torch.runtime.generate import generate
+
+    cfg = ModelConfig.from_name("TestKernel").replace(dim=512, n_head=4, n_kv_head=2)
+    flat = flatten_params(quantize_params(init_params(cfg, device="cpu"), "int4", 128,
+                                          output_mode="int4"))
+    kw = {"cache_strategy": ["heavy_hitter"], "max_cache_length": [0.25], "cache_bits": 8,
+          "prompt_compression_strategy": ["heavy_hitter"], "global_tokens": 4,
+          "recent_window": 10}
+    prompt = np.random.RandomState(2).randint(2, 500, size=200).tolist()
+    forced = np.random.RandomState(3).randint(2, 500, size=8).tolist()
+    model = build_model(cfg, params_from_flat(flat, dev), dev, max_positions=512)
+    caches = init_caches(cfg, build_cache_specs(cfg, kw, 512), 1, torch.bfloat16, device=dev)
+    _, ref, _ = generate(model, caches, prompt, 8, next_tokens=forced, prefill_bucket=512)
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    run = functools.partial(rank_generate, max_seq_length=512, build_kw={"max_positions": 512},
+                            next_tokens=forced, prefill_bucket=512)
+    out = launch(run, cfg, flat, kw, prompt, 8, tp=2, device="cuda", backend=backend)
+    for seq, info in out:
+        assert seq == prompt + forced
+        assert (info["decode_graph"] is not None) == (backend == "nccl")
+        for key in ("emitted_probs", "final_probs"):
+            got, want = np.asarray(info[key]), np.asarray(ref[key])
+            gap, tol = np.abs(got - want).max(), 5e-2 * np.abs(want).max()
+            print(f"tp=2 {key} against the single card: {gap:.3e} (bound {tol:.3e})")
+            assert gap <= tol, key

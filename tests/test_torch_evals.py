@@ -306,9 +306,14 @@ def test_eval_teacher_forced_localtext_equals_jax(both_evals):
 def test_eval_refuses_parallelism_and_skips_finished_tasks(tmp_path, capsys):
     argv = _eval_argv(["rulervt"], tmp_path, ["--num_samples", "1",
                                               "--ruler_context_sentences", "4"])
-    for flag in ("--tp", "--sp", "--pp", "--dp"):
+    for flag in ("--sp", "--pp"):
         with pytest.raises(ValueError, match="not ported yet"):
             port_eval.cli([*argv, flag, "2"])
+    # TinyByteLM128 has one KV head; dp shards the lanes of a batch.
+    with pytest.raises(ValueError, match="must divide n_kv_head=1"):
+        port_eval.cli([*argv, "--tp", "2"])
+    with pytest.raises(ValueError, match="needs --batch_size divisible by dp"):
+        port_eval.cli([*argv, "--dp", "2"])
     assert port_eval.cli(argv) == 0
     assert port_eval.cli(argv) == 0
     assert "already evaluated" in capsys.readouterr().out
