@@ -39,7 +39,15 @@ Phases; any failure raises and the script exits non-zero:
    tp = 2 and 4 (phase 5 launches them): K1 at the four projections' shards
    (wqkv and w13 a tp-th of the columns, wo and w2 of the inputs), K2 at a
    tp-th of the vocabulary, decode attention kv8 pooled in its i8dot branch
-   over 8/tp KV heads, K7 over 8/tp rows;
+   over 8/tp KV heads, K7 over 8/tp rows; and the query-block forms of K4
+   and K6 that phase 6 launches (``flash_prefill_partial``,
+   ``flash_profile_partial``): K4 over sp = 2's two shards (4096 rows at
+   offsets 0 and 4096 against 8192 keys), sp = 4's last (2048 at 6144) and
+   two of the pipeline's 64-row chunks against the keys up to their last
+   row (at 4096 and 8128), K6 over sp = 2's second
+   shard with one and two windows, each against its plain version with its
+   device operations counted exactly, beside SDPA with the block's mask;
+   and both at ``q_offset = 0`` bit-equal to K4 and K6;
 3. small in-situ parity: the port on the card (decoding through the
    captured CUDA graph of one step) against the port on the CPU (plain
    versions), TestKernel with int4 weights, teacher-forced, over
@@ -110,14 +118,35 @@ Phases; any failure raises and the script exits non-zero:
    over two ranks, and tp = 4 (16 tokens) over four, ranks sharing the
    card over gloo (eager decode, correctness only, no timing). Each tp run:
    every rank's greedy tokens equal to the single-card main path's (phase
-   4's run); those tokens teacher-forced, every step's probability within
-   TP_PROB_REL of the largest of the single-card run's; an exact launch
+   4's run) up to the first that parts, which must part at a near-tie of
+   that run (``check_greedy``); those tokens teacher-forced, every step's
+   probability within TP_PROB_REL of the largest of the single-card run's; an exact launch
    witness on every rank (K1 4 x 32, K2 1, K3 32, K7 32 per token, K4 32
    per prefill); per rank the prefill seconds, decode tok/s and peak
    memory, and over NCCL the all-reduce and all-gather device time per
    replayed step. The dp run: each lane's greedy tokens equal to phase 4's
    single-card lane's, its probabilities within the same bound, and each
    rank's launch witness.
+
+6. sequence and pipeline parallelism at full width (``parallel/sp.py``,
+   ``parallel/pp.py``), in the same worlds of ranks as phase 5 (each rank
+   draws the weights once): sp = 2 and hybrid under sp = 2 (bench's FastGen
+   menu, C = 8192), pp = 2 (chunks of 64 rows), sp = 4, and sp = 2 x tp = 2
+   over dense bf16 Llama-3-8B weights (``init_params`` with ``BF16_SEED``,
+   each rank keeping its shard of each layer as it is drawn; the single
+   card's run of the same weights is its reference), beside bf16 tp = 2 on
+   the same weights, and with four cards pp = 4 too. Each run greedy, then
+   teacher-forced on the single card's tokens (16 where ranks share the
+   card, 64 over NCCL): every rank's greedy tokens the single card's
+   (phase 4's runs) up to the first that parts, at a near-tie, every
+   probability within TP_PROB_REL of the largest (BF16_PROB_REL for the
+   bf16 runs, whose random weights amplify any reordering of a sum; sp x
+   tp also within TP_PROB_REL of bf16 tp = 2, token for token), an exact launch witness on every rank
+   (the query-block kernel once per layer under sp, once per layer and
+   chunk on a pipeline stage; the main path's decode); over NCCL per rank
+   the prefill seconds, decode tok/s, peak memory, and one profiled
+   prefill's device ms by kind (K/V all-gather, summary all-reduce, the
+   pipeline's sends and cache broadcasts, the query-block kernel).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing every kernel, and the result line.
@@ -962,6 +991,179 @@ def check_flash_profile(dev, records, windows):
            err, tol, ratio, ms, plain_ms, b_ms, b_by, None, windows=list(windows),
            pass1_ms=pass1_ms, pass2_ms=pass2_ms, device_kernels_per_call=n_dev,
            own_kernels_per_call=n_own, torch_kernels_per_call=n_torch, sdpa_causal_y_ms=sdpa_ms)
+
+
+#: The query blocks of the sequence- and pipeline-parallel prefills at the
+#: main path's bucket (P = 8192, prompt 7928): sp = 2's two shards and the
+#: last (busiest) shard of sp = 4 (against all 8192 keys), and two of the
+#: pipeline's 64-row chunks, each against the keys up to its last row: one
+#: mid-prompt (its keys end before the prompt does) and the last.
+PARTIAL_BLOCKS = ((4096, 0, 2), (4096, 4096, 2), (2048, 6144, 4))
+PP_CHUNK = 64
+PP_CHUNK_OFFSETS = (4096, 8192 - PP_CHUNK)
+#: The JAX package's functions that K4's and K6's query-block forms
+#: compute (XLA code there, which the TPU kernels of the same functions,
+#: pallas_prefill.py:167 and :281, do not take).
+PARTIAL_IMPLEMENTS = {"flash_prefill_partial": "ops/attention.py:175 (chunked_prefill_partial)",
+                      "flash_profile_partial": "caches/hybrid.py:575 (_profile_partial)"}
+
+
+def partial_inputs(dev, seed: int, Pq: int, Pk: int = 8192):
+    B, H, KVH, D = 1, 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, Pq, D), device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn((B, KVH, Pk, D), device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn((B, KVH, Pk, D), device=dev, generator=gen).to(torch.bfloat16)
+    return q, k, v
+
+
+def partial_bound(q, k, q_offset: int, n_sums: int):
+    """(bound ms, by, causal pairs) of a query block: QK^T and PV over the
+    (row, key) pairs its rows see, against q and y, the K/V rows it reads
+    (keys up to its last row) and its f32 sums over every key."""
+    B, H, Pq, D = q.shape
+    KVH, Pk = k.shape[1], k.shape[2]
+    seen = min(Pk, q_offset + Pq)
+    pairs = B * H * (Pq * q_offset + Pq * (Pq + 1) // 2)
+    nbytes = 2 * (2 * B * H * Pq * D + 2 * B * KVH * seen * D) + 4 * n_sums * B * KVH * Pk
+    b_ms, b_by = bound(nbytes, 4 * D * pairs, "bf16")
+    return b_ms, b_by, pairs
+
+
+def masked_sdpa_ms(q, k, v, q_offset: int):
+    """(ms, y) of ``scaled_dot_product_attention`` with the block's causal
+    mask by global position: the same y, no summaries."""
+    Pq, Pk = q.shape[2], k.shape[2]
+    keys = torch.arange(Pk, device=q.device)
+    mask = keys[None, :] <= (q_offset + torch.arange(Pq, device=q.device))[:, None]
+
+    def run(i=0):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                enable_gqa=True)
+    return time_ms(run, 5, 1), run()
+
+
+def check_flash_prefill_partial(dev, records, Pq: int, q_offset: int, from_run: str,
+                                Pk: int = 8192, plen: int = 7928):
+    """K4 over a block of ``Pq`` query rows at ``q_offset`` against ``Pk``
+    keys of the main path's prompt: y and the raw sums against the plain
+    version (``chunked_prefill_partial`` on the card), zeros past the
+    block's last row, bit-equal across two calls, its device operations
+    exactly."""
+    from cold_compress_tpu_torch.ops import prefill_attn
+    from cold_compress_tpu_torch.ops.attention import chunked_prefill_partial
+
+    name = f"flash_prefill_partial@{Pq}+{q_offset}" + (f"/{Pk}" if Pk != 8192 else "")
+    q, k, v = partial_inputs(dev, 13 + q_offset // 64, Pq, Pk)
+
+    def run(i=0):
+        return prefill_attn.flash_prefill_partial(q, k, v, plen, q_offset=q_offset)
+
+    y, cum, obs = run()
+    y2, cum2, obs2 = run()
+    assert torch.equal(y, y2) and torch.equal(cum, cum2) and torch.equal(obs, obs2), \
+        f"{name}: two calls on the same inputs differ"
+    del y2, cum2, obs2
+    ry, rcum, robs = chunked_prefill_partial(q, k, v, plen, q_offset=q_offset,
+                                             need_summary=True)
+    torch.cuda.synchronize()
+    err, ratio, tol = bf16_out_err(y, ry, 2**-7)  # as K4's check
+    errs = {"cum": max_err(cum, rcum), "obs": max_err(obs, robs)}
+    tols = {"cum": 1e-4 * float(rcum.abs().max()) + 1e-7,
+            "obs": 1e-4 * float(robs.abs().max()) + 1e-7}
+    log(f"[check] {name} (Pk={Pk}, prompt_len={plen}): y max_abs_err={err:.3e}, max err/tol "
+        f"{ratio:.3f} (tol {tol}); " + "; ".join(
+            f"{key} max_abs_err={e:.3e} tol={tols[key]:.3e}" for key, e in errs.items()))
+    assert ratio <= 1 and all(errs[key] <= tols[key] for key in errs), \
+        f"{name} disagrees with its plain version"
+    assert not bool(cum[..., q_offset + Pq:].any()), name
+    del ry, rcum, robs
+    ms = time_ms(run, 5, 1)
+    n_dev, n_own, n_torch = prefill_nodes(name, run)
+    plain_ms = time_ms(lambda i: chunked_prefill_partial(q, k, v, plen, q_offset=q_offset,
+                                                         need_summary=True), 2, 1)
+    sdpa_ms, sdpa_y = masked_sdpa_ms(q, k, v, q_offset)
+    sdpa_err = max_err(sdpa_y, y)
+    b_ms, b_by, pairs = partial_bound(q, k, q_offset, 2)
+    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+        f"{4 * 128 * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library: none "
+        f"(scaled_dot_product_attention with the block's mask, y only, no summaries: "
+        f"{sdpa_ms:.4f} ms, y within {sdpa_err:.3e}); exactly {n_dev} device operations per call: "
+        f"{n_own} the kernel's, {n_torch} PyTorch's")
+    record(records, name, "flash_prefill_partial", "flash_prefill.cu",
+           "ops/pallas_prefill.py:167", err, tol, ratio, ms, plain_ms, b_ms, b_by, None,
+           implements=f"{REPO_TPU}/{PARTIAL_IMPLEMENTS['flash_prefill_partial']}", Pq=Pq,
+           q_offset=q_offset, Pk=Pk, device_kernels_per_call=n_dev,
+           own_kernels_per_call=n_own, torch_kernels_per_call=n_torch,
+           sdpa_masked_y_ms=sdpa_ms, from_run=from_run)
+
+
+def check_flash_profile_partial(dev, records, windows, from_run: str, Pq: int = 4096,
+                                q_offset: int = 4096, plen: int = 7928):
+    """K6 over sp = 2's second query block (hybrid under sp = 2): y, cum
+    and the window sums against the plain version, its device operations
+    exactly."""
+    from cold_compress_tpu_torch.ops import prefill_attn
+    from cold_compress_tpu_torch.ops.attention import chunked_prefill_partial
+
+    name = f"flash_profile_partial.w{len(windows)}@{Pq}+{q_offset}"
+    q, k, v = partial_inputs(dev, 29 + len(windows), Pq)
+
+    def run(i=0):
+        return prefill_attn.flash_profile_partial(q, k, v, plen, windows, q_offset=q_offset)
+
+    def plain(i=0):
+        y, _, _ = chunked_prefill_partial(q, k, v, plen, q_offset=q_offset)
+        return (y, *prefill_attn.profile_partial(q, k, plen, windows, q_offset=q_offset))
+
+    y, cum, wcols = run()
+    ry, rcum, rw = plain()
+    torch.cuda.synchronize()
+    err, ratio, tol = bf16_out_err(y, ry, 2**-7)
+    errs = {"cum": max_err(cum, rcum), "wcols": max_err(wcols, rw)}
+    tols = {"cum": 1e-4 * float(rcum.abs().max()), "wcols": 1e-4 * float(rw.abs().max())}
+    log(f"[check] {name} windows={windows}: y max_abs_err={err:.3e}, max err/tol {ratio:.3f} "
+        f"(tol {tol}); " + "; ".join(f"{key} max_abs_err={e:.3e} tol={tols[key]:.3e}"
+                                     for key, e in errs.items()))
+    assert ratio <= 1 and all(errs[key] <= tols[key] for key in errs), \
+        f"{name} disagrees with its plain version"
+    del ry, rcum, rw
+    ms = time_ms(run, 5, 1)
+    n_dev, n_own, n_torch = prefill_nodes(name, run)
+    plain_ms = time_ms(plain, 1, 1)
+    b_ms, b_by, pairs = partial_bound(q, k, q_offset, 1 + len(windows))
+    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}), plain {plain_ms:.3f} ms, "
+        f"library: none; exactly {n_dev} device operations per call: {n_own} the kernel's, "
+        f"{n_torch} PyTorch's")
+    record(records, name, "flash_profile_partial", "flash_prefill.cu",
+           "ops/pallas_prefill.py:281", err, tol, ratio, ms, plain_ms, b_ms, b_by, None,
+           implements=f"{REPO_TPU}/{PARTIAL_IMPLEMENTS['flash_profile_partial']}",
+           windows=list(windows), Pq=Pq, q_offset=q_offset, Pk=8192, device_kernels_per_call=n_dev,
+           own_kernels_per_call=n_own, torch_kernels_per_call=n_torch, from_run=from_run)
+
+
+def check_partial_offset0_bit_equal(dev, plen: int = 7928):
+    """At ``q_offset = 0`` with as many rows as keys, K4's and K6's
+    query-block forms return exactly what K4 and K6 return: y, and the raw
+    sums behind K4's summary means."""
+    from cold_compress_tpu_torch.ops import prefill_attn
+    from cold_compress_tpu_torch.ops.attention import finalize_summary
+
+    q, k, v = partial_inputs(dev, 41, 8192)
+    y, cum, obs = prefill_attn.flash_prefill_partial(q, k, v, plen)
+    y0, summ0 = prefill_attn.flash_prefill(q, k, v, plen)
+    plen_t = torch.full((1,), plen, dtype=torch.int32, device=dev)
+    summ = finalize_summary(cum, obs, plen_t, 8192, 16)
+    assert torch.equal(y, y0) and all(torch.equal(summ[key], summ0[key]) for key in summ0), \
+        "flash_prefill_partial at q_offset 0 differs from flash_prefill"
+    for windows in ((2457,), (819, 2457)):
+        got = prefill_attn.flash_profile_partial(q, k, v, plen, windows)
+        want = prefill_attn.flash_profile(q, k, v, plen, windows)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"flash_profile_partial at q_offset 0 differs from flash_profile ({windows})"
+    log("[check] flash_prefill_partial and flash_profile_partial (1 and 2 windows) at "
+        "q_offset 0, Pq = Pk = 8192: bit-equal to flash_prefill (y, summaries) and "
+        "flash_profile (y, cum, wcols)")
 
 
 def check_w4a8_gemm(dev, records):
@@ -2045,8 +2247,9 @@ def end_to_end(dev, card, runs, profile=False):
         f"{BATCH} aggregate {batch['decode_toks_per_sec']:.3f}  [{card}]")
 
     # FastGen hybrid at bench.py's defaults (its menu and token classes).
-    e2e_run("hybrid kv8 (bench's FastGen menu)", cfg, model, cache_kw("hybrid", 8), 8192, 64,
-            dev, card, runs, "w4a8_gemv.head", profile)
+    _, hybrid_seq, hybrid_info = e2e_run("hybrid kv8 (bench's FastGen menu)", cfg, model,
+                                         cache_kw("hybrid", 8), 8192, 64, dev, card, runs,
+                                         "w4a8_gemv.head", profile)
 
     # The main path's prefill through the W4A8 prefill kernel (K8).
     prefill_w4a8_run(cfg, model, dev, card, runs)
@@ -2077,7 +2280,8 @@ def end_to_end(dev, card, runs, profile=False):
     e2e_run("full bf16, 32k, Llama-3.1-8B", cfg31, model, cache_kw("full", 16), 32768, 64, dev,
             card, runs, "w4a8_gemv.head", profile)
     return {"main_seq": main_seq, "main_probs": main_info["emitted_probs"],
-            "batch_seqs": batch_seqs, "batch_probs": batch_info["emitted_probs"]}
+            "batch_seqs": batch_seqs, "batch_probs": batch_info["emitted_probs"],
+            "hybrid_seq": hybrid_seq, "hybrid_probs": hybrid_info["emitted_probs"]}
 
 
 #: The batched runs: ``bench --batch 4`` on the main path (lane b's prompt
@@ -2505,6 +2709,13 @@ TP_PROFILE_STEPS = 8
 #: single-card probability compared (1.75e-4 on the main path): the gaps
 #: measured on the H100 came to 0.18-0.81% of it (tp = 2 and 4, dp = 2).
 TP_PROB_REL = 2e-2
+#: The same for the dense bf16 runs (phase 6). These random bf16 weights
+#: amplify any reordering of a sum: on one card, wo and w2 summed in f32 in
+#: another order (rounded to bf16 once, as before) part from the card's own
+#: run after 11 of 16 tokens, 5.79% of the largest probability apart; tp = 2
+#: 8.59%, tp = 2 with f32 partial sums 11.22% (``scripts/torch_tp_reduce_ab.py``,
+#: H100 80GB HBM3, 700 W). The bound is about twice the largest of those.
+BF16_PROB_REL = 0.25
 TP_TIMEOUT_S = 300
 
 
@@ -2536,20 +2747,23 @@ def rank_params():
     return cfg, params_from_flat(random_quantized_params(cfg, seed=0, head_mode="int4"), "cpu")
 
 
-def rank_model(ctx, batch: int = 1):
-    """This rank's shard of the main path's model and its caches (its KV
-    heads, its replica's lanes), with the seconds the build took."""
+def rank_model(ctx, batch: int = 1, kw=None):
+    """This rank's model of the main path's weights under its layout (its
+    tp shard, or the whole model under sp or pp) and its caches of ``kw``
+    (default the main path's; its KV heads, its replica's lanes), with the
+    seconds the build took."""
     from cold_compress_tpu_torch.models.transformer import init_caches
-    from cold_compress_tpu_torch.parallel.tp_decode import build_tp_model
+    from cold_compress_tpu_torch.parallel.tp_decode import build_rank_model
     from cold_compress_tpu_torch.runtime.engine import build_cache_specs
 
     cfg, params = rank_params()
     t0 = time.perf_counter()
-    model = build_tp_model(cfg, params, ctx, max_positions=TP_CONTEXT)
+    model = build_rank_model(cfg, params, ctx, max_positions=TP_CONTEXT)
     torch.cuda.synchronize(ctx.device)
     build_s = time.perf_counter() - t0
-    specs = build_cache_specs(cfg, cache_kw("heavy_hitter", 8), TP_CONTEXT)
-    caches = init_caches(model.cfg, specs, batch // ctx.dp, torch.bfloat16, device=ctx.device)
+    specs = build_cache_specs(cfg, kw or cache_kw("heavy_hitter", 8), TP_CONTEXT)
+    lanes = batch // getattr(ctx, "dp", 1)
+    caches = init_caches(model.cfg, specs, lanes, torch.bfloat16, device=ctx.device)
     return cfg, model, caches, build_s
 
 
@@ -2639,12 +2853,57 @@ def dp_rank(ctx, new_tokens: int) -> dict:
             "graph": info["decode_graph"] is not None}
 
 
-def prob_gap(got, ref) -> tuple:
+def prob_gap(got, ref, rel: float = TP_PROB_REL) -> tuple:
     """(largest gap, its bound): probabilities against the single card's,
-    within TP_PROB_REL of the largest single-card one."""
+    within ``rel`` of the largest single-card one."""
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     assert got.shape == ref.shape and np.all(np.isfinite(got)), (got.shape, ref.shape)
-    return float(np.abs(got - ref).max()), TP_PROB_REL * float(ref.max())
+    return float(np.abs(got - ref).max()), rel * float(ref.max())
+
+
+@functools.lru_cache(maxsize=None)
+def reference_top2(ref: str, ref_tokens: tuple, k: int) -> tuple:
+    """The two largest probabilities of the single card's run ``ref``
+    ("main", "hybrid": phase 4's on the int4 weights; "bf16": the dense
+    bf16 one) at its greedy step ``k``: the run rebuilt on the card and
+    teacher-forced over its first k + 1 tokens (``ref_tokens``)."""
+    from cold_compress_tpu_torch.runtime.generate import generate
+
+    dev = "cuda"
+    cfg, model = (bf16_single_model(dev) if ref == "bf16"
+                  else build_model(MAIN_MODEL, 0, dev, TP_CONTEXT))
+    caches = make_caches(cfg, cache_kw("hybrid" if ref == "hybrid" else "heavy_hitter", 8),
+                         TP_CONTEXT, dev)
+    _, info, _ = generate(model, caches, main_prompt(cfg), k + 1, next_tokens=list(ref_tokens))
+    probs = np.asarray(info["final_probs"], np.float64)
+    assert probs[ref_tokens[k]] == probs.max(), f"{ref}: step {k} rebuilt is not the run's"
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    top = np.sort(probs)[-2:]
+    return float(top[1]), float(top[0])
+
+
+def check_greedy(run: str, rank: int, tokens: list, ref_tokens: list, tol: float,
+                 ref, card: str) -> None:
+    """Greedy tokens equal to the reference's up to the first that parts.
+    Where each probability may move by ``tol``, a token can part only where
+    the reference's two most likely tokens are within 2 x ``tol``: there
+    the single card's run ``ref`` (``reference_top2``) must have such a
+    near-tie. Past it the runs see different tokens, and the teacher-forced
+    probabilities hold the rest. A reference of another run of the world
+    (``ref`` None) holds every token."""
+    k = common_prefix(tokens, ref_tokens)
+    if k == len(tokens):
+        return
+    assert ref is not None, f"{run}, rank {rank}: greedy tokens {tokens}, reference {ref_tokens}"
+    p1, p2 = reference_top2(ref, tuple(ref_tokens[:k + 1]), k)
+    log(f"[check] {run}, rank {rank}: greedy token {k} parts from the single card's, whose two "
+        f"most likely there are {p1:.4e} and {p2:.4e}, {p1 - p2:.3e} apart (near-tie bound "
+        f"{2 * tol:.3e})  [{card}]")
+    assert p1 - p2 <= 2 * tol, (
+        f"{run}, rank {rank}: greedy token {k} parts from the single card's at a margin "
+        f"{p1 - p2:.3e}, above {2 * tol:.3e}")
 
 
 def check_tp_ranks(results, refs, n_teacher: int, backend: str, card: str, runs: list) -> None:
@@ -2676,8 +2935,8 @@ def check_tp_ranks(results, refs, n_teacher: int, backend: str, card: str, runs:
                 f"{c['AllGather']:.4f} ms, device busy {c['busy']:.3f} ms per step  [{card}]")
         if res["capture"]:
             log_capture(f"{run}, rank {res['rank']}", {"decode_graph": res["capture"]}, card)
-        assert res["tokens"] == ref_tokens[:len(res["tokens"])], (
-            f"{run}, rank {res['rank']}: greedy tokens {res['tokens']}, single card {ref_tokens}")
+        check_greedy(run, res["rank"], res["tokens"], ref_tokens[:len(res["tokens"])], tol,
+                     "main", card)
         assert gap <= tol, f"{run}, rank {res['rank']}: probabilities {gap} apart, bound {tol}"
     runs.append((run, results[0]["C"], results[0]["launches"]))
 
@@ -2710,40 +2969,334 @@ def check_dp_ranks(results, tp: int, refs, backend: str, card: str, runs: list) 
 
 
 def parallel_phase(card: str, runs: list, refs: dict) -> None:
-    """Tensor and data parallelism at full width over ranks: NCCL with one
-    card per rank where the machine lends enough cards, else gloo with the
-    ranks sharing the card (eager decode, correctness only)."""
+    """Phases 5 and 6 at full width over ranks, each world of ranks
+    started once for both: tensor and data parallelism (phase 5), then
+    sequence and pipeline parallelism (phase 6). NCCL with one card per
+    rank where the machine lends enough cards, else gloo with the ranks
+    sharing the card (correctness only)."""
     from cold_compress_tpu_torch.parallel.launch import launch, run_jobs
+    from cold_compress_tpu_torch.parallel.mesh import Layout
 
     n = torch.cuda.device_count()
     prompt_len = TP_CONTEXT - 256 - 8
     teacher = refs["main_seq"][prompt_len:prompt_len + TP_TOKENS]
     if n >= 4:
-        worlds = [(2, [(2, 1, tp_rank, (TP_TOKENS, teacher, True))]),
-                  (4, [(4, 1, tp_rank, (TP_TOKENS, teacher, True)), (2, 2, dp_rank, (TP_TOKENS,))])]
+        worlds = [(2, [(Layout(tp=2), tp_rank, (TP_TOKENS, teacher, True))]),
+                  (4, [(Layout(tp=4), tp_rank, (TP_TOKENS, teacher, True)),
+                       (Layout(tp=2, dp=2), dp_rank, (TP_TOKENS,))])]
     else:
         short = teacher[:TP_SHARED_TOKENS[4]]
-        worlds = [(2, [(2, 1, tp_rank, (TP_SHARED_TOKENS[2], teacher, n >= 2)),
-                       (1, 2, dp_rank, (TP_TOKENS,))]),
-                  (4, [(4, 1, tp_rank, (TP_SHARED_TOKENS[4], short, False))])]
+        worlds = [(2, [(Layout(tp=2), tp_rank, (TP_SHARED_TOKENS[2], teacher, n >= 2)),
+                       (Layout(dp=2), dp_rank, (TP_TOKENS,))]),
+                  (4, [(Layout(tp=4), tp_rank, (TP_SHARED_TOKENS[4], short, False))])]
     log(f"[phase5] {n} card(s) visible: {torch.cuda.get_device_name(0)}")
     for world, jobs in worlds:
         backend = "nccl" if n >= world else "gloo"
+        # Phase 6's jobs ride the same ranks (each rank draws the weights once).
+        par = par_jobs(refs, world, backend, n >= 4)
+        jobs = jobs + [job for _, job, _ in par]
         log(f"[phase5] {world} ranks over {backend}: " + (
             "one card per rank" if backend == "nccl"
             else f"ranks share {n} card(s): correctness only, no timing"))
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        per_rank = launch(run_jobs, jobs, tp=world, device="cuda", backend=backend,
+        per_rank = launch(run_jobs, jobs, dp=world, device="cuda", backend=backend,
                           timeout_s=TP_TIMEOUT_S)
         log(f"[phase5] {world} ranks ran {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s")
-        for j, (tp, dp, fn, args) in enumerate(jobs):
+        n_tp = len(jobs) - len(par)
+        for j, (layout, fn, args) in enumerate(jobs[:n_tp]):
             results = [r[j] for r in per_rank if r[j] is not None]
             if fn is tp_rank:
                 check_tp_ranks(results, refs, len(args[1]), backend, card, runs)
             else:
-                check_dp_ranks(results, tp, refs, backend, card, runs)
+                check_dp_ranks(results, layout.tp, refs, backend, card, runs)
+        check_par_jobs(par, [r[n_tp:] for r in per_rank], refs, backend, card, runs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: sequence and pipeline parallelism across ranks
+# ---------------------------------------------------------------------------
+
+#: Tokens of each sequence- or pipeline-parallel run (greedy, then
+#: teacher-forced): fewer where the ranks share one card.
+PAR_TOKENS = {"gloo": 16, "nccl": 64}
+#: The dense bf16 Llama-3-8B of the sp x tp run: ``init_params``' draws from
+#: a generator on the card with this seed.
+BF16_SEED = 5
+
+
+def sp_run_name(sp: int, tp: int = 1, strategy: str = "heavy_hitter") -> str:
+    weights = "bf16 layers and head" if tp > 1 else "int4"
+    return (f"sequence parallel sp={sp}" + (f" x tp={tp}" if tp > 1 else "")
+            + f" ({strategy} kv8, {weights})")
+
+
+def pp_run_name(pp: int) -> str:
+    return f"pipeline parallel pp={pp} (main path, heavy_hitter kv8, int4)"
+
+
+def bf16_draws(cfg, device):
+    """``init_params``' bf16 draws of ``cfg`` from a generator on
+    ``device`` seeded ``BF16_SEED``, in its order: each layer's tree, then
+    ``("tok_embeddings", t)`` and ``("output", t)``. A rank keeps its shard
+    of each layer as it comes, never the whole model."""
+    gen = torch.Generator(device=device).manual_seed(BF16_SEED)
+    D, H, KVH, hd, I = cfg.dim, cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.intermediate_size
+
+    def dense(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+
+    for _ in range(cfg.n_layer):
+        attn = {"wq": dense(D, H * hd), "wk": dense(D, KVH * hd), "wv": dense(D, KVH * hd),
+                "wo": dense(H * hd, D)}
+        ffn = {"w1": dense(D, I), "w3": dense(D, I), "w2": dense(I, D)}
+        yield {"attn": attn, "ffn": ffn,
+               "attention_norm": torch.ones(D, dtype=torch.bfloat16, device=device),
+               "ffn_norm": torch.ones(D, dtype=torch.bfloat16, device=device)}
+    yield "tok_embeddings", dense(cfg.vocab_size, D)
+    yield "output", dense(D, cfg.vocab_size)
+
+
+def bf16_rank_model(ctx, kw):
+    """This tp or sp x tp rank's shard of the bf16 8B model
+    (``bf16_draws``, each layer sharded as it is drawn: ``prepare_tp``'s
+    slicing), built over the local config holding its contexts, and its
+    caches."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_caches
+    from cold_compress_tpu_torch.parallel.tp_decode import _head_local, local_cfg, prepare_tp
+    from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model
+
+    cfg = ModelConfig.from_name(MAIN_MODEL)
+    tp, t, dev = ctx.tp, ctx.rank % ctx.tp, ctx.device
+    tp_ctx = getattr(ctx, "tp_ctx", ctx)  # an SpContext holds its replica's
+    t0 = time.perf_counter()
+    layers, rest = [], {}
+    for item in bf16_draws(cfg, dev):
+        if isinstance(item, dict):
+            one = {"tok_embeddings": None, "norm": None, "layers": [item], "output": None}
+            layers.append(prepare_tp(cfg, one, tp, t)["layers"][0])
+        else:
+            rest[item[0]] = item[1]
+        del item
+    params = {"tok_embeddings": rest["tok_embeddings"], "layers": layers,
+              "norm": torch.ones(cfg.dim, dtype=torch.bfloat16, device=dev),
+              "output": _head_local(rest.pop("output"), t, tp)}
+    model = build_model(local_cfg(cfg, tp), params, dev, max_positions=TP_CONTEXT)
+    del params, layers, rest
+    model.tp = tp_ctx
+    if tp_ctx is not ctx:
+        model.sp = ctx
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    caches = init_caches(model.cfg, build_cache_specs(cfg, kw, TP_CONTEXT), 1, torch.bfloat16,
+                         device=dev)
+    return cfg, model, caches, build_s
+
+
+def bf16_single_model(dev):
+    """(config, model) of the bf16 8B weights on one card (``init_params``
+    with ``BF16_SEED``)."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_params
+    from cold_compress_tpu_torch.runtime.engine import build_model as build
+
+    cfg = ModelConfig.from_name(MAIN_MODEL)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(BF16_SEED),
+                         torch.bfloat16, dev)
+    return cfg, build(cfg, params, dev, max_positions=TP_CONTEXT)
+
+
+def bf16_reference(dev, card) -> dict:
+    """The single card's run of the sp x tp run's bf16 8B model
+    (``bf16_single_model``), the main path's cache and prompt, 64 greedy
+    tokens: its tokens and their probabilities."""
+    from cold_compress_tpu_torch.runtime.generate import generate
+
+    t0 = time.perf_counter()
+    cfg, model = bf16_single_model(dev)
+    caches = make_caches(cfg, cache_kw("heavy_hitter", 8), TP_CONTEXT, dev)
+    prompt = main_prompt(cfg)
+    seq, info, caches = generate(model, caches, prompt, PAR_TOKENS["nccl"])
+    check_outputs("bf16 8B single card", cfg, seq, info, caches, len(prompt), PAR_TOKENS["nccl"])
+    perf = info["perf_stats"]
+    log(f"[phase6] bf16 Llama-3-8B on one card (the sp x tp run's reference): built and run in "
+        f"{time.perf_counter() - t0:.1f} s; prefill {perf['prefill_seconds']:.4f} s, decode "
+        f"{perf['decode_toks_per_sec']:.3f} tok/s, peak {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        f" GB  [{card}]")
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bf16_seq": seq, "bf16_probs": info["emitted_probs"]}
+
+
+PREFILL_COLLECTIVES = ("AllGather", "AllReduce", "SendRecv", "Broadcast")
+
+
+def prefill_device_ms(model, caches, prompt) -> dict:
+    """Device ms of one more prefill, by kind: the NCCL collectives and the
+    query-block kernel's passes (``torch.profiler``)."""
+    from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
+
+    reset_caches(caches)
+    with torch.inference_mode():
+        busy, _, rows = device_profile(lambda: generate(model, caches, prompt, 1), 1)
+    out = {kind: sum(e.self_device_time_total for e in rows if kind in e.key) / 1e3
+           for kind in PREFILL_COLLECTIVES}
+    out["partial"] = sum(e.self_device_time_total for e in rows
+                         if any(k in e.key for k in PREFILL_KERNELS)) / 1e3
+    return {**out, "busy": busy}
+
+
+def par_launches(model, kw, steps: int, caches, P: int = TP_CONTEXT) -> dict:
+    """A rank's exact launches: the main path's decode
+    (``expected_launches``; dense layers and head for the bf16 model) and,
+    under sp or pp, in place of the prefill's K4 (K6 for hybrid), its
+    query-block form: once per layer under sp, once per layer and chunk of
+    64 rows on a pipeline stage."""
+    from cold_compress_tpu_torch.ops.linear import DenseLinear
+
+    dense = isinstance(model.output, DenseLinear)
+    want = expected_launches(model.cfg, kw, steps, cache_lengths(caches),
+                             None if dense else "w4a8_gemv.head",
+                             layers=None if dense else "w4a8_gemv", i8dot=model.attn_i8dot)
+    if model.sp is None and model.pp is None:
+        return want
+    key = "flash_profile" if kw["cache_strategy"][0] == "hybrid" else "flash_prefill_summary"
+    n = want.pop(key)
+    if model.pp is not None:
+        n = model.cfg.n_layer // model.pp.pp * (P // PP_CHUNK)
+    want["flash_profile_partial" if key == "flash_profile" else "flash_prefill_partial"] = n
+    return want
+
+
+def par_rank(ctx, run: str, kw: dict, new_tokens: int, teacher: list, profile: bool,
+             bf16: bool = False) -> dict:
+    """One rank of a sequence- or pipeline-parallel run of the main path's
+    prompt: a warm-up ``generate``, ``new_tokens`` greedy tokens with the
+    rank's exact launch witness and output checks, then ``teacher``
+    teacher-forced; with ``profile``, the device ms of one more prefill by
+    kind."""
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate, reset_caches
+
+    dev = ctx.device
+    if bf16:
+        cfg, model, caches, build_s = bf16_rank_model(ctx, kw)
+    else:
+        cfg, model, caches, build_s = rank_model(ctx, kw=kw)
+    prompt = main_prompt(cfg)
+    _, warm, _ = generate(model, caches, prompt, 8)
+    reset_caches(caches)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_launches()
+    seq, info, caches = generate(model, caches, prompt, new_tokens)
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    hybrid = kw["cache_strategy"][0] == "hybrid"
+    check_outputs(run, cfg, seq, info, caches, len(prompt), new_tokens, hybrid)
+    want = par_launches(model, kw, info["perf_stats"]["decode_steps"], caches)
+    assert launches == want, f"{run}, rank {ctx.rank}: launches {launches}, want {want}"
+    graph = info["decode_graph"]
+    assert graph is None or not graph["captured"], f"{run}: the timed run captured again"
+    reset_caches(caches)
+    _, forced, _ = generate(model, caches, prompt, len(teacher), next_tokens=teacher)
+    out = {"rank": ctx.rank, "device": str(dev), "build_s": build_s, "tokens": seq[len(prompt):],
+           "perf": info["perf_stats"], "peak_gb": peak_gb, "launches": launches,
+           "C": caches[0].spec.max_cache_length, "graph": graph is not None,
+           "teacher_probs": forced["emitted_probs"],
+           "prefill_ms": prefill_device_ms(model, caches, prompt) if profile else None}
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_par_ranks(run: str, results, ref_seq, ref_probs, rel: float, ref, against: str,
+                    backend: str, card: str) -> None:
+    """Every rank's greedy tokens the reference run's up to the first that
+    parts (``check_greedy``; ``ref`` names the single card's run, None for
+    another run of this world, ``against`` says which), its teacher-forced
+    probabilities within ``rel`` of the largest of the reference's;
+    per-rank numbers printed (timed only where each rank has its own
+    card)."""
+    prompt_len = TP_CONTEXT - 256 - 8
+    ref_tokens = ref_seq[prompt_len:]
+    for res in results:
+        n = len(res["tokens"])
+        gap, tol = prob_gap(res["teacher_probs"], ref_probs[:n], rel)
+        perf = res["perf"]
+        timing = (f"prefill {perf['prefill_seconds']:.4f} s, decode "
+                  f"{perf['decode_toks_per_sec']:.3f} tok/s over {perf['decode_steps']} steps "
+                  f"(graph: {res['graph']}), peak memory {res['peak_gb']:.3f} GB"
+                  if backend == "nccl" else f"{perf['decode_steps']} decode steps (graph: "
+                  f"{res['graph']}; ranks share a card: no timing)")
+        log(f"[phase6] {run}, rank {res['rank']} on {res['device']}: built in "
+            f"{res['build_s']:.1f} s; {timing}; launches {json.dumps(res['launches'])}; greedy "
+            f"tokens equal to {against} for {common_prefix(res['tokens'], ref_tokens)} of {n}; "
+            f"{n} teacher-forced steps within {gap:.3e} of {against} probabilities ({gap / tol * rel:.2e}"
+            f" of the largest; bound {tol:.3e}, {rel})  [{card}]")
+        if res["prefill_ms"]:
+            log(f"[phase6] {run}, rank {res['rank']}: one profiled prefill, device ms: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in res["prefill_ms"].items()) + f"  [{card}]")
+        check_greedy(run, res["rank"], res["tokens"], ref_tokens[:n], tol, ref, card)
+        assert gap <= tol, f"{run}, rank {res['rank']}: probabilities {gap} apart, bound {tol}"
+
+
+def check_par_jobs(par: list, per_rank: list, refs: dict, backend: str, card: str,
+                   runs: list) -> None:
+    """Check each of ``par_jobs``' runs from every rank's results of them,
+    in order, against each of its references (a run of this world held to
+    one checked before it)."""
+    prompt_len = TP_CONTEXT - 256 - 8
+    done = {}
+    for j, (name, _, held) in enumerate(par):
+        results = done[name] = [r[j] for r in per_rank if r[j] is not None]
+        for ref, rel in held:
+            if ref in done:  # another run of this world, rank 0's
+                seq, probs = prompt_len * [0] + done[ref][0]["tokens"], done[ref][0]["teacher_probs"]
+                check_par_ranks(name, results, seq, probs, rel, None, f"{ref} rank 0's", backend,
+                                card)
+            else:
+                check_par_ranks(name, results, refs[f"{ref}_seq"], refs[f"{ref}_probs"], rel, ref,
+                                "the single card's", backend, card)
+        runs.append((name, results[0]["C"], results[0]["launches"]))
+
+
+BF16_TP_RUN = "tensor parallel tp=2 (heavy_hitter kv8, bf16 layers and head)"
+
+
+def par_jobs(refs: dict, world: int, backend: str, four_cards: bool) -> list:
+    """Phase 6's jobs in a world of ``world`` ranks: (run name, its
+    ``run_jobs`` job, what it is held to: (reference, bound) pairs, the
+    reference a single card's run of ``refs`` or a run of this world). The
+    dense bf16 runs are held to the single card at BF16_PROB_REL, and sp x
+    tp also to bf16 tp = 2 at TP_PROB_REL."""
+    from cold_compress_tpu_torch.parallel.mesh import Layout
+
+    hh, hyb = cache_kw("heavy_hitter", 8), cache_kw("hybrid", 8)
+    main = [("main", TP_PROB_REL)]
+    if world == 2:
+        specs = [(sp_run_name(2), Layout(sp=2), hh, main, False),
+                 (sp_run_name(2, strategy="hybrid"), Layout(sp=2), hyb,
+                  [("hybrid", TP_PROB_REL)], False),
+                 (pp_run_name(2), Layout(pp=2), hh, main, False)]
+    else:
+        bf16 = ("bf16", BF16_PROB_REL)
+        specs = [(sp_run_name(4), Layout(sp=4), hh, main, False),
+                 (BF16_TP_RUN, Layout(tp=2), hh, [bf16], True),
+                 (sp_run_name(2, 2), Layout(sp=2, tp=2), hh, [bf16, (BF16_TP_RUN, TP_PROB_REL)],
+                  True)]
+        if four_cards:
+            specs.append((pp_run_name(4), Layout(pp=4), hh, main, False))
+    n = PAR_TOKENS[backend]
+    prompt_len = TP_CONTEXT - 256 - 8
+    return [(name, (layout, par_rank, (name, kw, n,
+                                       refs[f"{held[0][0]}_seq"][prompt_len:prompt_len + n],
+                                       backend == "nccl", bf16)), held)
+            for name, layout, kw, held, bf16 in specs]
 
 
 def main() -> int:
@@ -2811,6 +3364,15 @@ def main() -> int:
     check_flash_prefill_calibration(dev, records)
     for windows in ((2457,), (819, 2457)):
         check_flash_profile(dev, records, windows)
+    # The query blocks of phase 6's runs.
+    check_partial_offset0_bit_equal(dev)
+    for Pq, q_offset, sp in PARTIAL_BLOCKS:
+        check_flash_prefill_partial(dev, records, Pq, q_offset, sp_run_name(sp))
+    for q_offset in PP_CHUNK_OFFSETS:
+        check_flash_prefill_partial(dev, records, PP_CHUNK, q_offset, pp_run_name(2),
+                                    Pk=q_offset + PP_CHUNK)
+    for windows in ((2457,), (819, 2457)):
+        check_flash_profile_partial(dev, records, windows, sp_run_name(2, strategy="hybrid"))
     check_w4a8_gemm(dev, records)
     torch.cuda.empty_cache()
     log(f"[phase2] done at {time.perf_counter() - t_start:.1f} s")
@@ -2841,8 +3403,9 @@ def main() -> int:
     check_hh_evict(dev, records, B=BATCH, C=C_eval, from_run=EVAL_RUN)
     gc.collect()
     torch.cuda.empty_cache()
+    refs.update(bf16_reference(dev, card))
     parallel_phase(card, runs, refs)
-    log(f"[phase5] done at {time.perf_counter() - t_start:.1f} s")
+    log(f"[phase6] phases 5 and 6 done at {time.perf_counter() - t_start:.1f} s")
     runs += in_situ
     return finish(records, runs, card, t_start)
 

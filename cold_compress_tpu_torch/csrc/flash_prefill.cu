@@ -29,6 +29,15 @@
 //   accumulated across sequential grid steps, which Hopper's parallel blocks
 //   cannot do.)
 //
+// Both passes take a block of Pq query rows at global positions q_offset ..
+// q_offset + Pq - 1 against Pk >= q_offset + Pq keys (the sequence- and
+// pipeline-parallel prefills' shards and chunks, the JAX package's
+// ops/attention.py::chunked_prefill_partial): key j is visible to row i iff
+// j <= q_offset + i, and key tiles past the block's last row are never
+// loaded. K and V may be row slices of longer buffers (kv_rows rows apart per
+// (batch, KV head)). At q_offset = 0, Pq = Pk = kv_rows every instruction is
+// the whole-prompt kernel's.
+//
 // A second entry point pair serves pallas_prefill.py::flash_profile (K6):
 // the same pass 1, and pass 2 instantiated over the FastGen profile's
 // accumulators: cum (every valid row) and, for up to four recent-window
@@ -107,9 +116,9 @@ __device__ __forceinline__ int div_g(int x, int G, uint32_t magic) {
   return G == 1 ? x : (int)__umulhi((uint32_t)x, magic);
 }
 
-// Element offset of folded row r of (b, kvh) in a [B, H, P, D] tensor.
-__device__ __forceinline__ size_t qrow_offset(int b, int kvh, int r, int H, int G, int P) {
-  return (((size_t)b * H + (size_t)kvh * G + (r % G)) * P + r / G) * kD;
+// Element offset of folded row r of (b, kvh) in a [B, H, Pq, D] tensor.
+__device__ __forceinline__ size_t qrow_offset(int b, int kvh, int r, int H, int G, int Pq) {
+  return (((size_t)b * H + (size_t)kvh * G + (r % G)) * Pq + r / G) * kD;
 }
 
 // ROWS folded query rows from r0 into a padded tile; rows at or past
@@ -117,13 +126,13 @@ __device__ __forceinline__ size_t qrow_offset(int b, int kvh, int r, int H, int 
 template <int ROWS, int THREADS>
 __device__ __forceinline__ void load_q_tile(__nv_bfloat16* dst,
                                             const __nv_bfloat16* __restrict__ q, int b,
-                                            int kvh, int r0, int H, int G, int P) {
-  const int nrows = P * G;
+                                            int kvh, int r0, int H, int G, int Pq) {
+  const int nrows = Pq * G;
   for (int idx = threadIdx.x; idx < ROWS * (kD / 8); idx += THREADS) {
     const int row = idx >> 4, ch = idx & 15;
     if (r0 + row < nrows)
       cp_async16(dst + row * kStride + ch * 8,
-                 q + qrow_offset(b, kvh, r0 + row, H, G, P) + ch * 8);
+                 q + qrow_offset(b, kvh, r0 + row, H, G, Pq) + ch * 8);
   }
 }
 
@@ -174,8 +183,8 @@ __device__ __forceinline__ void scores_16x64(float (&s)[8][4], const uint32_t (&
 __global__ void __launch_bounds__(kThreads1, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ y,
-                 float* __restrict__ mbuf, float* __restrict__ ilbuf, int H, int KVH, int P,
-                 float scale_log2) {
+                 float* __restrict__ mbuf, float* __restrict__ ilbuf, int H, int KVH, int Pq,
+                 int q_offset, int kv_rows, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kBR1 * kStride;  // [kStages1][kTile]
@@ -186,19 +195,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kBR1;  // longest blocks first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int nrows = P * G;
+  const int nrows = Pq * G;
 
+  // Rows hold local indices; positions (and so causality) are global.
   const int rowA = r0 + warp * 16 + gid, rowB = rowA + 8;
-  const int posA = rowA / G, posB = rowB / G;
-  const int first_pos = r0 / G;
-  const int n_kb = (min(r0 + kBR1, nrows) - 1) / G / kBK + 1;
-  const __nv_bfloat16* Kb = k + (size_t)bh * P * kD;
-  const __nv_bfloat16* Vb = v + (size_t)bh * P * kD;
+  const int posA = q_offset + rowA / G, posB = q_offset + rowB / G;
+  const int first_pos = q_offset + r0 / G;
+  const int n_kb = (q_offset + (min(r0 + kBR1, nrows) - 1) / G) / kBK + 1;
+  const __nv_bfloat16* Kb = k + (size_t)bh * kv_rows * kD;
+  const __nv_bfloat16* Vb = v + (size_t)bh * kv_rows * kD;
 
   // Group t holds K/V tile t (group 0 also Q); one group per step, empty
   // past the last tile, so that waiting for all but the newest group at
   // step kb means tile kb has landed.
-  load_q_tile<kBR1, kThreads1>(Qs, q, b, kvh, r0, H, G, P);
+  load_q_tile<kBR1, kThreads1>(Qs, q, b, kvh, r0, H, G, Pq);
 #pragma unroll
   for (int t = 0; t < kStages1 - 1; ++t) {
     if (t < n_kb) {
@@ -317,7 +327,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int hh = 0; hh < 2; ++hh) {
     const int r = hh == 0 ? rowA : rowB;
     if (r >= nrows) continue;
-    __nv_bfloat16* yr = y + qrow_offset(b, kvh, r, H, G, P);
+    __nv_bfloat16* yr = y + qrow_offset(b, kvh, r, H, G, Pq);
 #pragma unroll
     for (int dt = 0; dt < 16; ++dt) {
       const float v0 = __fdiv_rn(o[dt][2 * hh], l[hh]);
@@ -339,7 +349,8 @@ __global__ void __launch_bounds__(kThreads2, 2)
 colsum_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const float* __restrict__ mbuf, const float* __restrict__ ilbuf,
               const int* __restrict__ plen_arr, float* __restrict__ ws, int H, int KVH,
-              int P, float scale_log2, int seg_rows, int n_seg, int obs_len, int4 win) {
+              int Pq, int Pk, int q_offset, int kv_rows, float scale_log2, int seg_rows,
+              int n_seg, int obs_len, int4 win) {
   constexpr int NA = 1 + NX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kKeys2][kStride]
@@ -350,28 +361,32 @@ colsum_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int bh = blockIdx.y, b = bh / KVH, kvh = bh % KVH;
   const int kb = blockIdx.x / n_seg, seg = blockIdx.x % n_seg;
   const int key0 = kb * kKeys2;
-  const int plen = min(plen_arr[b], P);
-  const int row_begin = max(seg * seg_rows, key0 * G);
-  const int row_end = min((seg + 1) * seg_rows, plen * G);
+  // plen is the whole prompt's (a pipeline chunk's keys may end before it:
+  // clamping it to Pk would move the observation window into the chunk);
+  // the block's valid rows are its first n_valid positions.
+  const int plen = plen_arr[b];
+  const int n_valid = max(0, min(plen - q_offset, Pq));
+  const int row_begin = max(seg * seg_rows, max(key0 - q_offset, 0) * G);
+  const int row_end = min((seg + 1) * seg_rows, n_valid * G);
   if (row_begin >= row_end) return;  // no valid row of this segment sees these keys
   const int n_tiles = (row_end - row_begin + kBR - 1) / kBR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int nrows = P * G;
-  const size_t bhP = (size_t)bh * P;
+  const int nrows = Pq * G;
+  const size_t bhP = (size_t)bh * Pk;
 
   auto load_rows = [&](int t, int st) {
     const int r0 = row_begin + t * kBR;
-    load_q_tile<kBR, kThreads2>(Qs + st * kTile, q, b, kvh, r0, H, G, P);
+    load_q_tile<kBR, kThreads2>(Qs + st * kTile, q, b, kvh, r0, H, G, Pq);
     if (threadIdx.x < 2 * kBR / 4) {  // m and 1/l of the 64 rows, 16 bytes a thread
       const int which = threadIdx.x / (kBR / 4), ch = threadIdx.x % (kBR / 4);
       const float* src = (which ? ilbuf : mbuf) + (size_t)bh * nrows + r0 + ch * 4;
       cp_async16(ml + (st * 2 + which) * kBR + ch * 4, src);
     }
   };
-  // The last block may reach past P (a multiple of 64 only): its second
+  // The last block may reach past Pk (a multiple of 64 only): its second
   // half's warps hold no keys and write nothing.
-  load_kv_tile<kKeys2, kThreads2>(Ks, k + (bhP + key0) * kD, P - key0);
+  load_kv_tile<kKeys2, kThreads2>(Ks, k + ((size_t)bh * kv_rows + key0) * kD, Pk - key0);
   load_rows(0, 0);
   cp_async_commit();
   if (n_tiles > 1) load_rows(1, 1);
@@ -380,7 +395,7 @@ colsum_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const float wg = 1.0f / (float)G;
   const uint32_t gmagic = G == 1 ? 0u : 0xFFFFFFFFu / (uint32_t)G + 1u;
   const int wkey0 = key0 + warp * 16;  // this warp's 16 keys
-  const bool has_keys = wkey0 < P;
+  const bool has_keys = wkey0 < Pk;
   const int keyA = wkey0 + gid, keyB = keyA + 8;
   const int wl[4] = {win.x, win.y, win.z, win.w};
   uint32_t ka[8][4];
@@ -407,7 +422,8 @@ colsum_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     // Per tile, uniform across the warp: whether every row sees every key,
     // is valid, and falls wholly in or out of each extra accumulator; the
     // tiles inside the causal triangle then skip every per-element test.
-    const int pos_lo = div_g(r0, G, gmagic), pos_hi = div_g(r0 + kBR - 1, G, gmagic);
+    const int pos_lo = q_offset + div_g(r0, G, gmagic);
+    const int pos_hi = q_offset + div_g(r0 + kBR - 1, G, gmagic);
     bool fast = pos_lo >= wkey0 + 15 && pos_hi < plen;
     bool all_in[NX > 0 ? NX : 1];
 #pragma unroll
@@ -441,7 +457,7 @@ colsum_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
           }
           continue;
         }
-        const int pos = div_g(r0 + nt * 8 + tig * 2 + j, G, gmagic);
+        const int pos = q_offset + div_g(r0 + nt * 8 + tig * 2 + j, G, gmagic);
         if (keyA > pos || pos >= plen) pA = 0.f;
         if (keyB > pos || pos >= plen) pB = 0.f;
         acc[0][0] += pA;
@@ -471,31 +487,33 @@ colsum_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       v += __shfl_xor_sync(0xffffffffu, v, 2);
       v *= wg;
       if (tig == 0 && has_keys) {
-        const size_t bkp = (size_t)gridDim.y * P;  // one segment's [B, KVH, P]
+        const size_t bkp = (size_t)gridDim.y * Pk;  // one segment's [B, KVH, Pk]
         ws[((size_t)a * n_seg + seg) * bkp + bhP + (hh ? keyB : keyA)] = v;
       }
     }
   }
 }
 
-// out[a] [B, KVH, P] = the segments' partials of each key, summed in
+// out[a] [B, KVH, Pk] = the segments' partials of each key, summed in
 // segment order over the segments that hold its valid rows (0 for keys no
-// valid row sees).
+// valid row sees, those past the block's last row among them).
 __global__ void colsum_reduce(const float* __restrict__ ws, const int* __restrict__ plen_arr,
-                              float* __restrict__ out, int KVH, int P, int G, int seg_rows,
-                              int n_seg, int NA) {
+                              float* __restrict__ out, int KVH, int Pq, int Pk, int q_offset,
+                              int G, int seg_rows, int n_seg, int NA) {
   const int key = blockIdx.x * blockDim.x + threadIdx.x;
-  if (key >= P) return;
+  if (key >= Pk) return;
   const int bh = blockIdx.y, b = bh / KVH;
-  const size_t bkp = (size_t)gridDim.y * P;
+  const size_t bkp = (size_t)gridDim.y * Pk;
   const int key0 = key / kKeys2 * kKeys2;
-  const int plen = min(plen_arr[b], P);
-  const int first = key0 * G / seg_rows;
-  const int last = key0 < plen ? (plen * G - 1) / seg_rows : first - 1;
+  const int plen = plen_arr[b];  // the whole prompt's, as in colsum_kernel
+  const int n_valid = max(0, min(plen - q_offset, Pq));
+  const int row0 = max(key0 - q_offset, 0) * G;  // the first row that sees the key block
+  const int first = row0 / seg_rows;
+  const int last = row0 < n_valid * G ? (n_valid * G - 1) / seg_rows : first - 1;
   for (int a = 0; a < NA; ++a) {
     float s = 0.f;
-    for (int sg = first; sg <= last; ++sg) s += ws[((size_t)a * n_seg + sg) * bkp + (size_t)bh * P + key];
-    out[(size_t)a * bkp + (size_t)bh * P + key] = s;
+    for (int sg = first; sg <= last; ++sg) s += ws[((size_t)a * n_seg + sg) * bkp + (size_t)bh * Pk + key];
+    out[(size_t)a * bkp + (size_t)bh * Pk + key] = s;
   }
 }
 
@@ -506,60 +524,73 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 
 template <bool OBS, int NX>
 cudaError_t launch_colsum(const void* q, const void* k, const void* mbuf, const void* ilbuf,
-                          const void* plen, void* ws, void* out, int B, int H, int KVH, int P,
-                          float scale_log2, int seg_rows, int n_seg, int obs_len, int4 win,
-                          cudaStream_t stream) {
+                          const void* plen, void* ws, void* out, int B, int H, int KVH, int Pq,
+                          int Pk, int q_offset, int kv_rows, float scale_log2, int seg_rows,
+                          int n_seg, int obs_len, int4 win, cudaStream_t stream) {
   const size_t smem = (size_t)(kKeys2 + kStages2 * kBR) * kStride * sizeof(__nv_bfloat16) +
                       kStages2 * 2 * kBR * sizeof(float);
   cudaError_t e = set_smem((const void*)colsum_kernel<OBS, NX>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((P + kKeys2 - 1) / kKeys2 * n_seg, B * KVH);
+  // Key blocks past the block's last row (q_offset + Pq - 1) see no row:
+  // no item is launched for them, and the reduction writes their zeros.
+  const int seen = min(Pk, q_offset + Pq);
+  const dim3 grid((seen + kKeys2 - 1) / kKeys2 * n_seg, B * KVH);
   colsum_kernel<OBS, NX><<<grid, kThreads2, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const float*)mbuf,
-      (const float*)ilbuf, (const int*)plen, (float*)ws, H, KVH, P, scale_log2, seg_rows, n_seg,
-      obs_len, win);
+      (const float*)ilbuf, (const int*)plen, (float*)ws, H, KVH, Pq, Pk, q_offset, kv_rows,
+      scale_log2, seg_rows, n_seg, obs_len, win);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  colsum_reduce<<<dim3((P + 127) / 128, B * KVH), 128, 0, stream>>>(
-      (const float*)ws, (const int*)plen, (float*)out, KVH, P, H / KVH, seg_rows, n_seg, 1 + NX);
+  colsum_reduce<<<dim3((Pk + 127) / 128, B * KVH), 128, 0, stream>>>(
+      (const float*)ws, (const int*)plen, (float*)out, KVH, Pq, Pk, q_offset, H / KVH, seg_rows,
+      n_seg, 1 + NX);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Pass 1: y [B, H, P, D] bf16 and each folded row's m (base 2) and 1 / l,
-// [B, KVH, P*G] f32. scale_log2 = log2(e) / sqrt(D).
+// The shapes both passes take: Pq query rows at q_offset against Pk keys,
+// each a multiple of 64, every row's keys present, K/V planes kv_rows apart.
+static bool block_ok(int B, int H, int KVH, int Pq, int Pk, int q_offset, int kv_rows) {
+  return B >= 1 && KVH >= 1 && H % KVH == 0 && Pq >= kBK && Pq % kBK == 0 && Pk % kBK == 0 &&
+         q_offset >= 0 && q_offset % kBK == 0 && q_offset + Pq <= Pk && kv_rows >= Pk;
+}
+
+// Pass 1: y [B, H, Pq, D] bf16 and each folded row's m (base 2) and 1 / l,
+// [B, KVH, Pq*G] f32. scale_log2 = log2(e) / sqrt(D).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* y, void* mbuf,
-                         void* ilbuf, int B, int H, int KVH, int P, float scale_log2,
-                         void* stream) {
-  if (B < 1 || KVH < 1 || H % KVH || P < kBK || P % kBK) return (int)cudaErrorInvalidValue;
+                         void* ilbuf, int B, int H, int KVH, int Pq, int Pk, int q_offset,
+                         int kv_rows, float scale_log2, void* stream) {
+  if (!block_ok(B, H, KVH, Pq, Pk, q_offset, kv_rows)) return (int)cudaErrorInvalidValue;
   const int G = H / KVH;
   const size_t smem = (size_t)(kBR1 + 2 * kStages1 * kBK) * kStride * sizeof(__nv_bfloat16);
   cudaError_t e = set_smem((const void*)flash_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * KVH, (P * G + kBR1 - 1) / kBR1);
+  const dim3 grid(B * KVH, (Pq * G + kBR1 - 1) / kBR1);
   flash_fwd_kernel<<<grid, kThreads1, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)y, (float*)mbuf, (float*)ilbuf, H, KVH, P, scale_log2);
+      (__nv_bfloat16*)y, (float*)mbuf, (float*)ilbuf, H, KVH, Pq, q_offset, kv_rows, scale_log2);
   return (int)cudaGetLastError();
 }
 
-// Pass 2 and the reduction over segments. mode 0 (K4): out [2, B, KVH, P] =
-// cum, obs. mode 1 (K6): out [1 + n_windows, B, KVH, P] = cum, then one sum
-// per window length w0..w3. ws: [1 + n_extra, n_seg, B, KVH, P] f32, with
-// seg_rows a multiple of 64 and n_seg * seg_rows >= P * H / KVH.
+// Pass 2 and the reduction over segments. mode 0 (K4): out [2, B, KVH, Pk] =
+// cum, obs. mode 1 (K6): out [1 + n_windows, B, KVH, Pk] = cum, then one sum
+// per window length w0..w3. ws: [1 + n_extra, n_seg, B, KVH, Pk] f32, with
+// seg_rows a multiple of 64 and n_seg * seg_rows >= Pq * H / KVH.
 extern "C" int flash_colsum(const void* q, const void* k, const void* mbuf, const void* ilbuf,
-                            const void* plen, void* ws, void* out, int B, int H, int KVH, int P,
-                            float scale_log2, int seg_rows, int n_seg, int mode, int obs_len,
-                            int n_windows, int w0, int w1, int w2, int w3, void* stream) {
-  if (B < 1 || KVH < 1 || H % KVH || P < kBK || P % kBK || seg_rows < kBR ||
-      seg_rows % kBR || (size_t)n_seg * seg_rows < (size_t)P * (H / KVH))
+                            const void* plen, void* ws, void* out, int B, int H, int KVH, int Pq,
+                            int Pk, int q_offset, int kv_rows, float scale_log2, int seg_rows,
+                            int n_seg, int mode, int obs_len, int n_windows, int w0, int w1,
+                            int w2, int w3, void* stream) {
+  if (!block_ok(B, H, KVH, Pq, Pk, q_offset, kv_rows) || seg_rows < kBR || seg_rows % kBR ||
+      (size_t)n_seg * seg_rows < (size_t)Pq * (H / KVH))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int4 win = make_int4(w0, w1, w2, w3);
 #define CCT_COLSUM(OBS_, NX_)                                                              \
-  return (int)launch_colsum<OBS_, NX_>(q, k, mbuf, ilbuf, plen, ws, out, B, H, KVH, P,     \
-                                       scale_log2, seg_rows, n_seg, obs_len, win, s)
+  return (int)launch_colsum<OBS_, NX_>(q, k, mbuf, ilbuf, plen, ws, out, B, H, KVH, Pq, Pk, \
+                                       q_offset, kv_rows, scale_log2, seg_rows, n_seg,     \
+                                       obs_len, win, s)
   if (mode == 0) CCT_COLSUM(true, 1);
   switch (n_windows) {
     case 0: CCT_COLSUM(false, 0);

@@ -66,7 +66,7 @@ from .utils.cli import (
     add_cache_arguments,
     add_generation_arguments,
     merge_cache_config,
-    refuse_unported,
+    validate_parallel,
 )
 
 RESULTS_DIR = Path(__file__).resolve().parents[1] / "results"
@@ -195,14 +195,7 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
         token_ids = {"special": tokenizer.special_ids(),
                      "punctuation": tokenizer.punctuation_ids()}
     specs = build_cache_specs(cfg, vars(args), target_length, token_ids=token_ids)
-    # Batched generation for generation tasks; perplexity and prompt-feeding
-    # modes stay single-lane.
-    use_batch = (
-        args.batch_size > 1
-        and not task.requires_perplexity
-        and not args.feed_long_prompts
-        and not args.decode_first_token
-    )
+    use_batch = batched(args, task)
     bs = args.batch_size if use_batch else 1
     dp = 1 if tp_ctx is None else tp_ctx.dp
     if dp > 1 and not (use_batch and bs % dp == 0):
@@ -359,11 +352,20 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
     return task_metrics, pred_rows, task_args
 
 
+def batched(args, task) -> bool:
+    """Whether ``task`` (a task or its class) runs batched lanes: a
+    generation task at ``--batch_size`` above 1; perplexity and
+    prompt-feeding modes stay single-lane."""
+    return (args.batch_size > 1 and not task.requires_perplexity
+            and not args.feed_long_prompts and not args.decode_first_token)
+
+
 def load(args, device: torch.device, tp_ctx=None):
     """(cfg, model, tokenizer, is_chat) for ``--random_weights`` (byte
     tokenizer; ``--random_quantize`` draws int8/int4 weights directly in
     quantized form, seed 0, else ``init_params`` bf16 weights, seed 0) or
-    a checkpoint; with ``tp_ctx`` the model is the rank's shard."""
+    a checkpoint; with ``tp_ctx`` (a rank's context of any layout) the
+    model is the rank's (``parallel/tp_decode.py::build_rank_model``)."""
     if args.random_weights:
         cfg = ModelConfig.from_name(args.random_weights)
         if args.random_quantize:
@@ -394,9 +396,9 @@ def load(args, device: torch.device, tp_ctx=None):
     if tp_ctx is None:
         model = build_model(cfg, params, device, attn_i8dot=i8dot)
     else:
-        from .parallel.tp_decode import build_tp_model
+        from .parallel.tp_decode import build_rank_model
 
-        model = build_tp_model(cfg, params, tp_ctx, attn_i8dot=i8dot)
+        model = build_rank_model(cfg, params, tp_ctx, attn_i8dot=i8dot)
     return cfg, model, tokenizer, is_chat
 
 
@@ -406,15 +408,22 @@ def _rank_main(tp_ctx, args, out_dir: Path) -> None:
 
 def main(args, out_dir: Path, tp_ctx=None) -> None:
     """Run every task of ``args`` and write its files into ``out_dir``.
-    With ``--tp/--dp`` above 1 this starts the ranks (``parallel/launch.py``),
-    each of which runs ``main`` with its ``tp_ctx``; rank 0 writes."""
-    refuse_unported(args)
+    With ``--tp/--dp/--sp/--pp`` above 1 this starts the ranks
+    (``parallel/launch.py``), each of which runs ``main`` with its
+    ``tp_ctx`` (its context of the layout); rank 0 writes. ``--sp`` and
+    ``--pp`` run single-lane tasks only (the JAX package's refusals)."""
+    validate_parallel(args)
+    if args.sp * args.pp > 1 and any(batched(args, TASK_MAPPING[t]) for t in args.tasks):
+        from .parallel.mesh import PP_ALONE, SP_LANES
+
+        raise ValueError(SP_LANES if args.sp > 1 else PP_ALONE)
     if args.batch_size % args.dp:
         raise ValueError(DP_LANES)
-    if tp_ctx is None and args.tp * args.dp > 1:
+    if tp_ctx is None and args.tp * args.dp * args.sp * args.pp > 1:
         from .parallel.launch import launch
 
-        launch(_rank_main, args, out_dir, tp=args.tp, dp=args.dp, device=args.device)
+        launch(_rank_main, args, out_dir, tp=args.tp, dp=args.dp, sp=args.sp, pp=args.pp,
+               device=args.device)
         return
     device = tp_ctx.device if tp_ctx is not None else resolve_device(args.device)
     cfg, model, tokenizer, is_chat = load(args, device, tp_ctx)
@@ -538,7 +547,7 @@ def parse_args(argv: Optional[Sequence[str]] = None,
 
 def cli(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    refuse_unported(args)
+    validate_parallel(args)
     main(args, setup(args))
     return 0
 

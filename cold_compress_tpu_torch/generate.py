@@ -29,8 +29,11 @@ quantized cache (auto: the JAX program's default on a TPU).
 heads (``parallel/``; with or without ``--tp_kernels``, which the JAX
 package needs to keep its kernels under tensor parallelism and the port
 always does), one card per rank over NCCL (``--device cpu``: gloo ranks on
-the CPU); rank 0 prints. Under ``torchrun`` the processes it started are
-the ranks.
+the CPU); rank 0 prints. ``--sp N`` splits the prompt's query rows over N
+ranks (with ``--tp M``, N x M ranks over dense weights), ``--pp N`` the
+layers of the prefill over N stages; each such rank then decodes on its
+own (sp x tp: over its tp group). Under ``torchrun`` the processes it
+started are the ranks.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from .utils.cli import (
     add_cache_arguments,
     add_generation_arguments,
     merge_cache_config,
-    refuse_unported,
+    validate_parallel,
 )
 
 PROMPTS_DIR = Path(__file__).resolve().parents[1] / "prompts"
@@ -87,11 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """Parsed flags with the cache config overlaid and a ``*.txt`` prompt
-    read from ``./prompts``; unported and incompatible options raise."""
+    read from ``./prompts``; layouts the JAX package refuses and
+    incompatible options raise."""
     args = merge_cache_config(build_parser().parse_args(argv))
     if args.prompt.endswith(".txt"):
         args.prompt = (PROMPTS_DIR / args.prompt).read_text().strip()
-    refuse_unported(args)
+    validate_parallel(args)
     if args.dp > 1:
         raise ValueError(f"--dp {args.dp}: data parallelism shards batch lanes; generate runs "
                          "one prompt (eval --batch_size takes --dp)")
@@ -99,14 +103,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
-def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None, tp_ctx=None):
+def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None, ctx=None):
     """Load, build and generate; returns ``(sequence, info, caches)``.
     ``info`` is ``generate()``'s, plus ``generation`` (the decoded new
     text), ``model_size_bytes`` and ``load_seconds``. ``next_tokens``
-    teacher-forces the generated tokens (for comparisons). With ``tp_ctx``
+    teacher-forces the generated tokens (for comparisons). With ``ctx``
     (inside a rank of ``parallel/launch.py``) the model is the rank's
-    tensor-parallel shard and the caches hold its KV heads."""
-    device = tp_ctx.device if tp_ctx is not None else resolve_device(args.device)
+    (``parallel/tp_decode.py::build_rank_model``): its tensor-parallel
+    shard, whose caches hold its KV heads, or a sequence- or
+    pipeline-parallel rank's."""
+    device = ctx.device if ctx is not None else resolve_device(args.device)
     path = str(args.checkpoint_path).lower()
     is_chat = "chat" in path or "instruct" in path
 
@@ -152,17 +158,17 @@ def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None, tp_ct
     # Rope rows for the prefill bucket (a power of two) and every decode step.
     build_kw = dict(max_positions=bucket_length(max_seq_length),
                     attn_i8dot=ATTN_I8DOT[getattr(args, "attn_i8dot", "auto")])
-    if tp_ctx is None:
+    if ctx is None:
         model = build_model(cfg, params, device, **build_kw)
     else:
-        from .parallel.tp_decode import build_tp_model
+        from .parallel.tp_decode import build_rank_model
 
-        model = build_tp_model(cfg, params, tp_ctx, **build_kw)
+        model = build_rank_model(cfg, params, ctx, **build_kw)
     del params
     caches = init_caches(model.cfg, specs, 1, torch.bfloat16, device=device)
 
     profiler = nullcontext()
-    trace = args.profile if tp_ctx is None or tp_ctx.rank == 0 else None  # rank 0 writes files
+    trace = args.profile if ctx is None or ctx.rank == 0 else None  # rank 0 writes files
     if trace:
         from torch.profiler import ProfilerActivity, profile
 
@@ -195,17 +201,18 @@ def report(seq, info, caches) -> dict:
                                                          info["num_generated"])}
 
 
-def _rank_report(tp_ctx, args) -> dict:
-    """One rank of ``--tp``: its run's report."""
-    return report(*run(args, tp_ctx=tp_ctx))
+def _rank_report(ctx, args) -> dict:
+    """One rank of ``--tp``, ``--sp`` or ``--pp``: its run's report."""
+    return report(*run(args, ctx=ctx))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    if args.tp > 1:
+    if args.tp * args.sp * args.pp > 1:
         from .parallel.launch import launch
 
-        out = launch(_rank_report, args, tp=args.tp, device=args.device)[0]
+        out = launch(_rank_report, args, tp=args.tp, sp=args.sp, pp=args.pp,
+                     device=args.device)[0]
         if out is None:  # a rank other than 0 under torchrun
             return 0
     else:

@@ -91,13 +91,19 @@ class Transformer(nn.Module):
     (dp, tp) layout (``parallel/tp_decode.py::build_tp_model``; ``cfg`` is
     then the local config): at tp > 1 the blocks' two residual adds sum
     their branch over the tp group and the vocab-sharded logits are
-    gathered. None on a single device."""
+    gathered. None on a single device. ``sp`` and ``pp`` are the rank's
+    ``parallel.mesh.SpContext`` / ``PpContext`` under sequence or pipeline
+    parallelism (``parallel/tp_decode.py::build_rank_model``): they change
+    only the prefill (``parallel/sp.py``, ``parallel/pp.py``); None
+    otherwise."""
 
     def __init__(self, cfg: ModelConfig, params: Params, rope: torch.Tensor):
         super().__init__()
         self.cfg = cfg
         self.attn_i8dot = "auto"
         self.tp = None
+        self.sp = None
+        self.pp = None
         self.register_buffer("tok_embeddings", params["tok_embeddings"])
         self.layers = nn.ModuleList(Block(lp) for lp in params["layers"])
         self.register_buffer("norm", params["norm"])

@@ -1,17 +1,21 @@
-"""Start the ranks of a (dp, tp) run and collect what each returns.
+"""Start the ranks of a parallel run and collect what each returns.
 
 The JAX package has one controller that owns every device; the port runs
-one process per rank. ``launch(fn, *args, tp=, dp=, device=)`` starts
-``dp * tp`` ranks with ``torch.multiprocessing`` (spawn), or, when the
-process already runs under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and
+one process per rank. ``launch(fn, *args, tp=, dp=, sp=, pp=, device=)``
+starts the layout's ranks (``mesh.Layout``: ``dp * tp``, ``sp * tp`` or
+``pp``) with ``torch.multiprocessing`` (spawn), or, when the process
+already runs under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` set), joins that world in place, so that
 
     torchrun --nproc_per_node 2 -m cold_compress_tpu_torch.generate --tp 2 --tp_kernels ...
 
 and ``python -m cold_compress_tpu_torch.generate --tp 2 --tp_kernels ...``
-run the same ranks. Each rank calls ``fn(ctx, *args)`` with its
-``mesh.TpContext``; ``fn`` and ``args`` must pickle (a function of a
-module, by its import path).
+run the same ranks. Each rank calls ``fn(ctx, *args)`` with its context
+(``mesh.TpContext``, ``SpContext`` or ``PpContext``); ``fn`` and ``args``
+must pickle (a function of a module, by its import path). Across nodes
+(``LOCAL_WORLD_SIZE`` below the world, as ``torchrun`` sets it; spawned
+ranks inherit it from the parent's environment) tp stays within a node:
+each rank's context raises otherwise (``mesh.check_node_layout``).
 
 * Backend: ``gloo`` on the CPU; on cards ``nccl``, one card per rank (the
   run raises when fewer cards are visible). ``backend="gloo"`` with
@@ -45,7 +49,7 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
-from .mesh import DEFAULT_TIMEOUT_S, TpContext, make_tp_context
+from .mesh import DEFAULT_TIMEOUT_S, Layout, make_context
 
 _CALL, _RESULT = "call.pkl", "rank{}.pkl"
 #: Seconds the parent waits for ranks that have written their result to
@@ -84,7 +88,7 @@ def rank_device(device: torch.device, backend: str, rank: int, local_rank: int) 
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _run_rank(rank: int, world: int, tp: int, dp: int, backend: str, device: torch.device,
+def _run_rank(rank: int, world: int, layout: Layout, backend: str, device: torch.device,
               local_rank: int, store, timeout_s: float, fn: Callable, args: tuple):
     """Initialise this rank's process group, run ``fn`` on its context and
     tear the group down."""
@@ -94,7 +98,7 @@ def _run_rank(rank: int, world: int, tp: int, dp: int, backend: str, device: tor
     kw = {"store": store} if store is not None else {"init_method": "env://"}
     dist.init_process_group(backend, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s), **kw)
-    ctx = make_tp_context(tp, dp, dev)
+    ctx = make_context(layout, dev)
     if rank == 0:
         result = fn(ctx, *args)
     else:
@@ -112,33 +116,36 @@ def _run_rank(rank: int, world: int, tp: int, dp: int, backend: str, device: tor
     return result
 
 
-def _spawned_rank(rank: int, world: int, tp: int, dp: int, backend: str, device: torch.device,
+def _spawned_rank(rank: int, world: int, layout: Layout, backend: str, device: torch.device,
                   tmp: str, timeout_s: float) -> None:
     if device.type == "cpu":
         torch.set_num_threads(1)
     with open(os.path.join(tmp, _CALL), "rb") as f:
         fn, args = pickle.load(f)  # written by this run's parent
     store = dist.FileStore(os.path.join(tmp, "store"), world)
-    result = _run_rank(rank, world, tp, dp, backend, device, rank, store, timeout_s, fn, args)
+    result = _run_rank(rank, world, layout, backend, device, rank, store, timeout_s, fn, args)
     path = os.path.join(tmp, _RESULT.format(rank))
     with open(path + ".tmp", "wb") as f:
         pickle.dump(result, f)
     os.replace(path + ".tmp", path)
 
 
-def launch(fn: Callable, *args, tp: int = 1, dp: int = 1, device="cuda",
-           backend: Optional[str] = None, timeout_s: float = DEFAULT_TIMEOUT_S) -> List[Any]:
-    """Run ``fn(ctx, *args)`` on ``dp * tp`` ranks; return each rank's
-    result in rank order. Under ``torchrun`` this process is one rank: the
-    list then holds its own result at its rank and None elsewhere."""
-    world = tp * dp
+def launch(fn: Callable, *args, tp: int = 1, dp: int = 1, sp: int = 1, pp: int = 1,
+           device="cuda", backend: Optional[str] = None,
+           timeout_s: float = DEFAULT_TIMEOUT_S) -> List[Any]:
+    """Run ``fn(ctx, *args)`` on the ranks of the layout ``(tp, dp, sp,
+    pp)``; return each rank's result in rank order. Under ``torchrun`` this
+    process is one rank: the list then holds its own result at its rank and
+    None elsewhere."""
+    layout = Layout(tp=tp, dp=dp, sp=sp, pp=pp)
+    world = layout.world
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' asked for and no card is present; pass device='cpu'")
     if under_torchrun():
         rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         if size != world:
-            raise ValueError(f"torchrun started {size} ranks for dp * tp = {world}")
+            raise ValueError(f"torchrun started {size} ranks for a world of {world} ({layout})")
         backend = choose_backend(device, 1, backend)
         local = int(os.environ["LOCAL_RANK"])
         if device.type == "cuda" and local == 0:
@@ -147,7 +154,7 @@ def launch(fn: Callable, *args, tp: int = 1, dp: int = 1, device="cuda",
             _build.build_all()
         out: List[Any] = [None] * world
         # The other ranks wait in the process group's rendezvous meanwhile.
-        out[rank] = _run_rank(rank, world, tp, dp, backend, device, local, None, timeout_s,
+        out[rank] = _run_rank(rank, world, layout, backend, device, local, None, timeout_s,
                               fn, args)
         return out
     backend = choose_backend(device, world, backend)
@@ -165,7 +172,7 @@ def launch(fn: Callable, *args, tp: int = 1, dp: int = 1, device="cuda",
         with open(os.path.join(tmp, _CALL), "wb") as f:
             pickle.dump((fn, args), f)
         procs = mp.start_processes(
-            _spawned_rank, args=(world, tp, dp, backend, device, tmp, timeout_s),
+            _spawned_rank, args=(world, layout, backend, device, tmp, timeout_s),
             nprocs=world, join=False, start_method="spawn")
         paths = [os.path.join(tmp, _RESULT.format(rank)) for rank in range(world)]
         done_at = None
@@ -191,14 +198,14 @@ def launch(fn: Callable, *args, tp: int = 1, dp: int = 1, device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_jobs(ctx: TpContext, jobs) -> List[Any]:
-    """Run ``jobs``, each ``(tp, dp, fn, args)``, one after another in one
-    world of ranks (``launch(run_jobs, jobs, tp=world)``): each job calls
-    ``fn(job_ctx, *args)`` on the first ``dp * tp`` ranks with their context
-    of its own layout. Returns this rank's result of each job, None where it
+def run_jobs(ctx, jobs) -> List[Any]:
+    """Run ``jobs``, each ``(Layout, fn, args)``, one after another in one
+    world of ranks (``launch(run_jobs, jobs, dp=world)``): each job calls
+    ``fn(job_ctx, *args)`` on the first ranks of its layout with their
+    context of it. Returns this rank's result of each job, None where it
     sat out; starting the ranks once saves their start-up per job."""
     out = []
-    for tp, dp, fn, args in jobs:
-        job_ctx = make_tp_context(tp, dp, ctx.device)
+    for layout, fn, args in jobs:
+        job_ctx = make_context(layout, ctx.device)
         out.append(None if job_ctx is None else fn(job_ctx, *args))
     return out

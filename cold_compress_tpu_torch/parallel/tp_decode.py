@@ -146,6 +146,39 @@ def build_tp_model(cfg: ModelConfig, params: Dict[str, Any], ctx: TpContext,
     return model
 
 
+def _has_quantized_leaf(params: Dict[str, Any]) -> bool:
+    """Whether a storage-layout tree holds an int4 or int8 leaf (a dict)."""
+    leaves = [params["output"]] + [leaf for lp in params["layers"]
+                                   for group in ("attn", "ffn") for leaf in lp[group].values()]
+    return any(isinstance(leaf, dict) for leaf in leaves)
+
+
+def build_rank_model(cfg: ModelConfig, params: Dict[str, Any], ctx,
+                     max_positions: Optional[int] = None, **build_kw):
+    """The rank's model under any layout (``mesh.make_context``): its tp
+    shard for a ``TpContext``; under an ``SpContext`` the whole model (or,
+    at tp > 1, the shard of its replica's tp group: dense weights only, as
+    the JAX package's ``--sp`` with ``--tp``) holding it as ``model.sp``;
+    under a ``PpContext`` the whole model holding it as ``model.pp``."""
+    from ..runtime.engine import build_model
+    from .mesh import SpContext
+
+    if isinstance(ctx, TpContext):
+        return build_tp_model(cfg, params, ctx, max_positions, **build_kw)
+    if isinstance(ctx, SpContext) and ctx.tp > 1:
+        if _has_quantized_leaf(params):
+            raise ValueError("--sp with --tp requires dense (bf16) weights")
+        model = build_tp_model(cfg, params, ctx.tp_ctx, max_positions, **build_kw)
+    else:
+        model = build_model(cfg, tree_to(params, ctx.device), ctx.device,
+                            max_positions=max_positions, **build_kw)
+    if isinstance(ctx, SpContext):
+        model.sp = ctx
+    else:
+        model.pp = ctx
+    return model
+
+
 def tree_to(node, device):
     """A parameter tree with every tensor on ``device``."""
     if isinstance(node, torch.Tensor):
@@ -161,8 +194,9 @@ def rank_generate(ctx: TpContext, cfg: ModelConfig, params, cache_kw: Dict[str, 
                   prompts, max_new_tokens: int, *, max_seq_length: int,
                   dtype: torch.dtype = torch.bfloat16, batch: bool = False,
                   build_kw: Optional[Dict[str, Any]] = None, **generate_kw):
-    """One rank's ``generate`` (``batch``: ``generate_batch``) on its shard,
-    for ``parallel/launch.py``: ``params`` a parameter tree in the storage
+    """One rank's ``generate`` (``batch``: ``generate_batch``) on its
+    model under ``ctx``'s layout (``build_rank_model``), for
+    ``parallel/launch.py``: ``params`` a parameter tree in the storage
     layouts or a flat checkpoint dict (``runtime/engine.py::params_from_flat``),
     caches from ``cache_kw`` at ``max_seq_length`` for the rank's KV heads and
     lanes. Returns ``(sequence(s), info)``."""
@@ -172,10 +206,10 @@ def rank_generate(ctx: TpContext, cfg: ModelConfig, params, cache_kw: Dict[str, 
 
     if "layers" not in params:
         params = params_from_flat(params, ctx.device)
-    model = build_tp_model(cfg, params, ctx, **(build_kw or {}))
+    model = build_rank_model(cfg, params, ctx, **(build_kw or {}))
     del params
     specs = build_cache_specs(cfg, cache_kw, max_seq_length)
-    lanes = len(prompts) // ctx.dp if batch else 1
+    lanes = len(prompts) // getattr(ctx, "dp", 1) if batch else 1
     caches = init_caches(model.cfg, specs, lanes, dtype, device=ctx.device)
     run = generate_batch if batch else generate
     seq, info, _ = run(model, caches, prompts, max_new_tokens, **generate_kw)

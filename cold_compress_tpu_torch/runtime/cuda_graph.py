@@ -146,6 +146,11 @@ class DecodeGraph:
                 self.tp.warm()
             torch.cuda.synchronize(dev)
             mode = "thread_local"
+        elif torch.distributed.is_available() and torch.distributed.is_initialized():
+            # A rank whose step holds no collective (under sp or pp) still
+            # has its process group's watchdog thread querying events: only
+            # this thread's calls are held to the capture's rules.
+            mode = "thread_local"
         before = ops.kernel_launches()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()

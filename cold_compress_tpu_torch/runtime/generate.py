@@ -124,7 +124,13 @@ def generate(
     every rank of the tp group calls ``generate`` with the same arguments
     and gets the same tokens (each argmaxes the same gathered logits). One
     prompt takes dp = 1. Over gloo the graph cannot be captured: decode is
-    eager and ``cuda_graph=True`` raises.
+    eager and ``cuda_graph=True`` raises. A rank of a sequence-parallel
+    (``model.sp``, the JAX package's ``sp_mesh``) or pipeline-parallel
+    (``model.pp``, ``pp_mesh``) layout prefills through ``parallel/sp.py``
+    (the bucket rounded up to a multiple of sp) or ``parallel/pp.py``
+    (chunks of ``min(64, P)`` rows), every rank with the same arguments;
+    its caches then hold what the single card's hold, and decode runs on
+    each rank as on one card (over its tp group under sp x tp).
 
     ``info`` holds ``perf_stats`` (seconds and tokens per second, timed
     with the device synchronised; a call that captures the graph counts
@@ -170,6 +176,8 @@ def generate(
 
     # ---- prefill ---------------------------------------------------------
     P = _prefill_bucket(specs, prompt_length, prefill_bucket)
+    if model.sp is not None:  # the query blocks split the bucket evenly
+        P = -(-P // model.sp.sp) * model.sp.sp
     tokens = torch.tensor(
         [prompt + [pad_id] * (P - prompt_length)], dtype=torch.long, device=device
     )
@@ -177,7 +185,17 @@ def generate(
     _sync(device)
     t0 = time.perf_counter()
     with torch.inference_mode():
-        logits = prefill(model, caches, tokens, prompt_length)
+        if model.pp is not None:
+            from ..parallel.pp import pp_prefill
+
+            logits = pp_prefill(model, caches, tokens, prompt_length, chunk=min(64, P))
+        elif model.sp is not None:
+            from ..parallel.sp import sp_prefill, sp_tp_prefill
+
+            run = sp_prefill if model.tp is None else sp_tp_prefill
+            logits = run(model, caches, tokens, prompt_length)
+        else:
+            logits = prefill(model, caches, tokens, prompt_length)
         prefill_probs = torch.softmax(logits.float(), dim=-1)
         greedy_tok = logits.argmax(dim=-1)
     prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
@@ -280,6 +298,10 @@ def generate_batch(
     ``final_probs`` [B, vocab], ``prompt_lengths``, ``decode_steps`` (the
     steps run) and ``decode_graph``."""
     cuda_graph = _use_graph(model, cuda_graph)
+    if model.sp is not None or model.pp is not None:
+        from ..parallel.mesh import PP_ALONE, SP_LANES
+
+        raise ValueError(SP_LANES if model.sp is not None else PP_ALONE)
     prompts = [[int(t) for t in p] for p in prompts]
     kw = dict(terminator_ids=terminator_ids, attn_top_k=attn_top_k, pad_id=pad_id,
               cuda_graph=cuda_graph)

@@ -5,10 +5,10 @@ nothing of the JAX package): the same cache and generation flags, so that
 ``cache_configs/*.yaml`` and the JAX package's command lines work unchanged.
 The overlay reads YAML with PyYAML, as the JAX package does, imported
 where a file is read (a missing PyYAML raises there). ``--device`` defaults
-to the card. ``--tp``, ``--tp_kernels`` and ``--dp`` run ranks of the
-port's tensor and data parallelism (``parallel/``); ``--sp`` and ``--pp``
-are accepted for parity, and ``refuse_unported`` raises on either above 1:
-they are not ported yet.
+to the card. ``--tp``, ``--tp_kernels``, ``--dp``, ``--sp`` and ``--pp``
+run ranks of the port's tensor, data, sequence and pipeline parallelism
+(``parallel/``); ``validate_parallel`` raises the JAX package's refusals of
+the combinations it does not take.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ ALL_STRATEGIES = CACHE_STRATEGIES + [f"debug_{s}" for s in CACHE_STRATEGIES]
 
 #: The repository's cache configs (``--cache_config <name>``).
 CACHE_CONFIG_DIR = Path(__file__).resolve().parents[2] / "cache_configs"
-
-NOT_PORTED_PARALLEL = "is not ported yet (ROADMAP: Parallelism)"
 
 #: ``--attn_i8dot`` choices and the ``set_attn_i8dot`` mode each stands for.
 ATTN_I8DOT = {"auto": "auto", "on": True, "off": False}
@@ -131,28 +129,37 @@ def add_generation_arguments(parser: argparse.ArgumentParser):
                        help="Explicit tensor parallelism with per-device kernels; the port's "
                        "--tp always runs its kernels per rank, so this changes nothing.")
     group.add_argument("--pp", type=int, default=1,
-                       help=f"Pipeline-parallel prefill degree; only 1 (more {NOT_PORTED_PARALLEL}).")
+                       help="Pipeline-parallel prefill degree: ranks each running a stage of "
+                       "the layers over the prompt in 64-token chunks, then decoding on the "
+                       "whole model. Runs alone.")
     group.add_argument("--sp", type=int, default=1,
-                       help=f"Sequence-parallel prefill degree; only 1 (more {NOT_PORTED_PARALLEL}).")
+                       help="Sequence-parallel prefill degree: ranks each attending the "
+                       "prompt's query rows of one contiguous block; with --tp N (dense "
+                       "weights) a 2-D sp x tp layout.")
     group.add_argument("--dp", type=int, default=1,
                        help="Data-parallel degree: batch lanes split over dp replicas of the "
                        "(tensor-parallel) model.")
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise on a parallelism flag that is not ported (``--sp`` or ``--pp``
-    above 1), a degree below 1, or a ``--tp`` that does not divide the named
-    model's heads (``parallel/mesh.py::validate_tp``)."""
-    for flag in ("sp", "pp"):
-        if getattr(args, flag, 1) > 1:
-            raise ValueError(f"--{flag} {getattr(args, flag)} {NOT_PORTED_PARALLEL}")
-    for flag in ("tp", "dp", "sp", "pp"):
-        if getattr(args, flag, 1) < 1:
-            raise ValueError(f"--{flag} {getattr(args, flag)}: a degree is at least 1")
-    if getattr(args, "tp", 1) > 1:
-        from ..parallel.mesh import validate_tp
+def validate_parallel(args: argparse.Namespace) -> None:
+    """Raise the JAX package's refusals of a parallel layout, before
+    anything is loaded: a degree below 1; ``--pp`` with ``--tp``/``--sp``/
+    ``--dp``; ``--sp`` with ``--dp``; ``--sp`` with ``--tp_kernels`` (the
+    JAX package's sp x tp runs under GSPMD); a ``--pp`` that does not divide
+    the named model's layers; a ``--tp`` that does not divide its heads
+    (``parallel/mesh.py::validate_tp``). (``--sp`` with ``--tp`` over
+    quantized weights raises once they are loaded.)"""
+    from ..parallel.mesh import Layout, validate_tp
 
-        validate_tp(named_config(args), args.tp)
+    sp, tp, pp = args.sp, args.tp, args.pp
+    Layout(tp=tp, dp=args.dp, sp=sp, pp=pp)
+    if sp > 1 and tp > 1 and args.tp_kernels:
+        raise ValueError("--sp with --tp uses GSPMD; drop --tp_kernels")
+    cfg = named_config(args) if tp > 1 or pp > 1 else None
+    if pp > 1 and cfg.n_layer % pp:
+        raise ValueError(f"n_layer {cfg.n_layer} % pp {pp} != 0")
+    if tp > 1:
+        validate_tp(cfg, tp)
 
 
 def named_config(args: argparse.Namespace) -> ModelConfig:

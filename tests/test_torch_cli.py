@@ -193,14 +193,17 @@ def test_missing_cache_config_or_yaml_reader_raises(monkeypatch):
         port_cli.merge_cache_config(_parse(port_cli, ["--cache_config", "heavy_hitter"]))
 
 
-@pytest.mark.parametrize("argv", [["--tp", "2"], ["--sp", "4"], ["--pp", "2"], ["--dp", "2"],
-                                  ["--tp", "2", "--tp_kernels"]])
+@pytest.mark.parametrize("argv", [["--tp", "2"], ["--sp", "4", "--pp", "2"], ["--pp", "3"],
+                                  ["--dp", "2"], ["--tp", "2", "--tp_kernels"]])
 def test_parallel_flags_raise(argv):
-    """``--sp``/``--pp`` are not ported; ``--dp`` shards lanes, which one
-    prompt has not; a ``--tp`` that does not divide TestKernel's one KV head
-    raises ``validate_tp``'s message, with or without ``--tp_kernels``."""
-    match = {"--tp": "must divide n_kv_head=1", "--dp": "shards batch lanes"}.get(
-        argv[0], "not ported yet")
+    """The JAX package's refusals for TestKernel (two layers, one KV head):
+    ``--pp`` runs alone; ``--pp`` must divide the layers; ``--dp`` shards
+    lanes, which one prompt has not; a ``--tp`` that does not divide the
+    one KV head raises ``validate_tp``'s message, with or without
+    ``--tp_kernels``. (``--sp 4`` and ``--pp 2`` alone run:
+    ``tests/test_torch_pp.py``.)"""
+    match = {"--tp": "must divide n_kv_head=1", "--dp": "shards batch lanes",
+             "--sp": "--pp runs alone", "--pp": "n_layer 2 % pp 3 != 0"}[argv[0]]
     with pytest.raises(ValueError, match=match):
         cli.parse_args(["--device", "cpu", "--random_weights", "TestKernel", *argv])
 

@@ -1019,3 +1019,110 @@ def test_tp2_generate_matches_the_single_card(dev):
             gap, tol = np.abs(got - want).max(), 5e-2 * np.abs(want).max()
             print(f"tp=2 {key} against the single card: {gap:.3e} (bound {tol:.3e})")
             assert gap <= tol, key
+
+
+@pytest.mark.parametrize("Pq,q_offset,Pk,plen", [
+    (4096, 0, 8192, 7928), (4096, 4096, 8192, 7928), (2048, 6144, 8192, 7928),
+    (64, 8128, 8192, 7928), (64, 4096, 4160, 7928), (64, 0, 64, 500), (64, 448, 512, 500),
+    (64, 128, 256, 236), (128, 64, 512, 492)])
+def test_flash_prefill_partial_matches_plain(dev, Pq, q_offset, Pk, plen):
+    """K4 over a query block at an offset (the sequence-parallel shards and
+    the pipeline chunks of ``chip_smoke.py`` phase 2, pipeline chunks whose
+    keys end before the prompt does, and blocks short of the keys' end)
+    against its plain version; zeros past the block's last row; K/V given
+    as a row slice of a longer buffer read in place."""
+    g = _gen(dev, Pq + q_offset)
+    q = torch.randn((1, 32, Pq, 128), device=dev, generator=g).to(torch.bfloat16)
+    kbuf = torch.randn((1, 8, Pk + 128, 128), device=dev, generator=g).to(torch.bfloat16)
+    vbuf = torch.randn((1, 8, Pk + 128, 128), device=dev, generator=g).to(torch.bfloat16)
+    k, v = kbuf[:, :, :Pk], vbuf[:, :, :Pk]
+    y, cum, obs = prefill_attn.flash_prefill_partial(q, k, v, plen, q_offset=q_offset)
+    ry, rcum, robs = prefill_attn.chunked_prefill_partial(q, k, v, plen, q_offset=q_offset,
+                                                          need_summary=True)
+    _assert_bf16_out_close(y, ry, 2**-7)
+    for got, ref in ((cum, rcum), (obs, robs)):
+        tol = 1e-4 * float(ref.abs().max()) + 1e-7
+        torch.testing.assert_close(got, ref, rtol=0, atol=tol)
+    assert not bool(cum[..., q_offset + Pq:].any())
+    y2, _, _ = prefill_attn.flash_prefill_partial(q, k.contiguous(), v.contiguous(), plen,
+                                                  q_offset=q_offset)
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("windows", [(2457,), (819, 2457)])
+def test_flash_profile_partial_matches_plain(dev, windows):
+    """K6 over sp = 2's second query block of the 8B hybrid run."""
+    g = _gen(dev, len(windows))
+    q = torch.randn((1, 32, 4096, 128), device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn((1, 8, 8192, 128), device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn((1, 8, 8192, 128), device=dev, generator=g).to(torch.bfloat16)
+    y, cum, wcols = prefill_attn.flash_profile_partial(q, k, v, 7928, windows, q_offset=4096)
+    ry, _, _ = prefill_attn.chunked_prefill_partial(q, k, v, 7928, q_offset=4096)
+    rcum, rw = prefill_attn.profile_partial(q, k, 7928, windows, q_offset=4096)
+    _assert_bf16_out_close(y, ry, 2**-7)
+    for got, ref in ((cum, rcum), (wcols, rw)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_partial_at_offset_zero_is_bit_equal_to_k4_and_k6(dev):
+    """At ``q_offset = 0`` with as many rows as keys the query-block forms
+    return exactly K4's y and the raw sums behind its summary, and K6's y,
+    cum and window sums."""
+    from cold_compress_tpu_torch.ops.attention import finalize_summary
+
+    g = _gen(dev, 17)
+    q = torch.randn((1, 32, 2048, 128), device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn((1, 8, 2048, 128), device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn((1, 8, 2048, 128), device=dev, generator=g).to(torch.bfloat16)
+    y, cum, obs = prefill_attn.flash_prefill_partial(q, k, v, 2000)
+    y0, s0 = prefill_attn.flash_prefill(q, k, v, 2000)
+    s = finalize_summary(cum, obs, torch.full((1,), 2000, dtype=torch.int32, device=dev), 2048,
+                         16)
+    assert torch.equal(y, y0) and all(torch.equal(s[key], s0[key]) for key in s0)
+    got = prefill_attn.flash_profile_partial(q, k, v, 2000, (100, 600))
+    want = prefill_attn.flash_profile(q, k, v, 2000, (100, 600))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("layout", [{"sp": 2}, {"pp": 2}])
+def test_sp2_and_pp2_generate_match_the_single_card(dev, layout):
+    """``generate`` at sp = 2 and pp = 2 on TestKernel widened, int4
+    layers and head, a kv8 heavy-hitter cache over a 500-token prompt
+    (bucket 512: shards of 256 rows, chunks of 64), teacher-forced: every
+    rank's probabilities within 2e-2 of the single card's largest (the
+    chunks' and shards' bf16 matmuls round apart from the whole prompt's,
+    and a random TestKernel's greedy tokens part at near-ties). NCCL with
+    one card per rank where two are visible, else two gloo ranks sharing
+    the card."""
+    from cold_compress_tpu_torch.models.config import ModelConfig
+    from cold_compress_tpu_torch.models.transformer import init_caches, init_params
+    from cold_compress_tpu_torch.parallel.launch import launch
+    from cold_compress_tpu_torch.parallel.tp_decode import rank_generate
+    from cold_compress_tpu_torch.quantization.weight_quant import quantize_params
+    from cold_compress_tpu_torch.runtime.engine import (
+        build_cache_specs, build_model, flatten_params, params_from_flat,
+    )
+    from cold_compress_tpu_torch.runtime.generate import generate
+
+    cfg = ModelConfig.from_name("TestKernel").replace(dim=512, n_head=4, n_kv_head=2)
+    flat = flatten_params(quantize_params(init_params(cfg, device="cpu"), "int4", 128,
+                                          output_mode="int4"))
+    kw = {"cache_strategy": ["heavy_hitter"], "max_cache_length": [0.25], "cache_bits": 8,
+          "prompt_compression_strategy": ["heavy_hitter"], "global_tokens": 4,
+          "recent_window": 10}
+    prompt = np.random.RandomState(4).randint(2, 500, size=500).tolist()
+    forced = np.random.RandomState(5).randint(2, 500, size=8).tolist()
+    model = build_model(cfg, params_from_flat(flat, dev), dev, max_positions=512)
+    caches = init_caches(cfg, build_cache_specs(cfg, kw, 512), 1, torch.bfloat16, device=dev)
+    _, ref, _ = generate(model, caches, prompt, 8, next_tokens=forced)
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    run = functools.partial(rank_generate, max_seq_length=512, build_kw={"max_positions": 512},
+                            next_tokens=forced)
+    for seq, info in launch(run, cfg, flat, kw, prompt, 8, device="cuda", backend=backend,
+                            **layout):
+        assert seq == prompt + forced
+        for key in ("emitted_probs", "final_probs"):
+            got, want = np.asarray(info[key]), np.asarray(ref[key])
+            gap, tol = np.abs(got - want).max(), 2e-2 * np.abs(want).max()
+            print(f"{layout} {key} against the single card: {gap:.3e} (bound {tol:.3e})")
+            assert gap <= tol, key

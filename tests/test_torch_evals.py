@@ -306,9 +306,13 @@ def test_eval_teacher_forced_localtext_equals_jax(both_evals):
 def test_eval_refuses_parallelism_and_skips_finished_tasks(tmp_path, capsys):
     argv = _eval_argv(["rulervt"], tmp_path, ["--num_samples", "1",
                                               "--ruler_context_sentences", "4"])
-    for flag in ("--sp", "--pp"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            port_eval.cli([*argv, flag, "2"])
+    # The JAX package's refusals: --sp and --pp take single-lane runs only
+    # (rulervt is a generation task, so --batch_size 2 batches it).
+    for extra, match in ((["--sp", "2", "--dp", "2"], "single-lane runs"),
+                         (["--sp", "2", "--batch_size", "2"], "single-lane runs"),
+                         (["--pp", "2", "--batch_size", "2"], "--pp runs alone")):
+        with pytest.raises(ValueError, match=match):
+            port_eval.cli([*argv, *extra])
     # TinyByteLM128 has one KV head; dp shards the lanes of a batch.
     with pytest.raises(ValueError, match="must divide n_kv_head=1"):
         port_eval.cli([*argv, "--tp", "2"])

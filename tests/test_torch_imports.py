@@ -32,7 +32,8 @@ def test_importing_every_module_loads_no_jax():
     ``jax`` and ``cold_compress_tpu`` out of ``sys.modules``."""
     mods = _port_modules()
     assert len(mods) >= 15, mods
-    parallel = {f"cold_compress_tpu_torch.parallel.{m}" for m in ("launch", "mesh", "tp_decode")}
+    parallel = {f"cold_compress_tpu_torch.parallel.{m}"
+                for m in ("launch", "mesh", "tp_decode", "sp", "pp")}
     assert parallel <= set(mods), sorted(parallel - set(mods))
     code = (
         "import importlib, sys\n"

@@ -40,6 +40,7 @@ from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.ops.qmm import dequantize_gemv, rowpack_to_gemv
 from cold_compress_tpu_torch.parallel import tp_decode as ptp
 from cold_compress_tpu_torch.parallel.launch import launch, run_jobs
+from cold_compress_tpu_torch.parallel.mesh import Layout
 from cold_compress_tpu_torch.runtime.engine import build_cache_specs, build_model, params_from_flat
 from cold_compress_tpu_torch.runtime.generate import generate
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -100,7 +101,7 @@ def _job(tp, dp, case, prompts, new_tokens, kw, max_seq, dtype, **gen_kw):
     _, cfg, _, flat = _weights(case)
     fn = functools.partial(ptp.rank_generate, max_seq_length=max_seq, dtype=dtype,
                            build_kw={"max_positions": max_seq}, **gen_kw)
-    return (tp, dp, fn, (cfg, flat, kw, prompts, new_tokens))
+    return (Layout(tp=tp, dp=dp), fn, (cfg, flat, kw, prompts, new_tokens))
 
 
 JOBS = {  # name: (tp, dp, case, prompts, new tokens, cache options, max seq, dtype, options)
