@@ -1,0 +1,5 @@
+"""The benchmark of ``cold_compress_tpu_torch``, the PyTorch and CUDA port.
+
+``python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace
+<0|1>`` runs one cell of ``BENCHMARK.json`` once (see ``README.md``).
+"""
