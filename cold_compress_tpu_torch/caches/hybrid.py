@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF, _plen
+from ..runtime import trace
 from .base import (
     CacheSpec,
     CacheState,
@@ -170,13 +171,15 @@ class HybridCache(HeavyHitterCache):
         from ..ops.prefill_attn import flash_prefill_supported, flash_profile
 
         _, uniq_w = _profile_windows(spec, k.shape[2])
-        if flash_prefill_supported(q.shape):
-            y, cum, wcols = flash_profile(q, k, v, prompt_len, window_lens=uniq_w)
-        else:
-            y, _ = prefill_attention(q, k, v, valid, prompt_len)
-            cum, wcols = _profile_partial(spec, q, k, prompt_len)
-        cls.fill_after_profile(spec, state, cum, wcols, k, v, tokens, input_pos, valid,
-                               prompt_len)
+        with trace.span("prefill.attn", device=True):
+            if flash_prefill_supported(q.shape):
+                y, cum, wcols = flash_profile(q, k, v, prompt_len, window_lens=uniq_w)
+            else:
+                y, _ = prefill_attention(q, k, v, valid, prompt_len)
+                cum, wcols = _profile_partial(spec, q, k, prompt_len)
+        with trace.span("prefill.cache", device=True):
+            cls.fill_after_profile(spec, state, cum, wcols, k, v, tokens, input_pos, valid,
+                                   prompt_len)
         return y
 
     @classmethod

@@ -16,7 +16,8 @@ padded with its last prompt); perplexity tasks and ``--feed_long_prompts``
 teacher-forced for perplexity. It runs on the card unless ``--device cpu``
 is given; decode replays a captured CUDA graph of one step there, and a
 task's batches replay one graph. ``--profile DIR`` writes a
-``torch.profiler`` trace per task. ``--tp N`` (with or without
+``torch.profiler`` trace per task, the program's spans
+(``runtime/trace.py``) among its ranges. ``--tp N`` (with or without
 ``--tp_kernels``) and ``--dp M`` run N * M ranks (``parallel/``): each
 holds its shard of the weights and KV heads, a dp replica runs
 ``--batch_size / M`` lanes of each batch (the batch size must divide), and
@@ -38,7 +39,6 @@ import re
 import shutil
 import sys
 from collections import Counter, defaultdict
-from contextlib import nullcontext
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -58,6 +58,7 @@ from .runtime.engine import (
     min_cache_length,
     params_from_flat,
 )
+from .runtime import trace
 from .runtime.generate import bucket_length, generate, generate_batch, reset_caches
 from .runtime.stats import get_cache_stats
 from .tokenizer import encode, get_tokenizer
@@ -209,17 +210,8 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
     if inputs and not args.per_prompt_buckets:
         task_bucket = bucket_length(max(len(i) for i in inputs))
 
-    profiler = nullcontext()
     trace_dir = args.profile if tp_ctx is None or tp_ctx.rank == 0 else None  # rank 0 writes
-    if trace_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-
-    with profiler as prof:
+    with trace.profiled(bool(trace_dir), device.type == "cuda") as prof:
         if use_batch:
             for start in range(0, len(inputs), bs):
                 group = list(range(start, min(start + bs, len(inputs))))
@@ -317,10 +309,10 @@ def run_task(args, task, cfg: ModelConfig, model, tokenizer, is_chat: bool,
                       f"decode tok/s={np.mean(aggregate['decode_toks_per_sec']):.1f}")
 
     if trace_dir:
-        trace = Path(trace_dir) / f"{task_name}.trace.json"
-        trace.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(trace))
-        print(f"Profile written to {trace}")
+        out = Path(trace_dir) / f"{task_name}.trace.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out))
+        print(f"Profile written to {out}")
 
     print(f"Average tokens/sec: {np.mean(aggregate['total_toks_per_sec']):.2f}")
     task_metrics["max_memory_gb"] = float(np.max(aggregate["memory_used_gb"]))

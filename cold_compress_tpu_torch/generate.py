@@ -21,7 +21,8 @@ tokenizer, which needs no tokenizer file. ``--random_weights <model>`` runs
 On the card, decode replays a captured CUDA graph of one step.
 ``--attn_i8dot {auto,on,off}`` picks decode attention's branch over a
 quantized cache (auto: the JAX program's default on a TPU).
-``--profile PATH`` writes a ``torch.profiler`` trace of the run;
+``--profile PATH`` writes a ``torch.profiler`` trace of the run, the
+program's spans (``runtime/trace.py``) among its ranges;
 ``--compile`` is accepted and does nothing. ``run(args)`` returns
 ``(sequence, info, caches)`` for programs that drive the CLI.
 
@@ -40,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import time
-from contextlib import nullcontext
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -56,6 +56,7 @@ from .runtime.engine import (
     compute_max_seq_length,
     load_model,
 )
+from .runtime import trace
 from .runtime.generate import bucket_length, generate
 from .runtime.stats import get_cache_stats, print_stats
 from .tokenizer import encode, get_tokenizer
@@ -167,25 +168,17 @@ def run(args: argparse.Namespace, next_tokens: Optional[List[int]] = None, ctx=N
     del params
     caches = init_caches(model.cfg, specs, 1, torch.bfloat16, device=device)
 
-    profiler = nullcontext()
-    trace = args.profile if ctx is None or ctx.rank == 0 else None  # rank 0 writes files
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-    with profiler as prof:
+    out = args.profile if ctx is None or ctx.rank == 0 else None  # rank 0 writes files
+    with trace.profiled(bool(out), device.type == "cuda") as prof:
         seq, info, caches = generate(
             model, caches, prompt_ids, max_new_tokens, next_tokens=next_tokens,
             terminator_ids=terminator_ids, attn_top_k=args.attn_top_k,
             feed_long_prompts=args.feed_long_prompts,
         )
-    if trace:
-        Path(trace).parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(trace))
-        print(f"Profile written to {trace}")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out))
+        print(f"Profile written to {out}")
 
     info["generation"] = tokenizer.decode(seq[info["prompt_length"]:])
     info["model_size_bytes"] = model_size

@@ -32,6 +32,7 @@ from ..device import resolve_device
 from ..ops.attention import gqa_attention, prefill_attention
 from ..ops.decode_attn import I8DOT_MODES, decode_attention, decode_attn_supported, i8dot_route
 from ..ops.linear import DenseLinear, Int8Linear, QuantizedLinear
+from ..runtime import trace
 from .config import ModelConfig
 from .rope import apply_rotary_emb, precompute_freqs_cis
 
@@ -162,19 +163,29 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return normed.to(x.dtype) * weight
 
 
-def feed_forward(ffn: FeedForward, x: torch.Tensor) -> torch.Tensor:
+def _linear(prefill: bool, fn, *args) -> torch.Tensor:
+    """``fn(*args)``, a projection; a prefill's under a ``prefill.linear``
+    span."""
+    if not prefill:
+        return fn(*args)
+    with trace.span("prefill.linear", device=True):
+        return fn(*args)
+
+
+def feed_forward(ffn: FeedForward, x: torch.Tensor, prefill: bool = False) -> torch.Tensor:
     """SwiGLU MLP over the fused gate|up projection."""
-    y = ffn.w13(x)
+    y = _linear(prefill, ffn.w13, x)
     F = y.shape[-1] // 2
-    return ffn.w2(nn.functional.silu(y[..., :F]) * y[..., F:])
+    return _linear(prefill, ffn.w2, nn.functional.silu(y[..., :F]) * y[..., F:])
 
 
-def _qkv(cfg: ModelConfig, attn: Attention, x: torch.Tensor, freqs: torch.Tensor):
+def _qkv(cfg: ModelConfig, attn: Attention, x: torch.Tensor, freqs: torch.Tensor,
+         prefill: bool = False):
     """Project + rotate. x [B, L, D] -> q [B,H,L,hd], k/v [B,KVH,L,hd]."""
     B, L, _ = x.shape
     Dq = cfg.n_head * cfg.head_dim
     Dkv = cfg.n_kv_head * cfg.head_dim
-    y = attn.wqkv(x)
+    y = _linear(prefill, attn.wqkv, x)
     q = y[..., :Dq].reshape(B, L, cfg.n_head, cfg.head_dim)
     k = y[..., Dq : Dq + Dkv].reshape(B, L, cfg.n_kv_head, cfg.head_dim)
     v = y[..., Dq + Dkv :].reshape(B, L, cfg.n_kv_head, cfg.head_dim)
@@ -200,7 +211,7 @@ def attention_prefill(cfg, attn: Attention, x, cache: CacheState, input_pos, val
     compressor = get_prompt_compressor(spec.prompt_compression_strategy)
     B, P, _ = x.shape
     compress = spec.max_cache_length < P
-    q, k, v = _qkv(cfg, attn, x, freqs)
+    q, k, v = _qkv(cfg, attn, x, freqs, prefill=True)
     if hasattr(strategy, "profile_prefill_with_attn"):
         y = strategy.profile_prefill_with_attn(spec, cache, q, k, v, tokens, input_pos, valid,
                                                prompt_len)
@@ -208,38 +219,40 @@ def attention_prefill(cfg, attn: Attention, x, cache: CacheState, input_pos, val
         need_summary = strategy_needs_attn(strategy, spec) or (
             compress and compressor.needs_attn
         )
-        y, summary = prefill_attention(q, k, v, valid, prompt_len, need_summary=need_summary)
+        with trace.span("prefill.attn", device=True):
+            y, summary = prefill_attention(q, k, v, valid, prompt_len, need_summary=need_summary)
         fill_from_kv(strategy, compressor, cache, k, v, summary, input_pos, valid, prompt_len)
     y = y.transpose(1, 2).reshape(B, P, cfg.n_head * cfg.head_dim)
-    return attn.wo(y)
+    return _linear(True, attn.wo, y)
 
 
 def fill_from_kv(strategy, compressor, cache: CacheState, k, v, summary, input_pos,
                  valid, prompt_len) -> CacheState:
     """Prompt compression + cache fill from full-sequence K/V and the
     attention summaries, in place; then an analysis (``debug_*``) cache
-    fills its shadow."""
-    spec = cache.spec
-    compress = spec.max_cache_length < k.shape[2]
-    if compress and compressor.name != "full":
-        keep_pos, k_c, v_c, keep_valid, kept_attn = compress_prompt(
-            compressor, spec, input_pos, k, v, valid, prompt_len, summary=summary
-        )
-        prefill_update(strategy, cache, keep_pos, k_c, v_c, keep_valid)
-        if kept_attn is None and strategy_needs_attn(strategy, spec):
-            kept_attn = summary["cum_mean"].gather(-1, keep_pos.long())
-    else:
-        if compress:
-            raise ValueError(
-                "Prompt exceeds the cache budget but the prompt compressor is "
-                "'full' (pass-through); choose a real compression strategy."
+    fills its shadow. One ``prefill.cache`` span."""
+    with trace.span("prefill.cache", device=True):
+        spec = cache.spec
+        compress = spec.max_cache_length < k.shape[2]
+        if compress and compressor.name != "full":
+            keep_pos, k_c, v_c, keep_valid, kept_attn = compress_prompt(
+                compressor, spec, input_pos, k, v, valid, prompt_len, summary=summary
             )
-        prefill_update(strategy, cache, input_pos[None, None, :], k, v, valid[:, None, :])
-        kept_attn = summary["cum_mean"] if strategy_needs_attn(strategy, spec) else None
-    strategy.update_state(spec, cache, input_pos, kept_attn, is_prefill=True,
-                          prompt_len=prompt_len)
-    if hasattr(strategy, "post_prefill"):
-        strategy.post_prefill(spec, cache, k, v, summary, input_pos, valid, prompt_len)
+            prefill_update(strategy, cache, keep_pos, k_c, v_c, keep_valid)
+            if kept_attn is None and strategy_needs_attn(strategy, spec):
+                kept_attn = summary["cum_mean"].gather(-1, keep_pos.long())
+        else:
+            if compress:
+                raise ValueError(
+                    "Prompt exceeds the cache budget but the prompt compressor is "
+                    "'full' (pass-through); choose a real compression strategy."
+                )
+            prefill_update(strategy, cache, input_pos[None, None, :], k, v, valid[:, None, :])
+            kept_attn = summary["cum_mean"] if strategy_needs_attn(strategy, spec) else None
+        strategy.update_state(spec, cache, input_pos, kept_attn, is_prefill=True,
+                              prompt_len=prompt_len)
+        if hasattr(strategy, "post_prefill"):
+            strategy.post_prefill(spec, cache, k, v, summary, input_pos, valid, prompt_len)
     return cache
 
 
@@ -286,28 +299,35 @@ def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freq
 # --------------------------------------------------------------------------
 
 
-def _block(cfg, layer: Block, x, attn_out, tp=None):
+def _block(cfg, layer: Block, x, attn_out, tp=None, prefill: bool = False):
     """The two residual adds of a block. A tensor-parallel shard's attention
     and FFN outputs are partial sums over its heads and columns: each is
     summed over the tp group first (the JAX package's two ``psum``s)."""
     total = (lambda y: y) if tp is None else tp.all_reduce
     h = x + total(attn_out)
-    return h + total(feed_forward(layer.feed_forward, rms_norm(h, layer.ffn_norm, cfg.norm_eps)))
+    return h + total(feed_forward(layer.feed_forward, rms_norm(h, layer.ffn_norm, cfg.norm_eps),
+                                  prefill))
 
 
-def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+def _logits(model: Transformer, x: torch.Tensor, prefill: bool = False) -> torch.Tensor:
     """f32 logits of the final hidden states. A tensor-parallel shard's head
     holds a block of the vocabulary: the blocks are gathered in shard order
     (tied embeddings stay whole on every rank, with no gather)."""
     cfg = model.cfg
     x = rms_norm(x, model.norm, cfg.norm_eps)
-    if model.output is None:  # tied embeddings
+    logits = _linear(prefill, _head, model, x)
+    if model.output is None or model.tp is None:  # tied embeddings: whole on every rank
+        return logits
+    return model.tp.gather_last(logits)
+
+
+def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """The vocab head's f32 logits (tied embeddings: the embedding table's)."""
+    if model.output is None:
         return torch.matmul(x.float(), model.tok_embeddings.float().t())
     if isinstance(model.output, (QuantizedLinear, Int8Linear)):
-        logits = model.output(x).float()
-    else:
-        logits = torch.matmul(x.float(), model.output.weight.float())
-    return logits if model.tp is None else model.tp.gather_last(logits)
+        return model.output(x).float()
+    return torch.matmul(x.float(), model.output.weight.float())
 
 
 def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -332,9 +352,9 @@ def prefill(model: Transformer, caches: Sequence[CacheState], tokens: torch.Tens
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
             cache, input_pos, valid, prompt_len, freqs, tokens=tokens,
         )
-        x = _block(cfg, layer, x, attn_out, model.tp)
+        x = _block(cfg, layer, x, attn_out, model.tp, prefill=True)
     last = x[torch.arange(B, device=dev), plen.expand(B).long() - 1]
-    return _logits(model, last[:, None])[:, 0]
+    return _logits(model, last[:, None], prefill=True)[:, 0]
 
 
 def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.Tensor,

@@ -37,10 +37,11 @@ from types import SimpleNamespace
 import torch
 
 from ..caches import get_cache_strategy, get_prompt_compressor, strategy_needs_attn
-from ..models.transformer import _block, _embed, _logits, _qkv, fill_from_kv, rms_norm
+from ..models.transformer import _block, _embed, _linear, _logits, _qkv, fill_from_kv, rms_norm
 from ..ops.attention import _plen, finalize_summary
 from ..ops.linear import KERNEL_MAX_ROWS, DenseLinear, Int8Linear, QuantizedLinear
 from ..ops.prefill_attn import flash_prefill_partial
+from ..runtime import trace
 
 
 def _stage_layer(layer, dtype, dequantize: bool):
@@ -107,17 +108,18 @@ def pp_prefill(model, caches, tokens: torch.Tensor, prompt_len, chunk: int = 64,
         freqs = model.rope[off:end]
         for li, layer in enumerate(layers):
             q, k, v = _qkv(cfg, layer.attention,
-                           rms_norm(x, layer.attention_norm, cfg.norm_eps), freqs)
+                           rms_norm(x, layer.attention_norm, cfg.norm_eps), freqs, prefill=True)
             kbuf[li, :, :, off:end] = k
             vbuf[li, :, :, off:end] = v
-            y, cum_p, obs_p = flash_prefill_partial(
-                q, kbuf[li, :, :, :end], vbuf[li, :, :, :end], plen, q_offset=off,
-                need_summary=need_summary, obs_len=obs_len)
+            with trace.span("prefill.attn", device=True):
+                y, cum_p, obs_p = flash_prefill_partial(
+                    q, kbuf[li, :, :, :end], vbuf[li, :, :, :end], plen, q_offset=off,
+                    need_summary=need_summary, obs_len=obs_len)
             if need_summary:
                 cum[li, :, :, :end] += cum_p
                 obs[li, :, :, :end] += obs_p
             y = y.transpose(1, 2).reshape(B, chunk, cfg.n_head * hd)
-            x = _block(cfg, layer, x, layer.attention.wo(y))
+            x = _block(cfg, layer, x, _linear(True, layer.attention.wo, y), prefill=True)
         if ctx.rank < S - 1:
             ctx.send_next(x)
             continue
@@ -138,4 +140,4 @@ def pp_prefill(model, caches, tokens: torch.Tensor, prompt_len, chunk: int = 64,
         for t in cache.tensors():
             ctx.broadcast(t, layer // Lloc)
     ctx.broadcast(x_last, S - 1)
-    return _logits(model, x_last.to(dtype)[:, None])[:, 0]
+    return _logits(model, x_last.to(dtype)[:, None], prefill=True)[:, 0]

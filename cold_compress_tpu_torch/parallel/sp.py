@@ -41,10 +41,11 @@ import torch
 
 from ..caches import get_cache_strategy, get_prompt_compressor, strategy_needs_attn
 from ..caches.hybrid import _profile_windows
-from ..models.transformer import _block, _embed, _logits, _qkv, fill_from_kv, rms_norm
+from ..models.transformer import _block, _embed, _linear, _logits, _qkv, fill_from_kv, rms_norm
 from ..ops.attention import _plen, finalize_summary
 from ..ops.linear import Int8Linear, QuantizedLinear
 from ..ops.prefill_attn import flash_prefill_partial, flash_profile_partial
+from ..runtime import trace
 
 
 def sp_prefill(model, caches, tokens: torch.Tensor, prompt_len, obs_len: int = 16):
@@ -70,21 +71,25 @@ def sp_prefill(model, caches, tokens: torch.Tensor, prompt_len, obs_len: int = 1
         spec = cache.spec
         strategy = get_cache_strategy(spec.cache_strategy)
         q, k, v = _qkv(cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
-                       freqs)
+                       freqs, prefill=True)
         k_all, v_all = ctx.gather_seq(k), ctx.gather_seq(v)
         if hasattr(strategy, "profile_prefill_with_attn"):
             _, windows = _profile_windows(spec, P)
-            y, cum_p, wcols_p = flash_profile_partial(q, k_all, v_all, plen, windows,
-                                                      q_offset=offset)
+            with trace.span("prefill.attn", device=True):
+                y, cum_p, wcols_p = flash_profile_partial(q, k_all, v_all, plen, windows,
+                                                          q_offset=offset)
             sums = ctx.all_reduce(torch.cat([cum_p[None], wcols_p]))
-            strategy.fill_after_profile(spec, cache, sums[0], sums[1:], k_all, v_all, tokens,
-                                        input_pos, valid, prompt_len)
+            with trace.span("prefill.cache", device=True):
+                strategy.fill_after_profile(spec, cache, sums[0], sums[1:], k_all, v_all,
+                                            tokens, input_pos, valid, prompt_len)
         else:
             compressor = get_prompt_compressor(spec.prompt_compression_strategy)
             need_summary = strategy_needs_attn(strategy, spec) or (
                 spec.max_cache_length < P and compressor.needs_attn)
-            y, cum_p, obs_p = flash_prefill_partial(q, k_all, v_all, plen, q_offset=offset,
-                                                    need_summary=need_summary, obs_len=obs_len)
+            with trace.span("prefill.attn", device=True):
+                y, cum_p, obs_p = flash_prefill_partial(q, k_all, v_all, plen, q_offset=offset,
+                                                        need_summary=need_summary,
+                                                        obs_len=obs_len)
             summary = None
             if need_summary:
                 sums = ctx.all_reduce(torch.stack([cum_p, obs_p]))
@@ -92,7 +97,7 @@ def sp_prefill(model, caches, tokens: torch.Tensor, prompt_len, obs_len: int = 1
             fill_from_kv(strategy, compressor, cache, k_all, v_all, summary, input_pos, valid,
                          prompt_len)
         y = y.transpose(1, 2).reshape(B, Ploc, cfg.n_head * cfg.head_dim)
-        x = _block(cfg, layer, x, layer.attention.wo(y), model.tp)
+        x = _block(cfg, layer, x, _linear(True, layer.attention.wo, y), model.tp, prefill=True)
     # The last valid row: its owner contributes it, the sum over sp carries
     # it to every rank (one nonzero term per element, exact in f32).
     row = (plen - 1 - offset).long()
@@ -100,7 +105,7 @@ def sp_prefill(model, caches, tokens: torch.Tensor, prompt_len, obs_len: int = 1
     x_last = torch.where(own[:, None], x[torch.arange(B, device=dev), row.clamp(0, Ploc - 1)],
                          0).float()
     x_last = ctx.all_reduce(x_last).to(x.dtype)
-    return _logits(model, x_last[:, None])[:, 0]
+    return _logits(model, x_last[:, None], prefill=True)[:, 0]
 
 
 def sp_tp_prefill(model, caches, tokens: torch.Tensor, prompt_len, obs_len: int = 16):

@@ -41,6 +41,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from .. import ops
+from . import trace
 
 
 @dataclass
@@ -154,11 +155,13 @@ class DecodeGraph:
         before = ops.kernel_launches()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=mode):
-            self.body(self.buffers)
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
+        with trace.span("decode.capture") as sp:
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=mode):
+                self.body(self.buffers)
+            torch.cuda.synchronize(dev)
+            self.capture_seconds = time.perf_counter() - t0
+            sp.set(seconds=self.capture_seconds)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         after = ops.kernel_launches()
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -170,7 +173,8 @@ class DecodeGraph:
         current stream and count the step's kernel launches."""
         if self.graph is None:
             self.capture()
-        self.graph.replay()
+        with trace.span("decode.launch"):
+            self.graph.replay()
         ops.add_kernel_launches(self.launches)
 
     @contextlib.contextmanager

@@ -29,7 +29,7 @@ import torch
 
 from ..caches import reset_state
 from ..models.transformer import Transformer, decode_step, prefill
-from . import engine
+from . import engine, trace
 from .cuda_graph import LoopBuffers, decode_graph
 
 
@@ -62,6 +62,33 @@ def _prefill_bucket(specs, n: int, prefill_bucket: Optional[int]) -> int:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _perf_stats(counts: Dict[str, int], t0: float, t1: float, t2: float,
+                device: torch.device) -> Dict[str, Any]:
+    """A call's ``perf_stats``: ``counts`` (its lanes and tokens, the dict's
+    first keys; ``prefill_tokens`` and ``decode_tokens`` among them), then
+    rates and seconds from the host's clock where the ``generate.prefill``
+    span opens (``t0``, after the synchronise) and closes (``t1``, after the
+    host's read of the first token's probabilities) and where the
+    ``generate.decode`` span closes (``t2``, after the read of the tokens;
+    ``t1`` where nothing is decoded)."""
+    prefill_seconds = t1 - t0
+    decode_seconds = max(t2 - t1, 1e-9)
+    total_seconds = t2 - t0
+    return {
+        **counts,
+        "prefill_toks_per_sec": counts["prefill_tokens"] / max(prefill_seconds, 1e-9),
+        "decode_toks_per_sec": counts["decode_tokens"] / decode_seconds,
+        "total_toks_per_sec": counts["decode_tokens"] / max(total_seconds, 1e-9),
+        "total_seconds": total_seconds,
+        "prefill_seconds": prefill_seconds,
+        "decode_seconds": decode_seconds,
+        "decode_seconds_frac_of_total": decode_seconds / max(total_seconds, 1e-9),
+        "memory_used_gb": (
+            torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
+        ),
+    }
 
 
 def _use_graph(model: Transformer, cuda_graph: Optional[bool]) -> bool:
@@ -182,75 +209,62 @@ def generate(
         [prompt + [pad_id] * (P - prompt_length)], dtype=torch.long, device=device
     )
 
-    _sync(device)
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        if model.pp is not None:
-            from ..parallel.pp import pp_prefill
-
-            logits = pp_prefill(model, caches, tokens, prompt_length, chunk=min(64, P))
-        elif model.sp is not None:
-            from ..parallel.sp import sp_prefill, sp_tp_prefill
-
-            run = sp_prefill if model.tp is None else sp_tp_prefill
-            logits = run(model, caches, tokens, prompt_length)
-        else:
-            logits = prefill(model, caches, tokens, prompt_length)
-        prefill_probs = torch.softmax(logits.float(), dim=-1)
-        greedy_tok = logits.argmax(dim=-1)
-    prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
-    t1 = time.perf_counter()
-
-    if forced_first is not None:
-        first_token = torch.tensor([forced_first], dtype=torch.long, device=device)
-        first_id = forced_first
-    else:
-        first_token = greedy_tok
-        first_id = int(greedy_tok[0])
-    first_prob = float(prefill_probs_np[0, first_id])
-
-    # ---- decode loop -----------------------------------------------------
     max_steps = max(max_new_tokens - 1, 0)
-    graph_info = None
-    if max_steps > 0:
-        tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
-            model, caches, first_token, prompt_length, prefix, terminator_ids,
-            max_steps, attn_top_k, cuda_graph,
-        )
-        tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
-        t2 = time.perf_counter()
-        gen = [int(t) for t in tokens_np[:, 0] if int(t) != -1]
-        emitted_probs = [first_prob] + [
-            float(p) for p in probs_buf[:steps, 0].cpu().numpy()
-        ]
-        final_probs = last_probs[0].cpu().numpy()
-    else:
-        t2 = t1
-        gen = [first_id]
-        steps = 0
-        emitted_probs = [first_prob]
-        final_probs = prefill_probs_np[0]
+    with trace.span("generate.call", lanes=1, prompt_lengths=[prompt_length], bucket=P) as call:
+        _sync(device)
+        t0 = time.perf_counter()
+        with trace.span("generate.prefill", device=True):
+            with torch.inference_mode():
+                if model.pp is not None:
+                    from ..parallel.pp import pp_prefill
+
+                    logits = pp_prefill(model, caches, tokens, prompt_length, chunk=min(64, P))
+                elif model.sp is not None:
+                    from ..parallel.sp import sp_prefill, sp_tp_prefill
+
+                    run = sp_prefill if model.tp is None else sp_tp_prefill
+                    logits = run(model, caches, tokens, prompt_length)
+                else:
+                    logits = prefill(model, caches, tokens, prompt_length)
+                prefill_probs = torch.softmax(logits.float(), dim=-1)
+                greedy_tok = logits.argmax(dim=-1)
+            prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
+        t1 = time.perf_counter()
+
+        if forced_first is not None:
+            first_token = torch.tensor([forced_first], dtype=torch.long, device=device)
+            first_id = forced_first
+        else:
+            first_token = greedy_tok
+            first_id = int(greedy_tok[0])
+        first_prob = float(prefill_probs_np[0, first_id])
+
+        # ---- decode loop -------------------------------------------------
+        graph_info = None
+        if max_steps > 0:
+            with trace.span("generate.decode", device=True):
+                tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
+                    model, caches, first_token, prompt_length, prefix, terminator_ids,
+                    max_steps, attn_top_k, cuda_graph,
+                )
+                tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
+            t2 = time.perf_counter()
+            gen = [int(t) for t in tokens_np[:, 0] if int(t) != -1]
+            emitted_probs = [first_prob] + [
+                float(p) for p in probs_buf[:steps, 0].cpu().numpy()
+            ]
+            final_probs = last_probs[0].cpu().numpy()
+        else:
+            t2 = t1
+            gen = [first_id]
+            steps = 0
+            emitted_probs = [first_prob]
+            final_probs = prefill_probs_np[0]
+        call.set(steps=steps)
 
     seq = prompt + gen
-    prefill_seconds = t1 - t0
-    decode_seconds = max(t2 - t1, 1e-9)
-    decode_tokens = steps + 1
-    total_seconds = t2 - t0
-    perf_stats = {
-        "prefill_tokens": prompt_length,
-        "decode_tokens": decode_tokens,
-        "decode_steps": steps,
-        "prefill_toks_per_sec": prompt_length / max(prefill_seconds, 1e-9),
-        "decode_toks_per_sec": decode_tokens / decode_seconds,
-        "total_toks_per_sec": decode_tokens / max(total_seconds, 1e-9),
-        "total_seconds": total_seconds,
-        "prefill_seconds": prefill_seconds,
-        "decode_seconds": decode_seconds,
-        "decode_seconds_frac_of_total": decode_seconds / max(total_seconds, 1e-9),
-        "memory_used_gb": (
-            torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
-        ),
-    }
+    perf_stats = _perf_stats({"prefill_tokens": prompt_length, "decode_tokens": steps + 1,
+                              "decode_steps": steps}, t0, t1, t2, device)
     info = {
         "perf_stats": perf_stats,
         "emitted_probs": emitted_probs,
@@ -380,61 +394,48 @@ def _batch_lanes(model: Transformer, caches, prompts: List[List[int]], max_new_t
     )
     plen = torch.tensor(lens, dtype=torch.int32, device=device)
 
-    _sync(device)
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        logits = prefill(model, caches, tokens, plen)
-        prefill_probs = torch.softmax(logits.float(), dim=-1)
-        forced = torch.tensor(forced_first, dtype=torch.long, device=device)
-        first_token = torch.where(forced >= 0, forced, logits.argmax(dim=-1))
-    prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
-    t1 = time.perf_counter()
-    first_np = first_token.cpu().numpy()
-    first_probs = [float(prefill_probs_np[b, int(first_np[b])]) for b in range(B)]
-
     max_steps = max(max_new_tokens - 1, 0)
-    graph_info = None
-    if max_steps > 0:
-        tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
-            model, caches, first_token, lens, [], terminator_ids, max_steps, attn_top_k,
-            cuda_graph, all_done,
-        )
-        tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
-        t2 = time.perf_counter()
-        gens = [[int(t) for t in tokens_np[:, b] if int(t) != -1] for b in range(B)]
-        probs_np = probs_buf.cpu().numpy()
-        emitted_probs = [
-            [first_probs[b]] + [float(p) for p in probs_np[: len(gens[b]) - 1, b]]
-            for b in range(B)
-        ]
-        final_probs = last_probs.cpu().numpy()
-    else:
-        t2 = t1
-        steps = 0
-        gens = [[int(first_np[b])] for b in range(B)]
-        emitted_probs = [[first_probs[b]] for b in range(B)]
-        final_probs = prefill_probs_np
+    with trace.span("generate.call", lanes=B, prompt_lengths=lens, bucket=P) as call:
+        _sync(device)
+        t0 = time.perf_counter()
+        with trace.span("generate.prefill", device=True):
+            with torch.inference_mode():
+                logits = prefill(model, caches, tokens, plen)
+                prefill_probs = torch.softmax(logits.float(), dim=-1)
+                forced = torch.tensor(forced_first, dtype=torch.long, device=device)
+                first_token = torch.where(forced >= 0, forced, logits.argmax(dim=-1))
+            prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
+        t1 = time.perf_counter()
+        first_np = first_token.cpu().numpy()
+        first_probs = [float(prefill_probs_np[b, int(first_np[b])]) for b in range(B)]
+
+        graph_info = None
+        if max_steps > 0:
+            with trace.span("generate.decode", device=True):
+                tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
+                    model, caches, first_token, lens, [], terminator_ids, max_steps, attn_top_k,
+                    cuda_graph, all_done,
+                )
+                tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
+            t2 = time.perf_counter()
+            gens = [[int(t) for t in tokens_np[:, b] if int(t) != -1] for b in range(B)]
+            probs_np = probs_buf.cpu().numpy()
+            emitted_probs = [
+                [first_probs[b]] + [float(p) for p in probs_np[: len(gens[b]) - 1, b]]
+                for b in range(B)
+            ]
+            final_probs = last_probs.cpu().numpy()
+        else:
+            t2 = t1
+            steps = 0
+            gens = [[int(first_np[b])] for b in range(B)]
+            emitted_probs = [[first_probs[b]] for b in range(B)]
+            final_probs = prefill_probs_np
+        call.set(steps=steps)
 
     seqs = [prompts[b][: lens[b]] + gens[b] for b in range(B)]
-    prefill_seconds = t1 - t0
-    decode_seconds = max(t2 - t1, 1e-9)
-    decode_tokens = sum(len(g) for g in gens)
-    total_seconds = t2 - t0
-    perf_stats = {
-        "batch_size": B,
-        "prefill_tokens": int(sum(lens)),
-        "decode_tokens": decode_tokens,
-        "prefill_toks_per_sec": sum(lens) / max(prefill_seconds, 1e-9),
-        "decode_toks_per_sec": decode_tokens / decode_seconds,
-        "total_toks_per_sec": decode_tokens / max(total_seconds, 1e-9),
-        "total_seconds": total_seconds,
-        "prefill_seconds": prefill_seconds,
-        "decode_seconds": decode_seconds,
-        "decode_seconds_frac_of_total": decode_seconds / max(total_seconds, 1e-9),
-        "memory_used_gb": (
-            torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
-        ),
-    }
+    perf_stats = _perf_stats({"batch_size": B, "prefill_tokens": int(sum(lens)),
+                              "decode_tokens": sum(len(g) for g in gens)}, t0, t1, t2, device)
     info = {
         "perf_stats": perf_stats,
         "emitted_probs": emitted_probs,
@@ -515,14 +516,17 @@ def decode_loop_core(model: Transformer, caches, first_token: torch.Tensor,
     with stream, torch.inference_mode():
         buf.load(first_token, start_pos, forced, terminators)
         for i in range(max_steps):
-            if graph is None or (i == 0 and eager_first):
-                _decode_body(model, caches, buf, attn_top_k)
-            else:
-                graph.replay()
+            with trace.span("decode.step", device=True):
+                if graph is None or (i == 0 and eager_first):
+                    _decode_body(model, caches, buf, attn_top_k)
+                else:
+                    graph.replay()
             steps = i + 1
-            if terminators and forced[i] < 0 and (
-                    bool(buf.done.all()) if all_done is None else all_done(buf.done)):
-                break
+            if terminators and forced[i] < 0:
+                with trace.span("decode.stop_read"):
+                    stop = bool(buf.done.all()) if all_done is None else all_done(buf.done)
+                if stop:
+                    break
     info = None if graph is None else {
         "captured": eager_first and graph.captured, "capture_seconds": graph.capture_seconds,
         "pool_bytes": graph.pool_bytes, "launches_per_replay": dict(graph.launches)}

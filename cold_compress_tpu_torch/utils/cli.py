@@ -107,7 +107,8 @@ def add_generation_arguments(parser: argparse.ArgumentParser):
         help="Override architecture name (default: checkpoint parent dir).",
     )
     group.add_argument("--profile", type=Path, default=None,
-                       help="Write a torch.profiler trace (Chrome format) of the run to this path.")
+                       help="Write a torch.profiler trace (Chrome format) of the run to this path, "
+                       "with the program's spans (runtime/trace.py) as ranges.")
     group.add_argument(
         "--compile", action="store_true",
         help="Accepted for parity with the JAX package's CLI; does nothing here "
