@@ -27,19 +27,21 @@ Phases; any failure raises and the script exits non-zero:
    attention one device operation per call and K4/K6 their pass kernels
    and PyTorch's own ops only (the nodes of a CUDA graph of one captured
    call), K4 and K6 with each pass timed alone, K7 also at rows off a
-   16-byte boundary,
+   16-byte boundary, the fused insert at the main path's shape,
    each K1 shape's column tile, and the launch floor (one
    one-element ``add_``) beside K1/K2/K10 and K7; and the batched run's
    shapes (``bench --batch 4``): K1/K2 at L = 4 rows (K1 also timed at
    L = 8, two row blocks), decode attention kv8 pooled at B = 4 in its
    i8dot branch (the cluster size printed), K4 at B = 4 with prompt lengths
-   7928/7920/7912/7904 (each lane's summaries checked) and K7 at B = 4;
+   7928/7920/7912/7904 (each lane's summaries checked) and K7's fused
+   rotate-and-insert (``hh_evict_insert``) at B = 4, and at B = 4 over
+   Qwen2-7B's 4 KV heads of 7 queries;
    K4 also at GPTQ's calibration shape (10 sequences of 512, no
    summaries), beside SDPA; and one tensor-parallel rank's shapes at
    tp = 2 and 4 (phase 5 launches them): K1 at the four projections' shards
    (wqkv and w13 a tp-th of the columns, wo and w2 of the inputs), K2 at a
    tp-th of the vocabulary, decode attention kv8 pooled in its i8dot branch
-   over 8/tp KV heads, K7 over 8/tp rows; and the query-block forms of K4
+   over 8/tp KV heads, the fused insert over 8/tp KV heads; and the query-block forms of K4
    and K6 that phase 6 launches (``flash_prefill_partial``,
    ``flash_profile_partial``): K4 over sp = 2's two shards (4096 rows at
    offsets 0 and 4096 against 8192 keys), sp = 4's last (2048 at 6144) and
@@ -102,7 +104,7 @@ Phases; any failure raises and the script exits non-zero:
      call, kv8 heavy_hitter at 25% of the median sequence, its launch
      witness summed over its calls; then decode attention (the
      dequantizing kv8 pooled variant: its cache length is off the i8dot
-     gate) and K7 at that run's B = 4 and cache length, against their
+     gate) and the fused insert at that run's B = 4 and cache length, against their
      plain versions;
    with ``--profile``, after each run, the wall and device time and the
    device operations of a few more decode steps, eager and replayed, and
@@ -121,7 +123,7 @@ Phases; any failure raises and the script exits non-zero:
    4's run) up to the first that parts, which must part at a near-tie of
    that run (``check_greedy``); those tokens teacher-forced, every step's
    probability within TP_PROB_REL of the largest of the single-card run's; an exact launch
-   witness on every rank (K1 4 x 32, K2 1, K3 32, K7 32 per token, K4 32
+   witness on every rank (K1 4 x 32, K2 1, K3 32, the fused insert 32 per token, K4 32
    per prefill); per rank the prefill seconds, decode tok/s and peak
    memory, and over NCCL the all-reduce and all-gather device time per
    replayed step. The dp run: each lane's greedy tokens equal to phase 4's
@@ -570,14 +572,15 @@ def check_decode(dev, records, bits: int, need_attn: bool, C: int, i8dot: bool =
            **extra)
 
 
-def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None, tp: int = 1):
-    """K7 over B lanes of 8 heads' C histories (a tp-th of the heads with
-    ``tp``: one rank's), each lane at its own position; at B = 1 and tp = 1
-    also rows off a 16-byte boundary."""
+def check_hh_evict(dev, records, B: int = 1, C: int = 2048):
+    """K7 alone (the runs that evict without the fused insert: kv4, kv2 and
+    bf16 heavy-hitter caches, an analysis cache's shadow) over B lanes of 8
+    heads' C histories, each lane at its own position; at B = 1 also rows
+    off a 16-byte boundary."""
     from cold_compress_tpu_torch.ops import evict
 
-    H, g_tok, recent = 8 // tp, 4, 10
-    gen = torch.Generator(device=dev).manual_seed(4 + B + C + tp)
+    H, g_tok, recent = 8, 4, 10
+    gen = torch.Generator(device=dev).manual_seed(5 + B + C)
     nbytes = 3 * 4 * B * H * C + 4 * B + 4 * B * H + 2 * 4 * B * H
     n = copies_for(nbytes)
     rows = []
@@ -615,7 +618,7 @@ def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None, tp: i
 
     # Rows off a 16-byte boundary (C % 4 != 0, B = 2): the scalar head and
     # tail inside the kernel.
-    for Cm in ((2047, 301) if B == 1 and tp == 1 else ()):
+    for Cm in ((2047, 301) if B == 1 else ()):
         num = torch.randint(1, 64, (2, H, Cm), device=dev, generator=gen).float() / 4
         denom = torch.randint(0, 9, (2, H, Cm), device=dev, generator=gen, dtype=torch.int32)
         pos = torch.stack([torch.randperm(Cm, device=dev, generator=gen) for _ in range(2 * H)])
@@ -633,14 +636,97 @@ def check_hh_evict(dev, records, B: int = 1, C: int = 2048, from_run=None, tp: i
     ms = time_ms(run, 200)
     plain_ms = time_ms(lambda i: evict.hh_evict_plain(*rows[i % n], ipos, g_tok, recent), 20)
     b_ms, b_by = bound(nbytes, 4 * B * H * C, "bf16")
-    shape = ("" if C == 2048 else f"C{C}") + ("" if B == 1 else f"B{B}") + (
-        "" if tp == 1 else f"tp{tp}")
+    shape = ("" if C == 2048 else f"C{C}") + ("" if B == 1 else f"B{B}")
     name = "hh_evict" + (f"@{shape}" if shape else "")
     log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
         f"{plain_ms:.4f} ms, library: none; launch floor {launch_floor_ms():.4f} ms")
-    extra = {"from_run": from_run} if from_run else {}
     record(records, name, "hh_evict", "hh_evict.cu", "ops/pallas_evict.py:57", 0.0,
            "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, B=B, C=C, H=H,
+           launch_floor_ms=launch_floor_ms())
+
+
+def check_hh_evict_insert(dev, records, B: int = 1, KVH: int = 8, G: int = 4, C: int = 2048,
+                          from_run=None, tp: int = 1):
+    """K7's fused rotate-and-insert (``hh_evict_insert``) over B lanes of a
+    kv8 heavy-hitter cache of KVH heads of C slots, G queries a KV head,
+    each lane at its own position, against its plain version on the same
+    tensors (three steps, bit for bit in q, idx and every cache tensor),
+    timed beside its bound and the plain version. The caches' even lanes
+    have five empty slots, their positions are shuffled (global and recent
+    slots anywhere). ``tp`` names a tensor-parallel rank's shape (KVH a
+    tp-th of 8)."""
+    from cold_compress_tpu_torch.caches import get_cache_strategy
+    from cold_compress_tpu_torch.caches.base import CacheSpec, prefill_update
+    from cold_compress_tpu_torch.models.rope import precompute_freqs_cis
+    from cold_compress_tpu_torch.ops import evict
+
+    H, D = KVH * G, 128
+    gen = torch.Generator(device=dev).manual_seed(40 + B + C + KVH + G)
+    spec = CacheSpec(cache_strategy="heavy_hitter", max_cache_length=C, max_seq_length=2 * C + 64,
+                     global_tokens=4, recent_window=10, cache_bits=8)
+    strat = get_cache_strategy("heavy_hitter")
+
+    def new_state():
+        s = strat.init(spec, B, KVH, D, device=dev)
+        k, v = (torch.randn((B, KVH, C, D), device=dev, generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        perm = torch.stack([torch.randperm(C, device=dev, generator=gen) for _ in range(B * KVH)])
+        fill = torch.tensor([C - 5 if b % 2 == 0 else C for b in range(B)], device=dev)
+        valid = torch.arange(C, device=dev)[None, None, :] < fill[:, None, None]
+        prefill_update(strat, s, perm.reshape(B, KVH, C).to(torch.int32), k, v,
+                       valid.expand(B, KVH, C))
+        s.extra["attn_num"].copy_(torch.randint(1, 40, (B, KVH, C), device=dev, generator=gen) / 4)
+        s.extra["attn_denom"].copy_(torch.randint(0, 6, (B, KVH, C), device=dev, generator=gen))
+        return s
+
+    def copy_of(s):
+        t = strat.init(spec, B, KVH, D, device=dev)
+        for a, b in zip(t.tensors(), s.tensors()):
+            a.copy_(b)
+        return t
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else (
+            t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+
+    rope = precompute_freqs_cis(2 * C + 64, D, 1e6, device=dev)
+    ipos = C + 5 * torch.arange(B, dtype=torch.int32, device=dev)
+    freqs = rope[ipos.long()][:, None]
+    y = (3 * torch.randn((B, 1, (H + 2 * KVH) * D), device=dev, generator=gen)).to(torch.bfloat16)
+    card = new_state()
+    plain = copy_of(card)
+    same = True
+    for step in range(3):
+        q, idx = evict.hh_evict_insert(y, freqs, card, ipos + step, n_head=H, n_kv_head=KVH)
+        q_ref, idx_ref = evict.hh_evict_insert_plain(y, freqs, plain, ipos + step, H, KVH)
+        torch.cuda.synchronize()
+        same = same and torch.equal(bits(q), bits(q_ref.contiguous())) and torch.equal(
+            idx, idx_ref) and all(torch.equal(bits(a), bits(b))
+                                  for a, b in zip(card.tensors(), plain.tensors()))
+    log(f"[check] hh_evict_insert B={B} KVH={KVH} G={G} C={C}: q, idx and every cache "
+        f"tensor bit-equal over 3 steps: {same}")
+    assert same, "hh_evict_insert disagrees with its plain version"
+
+    # Reads: num, denom and pos, the projection's row, the rope row, the
+    # position; writes: q, two 128-byte rows, four side scalars, pos, mask,
+    # num, denom, the count and idx.
+    nbytes = (12 * B * KVH * C + 2 * D * B * (H + 2 * KVH) + 4 * D * B + 4 * B
+              + 2 * D * B * H + B * KVH * (2 * D + 16 + 4 + 1 + 8 + 4 + 4))
+    n = copies_for(12 * B * KVH * C)
+    states = [card] + [copy_of(card) for _ in range(n - 1)]
+    ms = time_ms(lambda i: evict.hh_evict_insert(y, freqs, states[i % n], ipos,
+                                                 n_head=H, n_kv_head=KVH), 200)
+    plain_ms = time_ms(lambda i: evict.hh_evict_insert_plain(y, freqs, states[i % n], ipos, H,
+                                                             KVH), 20)
+    b_ms, b_by = bound(nbytes, 4 * B * KVH * C, "bf16")
+    shape = ("" if C == 2048 else f"C{C}") + ("" if B == 1 else f"B{B}") + (
+        f"tp{tp}" if tp > 1 else "" if (KVH, G) == (8, 4) else f"KVH{KVH}G{G}")
+    name = "hh_evict_insert" + (f"@{shape}" if shape else "")
+    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
+        f"{plain_ms:.4f} ms, library: none; launch floor {launch_floor_ms():.4f} ms")
+    extra = {"from_run": from_run} if from_run else {}
+    record(records, name, "hh_evict_insert", "hh_evict.cu", "ops/pallas_evict.py:57", 0.0,
+           "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, B=B, C=C, H=KVH, G=G,
            launch_floor_ms=launch_floor_ms(), **extra)
 
 
@@ -1273,12 +1359,14 @@ def expected_launches(cfg, kw: dict, steps: int, lengths, head: str = "w4a8_gemv
     row), decode attention per layer per step at the cache's precision, one
     flash prefill per layer (the profiling one, K6, for hybrid), and the
     fused eviction per layer per step for a one-slot heavy-hitter history (a
-    debug_heavy_hitter shadow's too). A debug_* cache attends over its full
+    debug_heavy_hitter shadow's too): the fused rotate-and-insert
+    (``hh_evict_insert``) for a kv8 heavy-hitter cache itself, K7 alone
+    otherwise. A debug_* cache attends over its full
     bf16 outer cache with pooled probabilities. Each layer's decode attention
     takes the branch that ``i8dot`` (a ``set_attn_i8dot`` mode) routes its
     cache length (``lengths``, per layer) to. With ``prefill_w4a8`` each
     layer projection also runs K8 once, at prefill."""
-    from cold_compress_tpu_torch.caches import get_cache_strategy
+    from cold_compress_tpu_torch.caches import CacheSpec, get_cache_strategy
     from cold_compress_tpu_torch.ops import decode_attn
 
     n = cfg.n_layer
@@ -1301,8 +1389,12 @@ def expected_launches(cfg, kw: dict, steps: int, lengths, head: str = "w4a8_gemv
         key = decode_attn.variant(bits, needs_attn, i8)
         want[key] = want.get(key, 0) + steps
     want["flash_profile" if strategy == "hybrid" else "flash_prefill_summary"] = n
-    if evicting == "heavy_hitter" and kw.get("history_window_size", 1) == 1:
-        want["hh_evict"] = n * steps
+    window = kw.get("history_window_size", 1)
+    if evicting == "heavy_hitter" and window == 1:
+        spec = CacheSpec(cache_strategy=strategy, cache_bits=kw["cache_bits"],
+                         history_window_size=window)
+        fused = get_cache_strategy(strategy).fuses_rotate_insert(spec, cfg.head_dim)
+        want["hh_evict_insert" if fused else "hh_evict"] = n * steps
     return want
 
 
@@ -2478,7 +2570,8 @@ def stepwise_batch(model, model_c, specs, prompts, gens, bucket, dev):
     prefill logits' largest gap and its bound, the share of prompt
     positions both prefills keep and ``snapkv_ties`` of the prefills;
     asserts that every step evicts the same slots on both sides (from the
-    same state, K7 and its plain version agree bit for bit)."""
+    same state, the card's eviction and its plain version agree bit for
+    bit)."""
     from cold_compress_tpu_torch.models.transformer import decode_step, init_caches, prefill
 
     B, n = len(prompts), len(gens[0])
@@ -3336,7 +3429,7 @@ def main() -> int:
     for tp in (2, 4):
         check_w4a8(dev, records, tp=tp, from_run=tp_run_name(tp))
         check_decode(dev, records, 8, True, 2048, i8dot=True, tp=tp, from_run=tp_run_name(tp))
-        check_hh_evict(dev, records, tp=tp, from_run=tp_run_name(tp))
+        check_hh_evict_insert(dev, records, KVH=8 // tp, tp=tp, from_run=tp_run_name(tp))
     runs = []  # (run name, its cache length, its launches), phase 4 first
     check_w4a8(dev, records)
     check_w4a8(dev, records, L=BATCH, also_L=(8,), from_run=BATCH_RUN)
@@ -3355,7 +3448,12 @@ def main() -> int:
     # eval's dequantizing one follows that run, at its cache length).
     check_decode(dev, records, 8, True, 2048, i8dot=True, B=BATCH, from_run=BATCH_RUN)
     check_hh_evict(dev, records)
-    check_hh_evict(dev, records, B=BATCH, from_run=BATCH_RUN)
+    # The fused insert at both benchmark cells' shapes (the main path's and
+    # Qwen2-7B's 4 KV heads of 7 queries at B = 4, whose launches the batch
+    # run reports), and at the batch run's.
+    check_hh_evict_insert(dev, records)
+    check_hh_evict_insert(dev, records, B=BATCH, from_run=BATCH_RUN)
+    check_hh_evict_insert(dev, records, B=BATCH, KVH=4, G=7, from_run=BATCH_RUN)
     for name, IN, OUT in W8A8_SHAPES:
         check_w8a8(dev, records, name, IN, OUT)
     check_flash_prefill(dev, records)
@@ -3396,11 +3494,11 @@ def main() -> int:
     log(f"[phase4] eval run done at {time.perf_counter() - t_start:.1f} s")
     # The eval's cache length is off the i8dot gate (C % 128 != 0): its
     # decode attention is the dequantizing kv8 pooled variant, held here at
-    # that run's shape, with K7 beside it.
+    # that run's shape, with the fused insert beside it.
     gc.collect()
     torch.cuda.empty_cache()
     check_decode(dev, records, 8, True, C_eval, B=BATCH, from_run=EVAL_RUN)
-    check_hh_evict(dev, records, B=BATCH, C=C_eval, from_run=EVAL_RUN)
+    check_hh_evict_insert(dev, records, B=BATCH, C=C_eval, from_run=EVAL_RUN)
     gc.collect()
     torch.cuda.empty_cache()
     refs.update(bf16_reference(dev, card))

@@ -272,6 +272,21 @@ def store_kv_rows(state: CacheState, idx: torch.Tensor, k_row: torch.Tensor,
     return state
 
 
+def insert_rows(state: CacheState, idx: torch.Tensor, ipos: torch.Tensor,
+                k_row: torch.Tensor, v_row: torch.Tensor) -> CacheState:
+    """Write one token at slot ``idx`` [B, H], in place: its K/V rows
+    [B, H, D] (quantized where the cache is), its position ``ipos``
+    [B, 1, 1] and mask bit, and one more filled slot where the slot was
+    empty."""
+    B, H = idx.shape
+    inserted = (gather_scalar(state.pos, idx) == -1).to(torch.int32)
+    store_kv_rows(state, idx, k_row, v_row)
+    scatter_scalar(state.pos, idx, ipos[:, :, 0].expand(B, H))
+    scatter_scalar(state.mask, idx, True)
+    state.cache_ct += inserted
+    return state
+
+
 def store_kv_prefix(state: CacheState, k: torch.Tensor, v: torch.Tensor) -> CacheState:
     """Write K/V [B,KVH,P,D] into slots [0, P) (prefill fill)."""
     spec = state.spec
@@ -368,6 +383,22 @@ class CacheStrategy:
         return state
 
     @classmethod
+    def fuses_rotate_insert(cls, spec: CacheSpec, head_dim: int) -> bool:
+        """Whether ``rotate_insert`` rotates q and k, evicts and inserts in
+        one kernel for caches of ``spec`` and heads of ``head_dim``."""
+        return False
+
+    @classmethod
+    def rotate_insert(cls, state: CacheState, input_pos, qkv, token=None) -> CacheState:
+        """Decode's rotate-and-insert: ``qkv`` is the step's projection
+        before rope (``models/rope.py::QKVRows``); its K row is rotated and
+        inserted with its V row (``decode_update``), and q is left to the
+        caller. A strategy that ``fuses_rotate_insert`` overrides this with
+        one kernel, which leaves the rotated q in ``qkv.q_rotated``."""
+        k, v = qkv.kv()
+        return cls.decode_update(state, input_pos, k, v, token=token)
+
+    @classmethod
     def decode_update(cls, state: CacheState, input_pos, k, v, token=None) -> CacheState:
         """Insert one token (pre-attention), evicting if needed, in place.
         ``token`` [B] (the current ids) is read only by strategies whose
@@ -377,15 +408,10 @@ class CacheStrategy:
         callers that need dense K/V call ``materialize_kv`` themselves, and
         the kernel path never does (eager PyTorch would pay for it)."""
         spec = state.spec
-        B, H = state.cache_ct.shape
-        ipos = input_pos_b11(input_pos, B, state.pos.device)
+        ipos = input_pos_b11(input_pos, state.cache_ct.shape[0], state.pos.device)
         idx = cls.eviction_idx(spec, state, ipos)
-        inserted = (gather_scalar(state.pos, idx) == -1).to(torch.int32)
         k_row, v_row = k[:, :, 0], v[:, :, 0]
-        store_kv_rows(state, idx, k_row, v_row)
-        scatter_scalar(state.pos, idx, ipos[:, :, 0].expand(B, H))
-        scatter_scalar(state.mask, idx, True)
-        state.cache_ct += inserted
+        insert_rows(state, idx, ipos, k_row, v_row)
         return cls.on_decode_fill(spec, state, idx, input_pos, k_row, v_row)
 
 
@@ -396,7 +422,12 @@ class CacheStrategy:
 
 def decode_update(strategy, state: CacheState, input_pos, k, v, token=None) -> CacheState:
     """Insert one token (pre-attention), evicting if needed, in place.
+    ``k``, ``v``: its rows [B, KVH, 1, hd]; or ``k`` the decode step's
+    projection before rope (``models/rope.py::QKVRows``) and ``v`` None,
+    which the strategy rotates and inserts (``CacheStrategy.rotate_insert``).
     ``token`` [B]: the current token ids (hybrid's punctuation tracking)."""
+    if v is None:
+        return strategy.rotate_insert(state, input_pos, k, token=token)
     return strategy.decode_update(state, input_pos, k, v, token=token)
 
 

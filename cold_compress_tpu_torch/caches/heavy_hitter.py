@@ -3,8 +3,10 @@
 Port of ``cold_compress_tpu/caches/heavy_hitter.py``. Evicts the slot with
 the lowest windowed average attention. With a one-slot history the eviction
 is the fused step of ``ops/evict.py`` (kernel K7 on the card, opt-in in the
-JAX package only for want of validation on the TPU); thresholding changes
-only the observations, not the eviction. A ring of W > 1 observations takes
+JAX package only for want of validation on the TPU), and over a kv8 cache
+at heads of 128 a decode step's rope and insert go into the same kernel
+(``rotate_insert``); thresholding changes only the observations, not the
+eviction. A ring of W > 1 observations takes
 the eager code below. The history lives in
 ``extra``: a numerator of attention mass per slot and a count of
 observations, both updated in place after every attention call and zeroed
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.evict import hh_evict
+from ..ops.evict import hh_evict, hh_evict_insert
 from .base import CacheStrategy
 
 
@@ -56,6 +58,24 @@ class HeavyHitterCache(CacheStrategy):
         num_buf.scatter_(2, idx[..., None, None].expand(idx.shape + (1, W)), 0.0)
         denom_buf.scatter_(2, idx[..., None], 0)
         return idx.to(torch.int32)
+
+    @classmethod
+    def fuses_rotate_insert(cls, spec, head_dim: int) -> bool:
+        """Exactly this strategy (not hybrid, which overrides the insert), a
+        one-slot history, an 8-bit cache and heads of 128."""
+        return (cls is HeavyHitterCache and spec.history_window_size == 1
+                and spec.cache_bits == 8 and head_dim == 128)
+
+    @classmethod
+    def rotate_insert(cls, state, input_pos, qkv, token=None):
+        """Where ``fuses_rotate_insert``: rope on q and k, K7's eviction and
+        the kv8 insert in one call (``ops/evict.py::hh_evict_insert``, one
+        launch on the card), the rotated q left in ``qkv.q_rotated``."""
+        if not cls.fuses_rotate_insert(state.spec, qkv.head_dim):
+            return super().rotate_insert(state, input_pos, qkv, token=token)
+        qkv.q_rotated, _ = hh_evict_insert(qkv.y, qkv.freqs, state, input_pos,
+                                           n_head=qkv.n_head, n_kv_head=qkv.n_kv_head)
+        return state
 
     @classmethod
     def update_state(cls, spec, state, input_pos, attn, is_prefill, prompt_len=None):

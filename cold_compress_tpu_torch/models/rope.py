@@ -70,3 +70,41 @@ def apply_rotary_emb(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     x1 = xf[..., 1]
     out = torch.stack([x0 * cos - x1 * sin, x1 * cos + x0 * sin], dim=-1)
     return out.reshape(B, L, H, D).to(x.dtype)
+
+
+class QKVRows:
+    """A fused q|k|v projection ``y`` [B, L, (H + 2 KVH) hd] and its rope
+    rows ``freqs``, rotated where read. ``kv()``: k rotated and v
+    [B, KVH, L, hd]. ``q()``: q rotated [B, H, L, hd], or what a decode
+    insert that rotates q in its own kernel left in ``q_rotated``
+    (``caches/base.py::CacheStrategy.rotate_insert``)."""
+
+    def __init__(self, y: torch.Tensor, freqs: torch.Tensor, n_head: int, n_kv_head: int,
+                 head_dim: int):
+        self.y, self.freqs = y, freqs
+        self.n_head, self.n_kv_head, self.head_dim = n_head, n_kv_head, head_dim
+        self.q_rotated = None
+
+    def _heads(self, first: int, n: int) -> torch.Tensor:
+        B, L, _ = self.y.shape
+        hd = self.head_dim
+        return self.y[..., first * hd : (first + n) * hd].reshape(B, L, n, hd)
+
+    def q(self) -> torch.Tensor:
+        if self.q_rotated is not None:
+            return self.q_rotated
+        return apply_rotary_emb(self._heads(0, self.n_head), self.freqs).transpose(1, 2)
+
+    def kv(self):
+        H, KVH = self.n_head, self.n_kv_head
+        k = apply_rotary_emb(self._heads(H, KVH), self.freqs)
+        return k.transpose(1, 2), self._heads(H + KVH, KVH).transpose(1, 2)
+
+
+def split_rotate_qkv(y: torch.Tensor, freqs: torch.Tensor, n_head: int, n_kv_head: int,
+                     head_dim: int):
+    """A fused q|k|v projection y [B, L, (H + 2 KVH) hd] split into heads,
+    q and k rotated: q [B, H, L, hd], k/v [B, KVH, L, hd]."""
+    rows = QKVRows(y, freqs, n_head, n_kv_head, head_dim)
+    q = rows.q()
+    return (q, *rows.kv())

@@ -34,7 +34,7 @@ from ..ops.decode_attn import I8DOT_MODES, decode_attention, decode_attn_support
 from ..ops.linear import DenseLinear, Int8Linear, QuantizedLinear
 from ..runtime import trace
 from .config import ModelConfig
-from .rope import apply_rotary_emb, precompute_freqs_cis
+from .rope import QKVRows, precompute_freqs_cis, split_rotate_qkv
 
 Params = Dict[str, Any]
 
@@ -182,16 +182,8 @@ def feed_forward(ffn: FeedForward, x: torch.Tensor, prefill: bool = False) -> to
 def _qkv(cfg: ModelConfig, attn: Attention, x: torch.Tensor, freqs: torch.Tensor,
          prefill: bool = False):
     """Project + rotate. x [B, L, D] -> q [B,H,L,hd], k/v [B,KVH,L,hd]."""
-    B, L, _ = x.shape
-    Dq = cfg.n_head * cfg.head_dim
-    Dkv = cfg.n_kv_head * cfg.head_dim
     y = _linear(prefill, attn.wqkv, x)
-    q = y[..., :Dq].reshape(B, L, cfg.n_head, cfg.head_dim)
-    k = y[..., Dq : Dq + Dkv].reshape(B, L, cfg.n_kv_head, cfg.head_dim)
-    v = y[..., Dq + Dkv :].reshape(B, L, cfg.n_kv_head, cfg.head_dim)
-    q = apply_rotary_emb(q, freqs)
-    k = apply_rotary_emb(k, freqs)
-    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return split_rotate_qkv(y, freqs, cfg.n_head, cfg.n_kv_head, cfg.head_dim)
 
 
 # --------------------------------------------------------------------------
@@ -268,12 +260,18 @@ def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freq
     routes it to. Only what the JAX package also leaves to XLA takes the
     plain math over ``materialize_kv`` (models/transformer.py:311 there):
     ``attn_top_k < 1``, head_dim other than 128, more than 8 query heads
-    per KV head."""
+    per KV head.
+
+    The cache's strategy takes the projection before rope and rotates
+    and inserts it (``CacheStrategy.rotate_insert``): a one-slot
+    heavy-hitter kv8 cache at head_dim 128 in one kernel that rotates q
+    too, every other cache through its own insert."""
     spec = cache.spec
     strategy = get_cache_strategy(spec.cache_strategy)
     B = x.shape[0]
-    q, k, v = _qkv(cfg, attn, x, freqs)
-    decode_update(strategy, cache, input_pos, k, v, token=token)
+    qkv = QKVRows(attn.wqkv(x), freqs, cfg.n_head, cfg.n_kv_head, cfg.head_dim)
+    decode_update(strategy, cache, input_pos, qkv, None, token=token)
+    q = qkv.q()
     need_attn = strategy_needs_attn(strategy, spec)
     if attn_top_k >= 1.0 and decode_attn_supported(q.shape, cfg.n_kv_head):
         bits = spec.cache_bits or 16
@@ -283,7 +281,7 @@ def attention_decode(cfg, attn: Attention, x, cache: CacheState, input_pos, freq
             i8dot=i8dot_route(i8dot, bits, cache.k.shape[2], cfg.n_kv_head, cfg.head_dim),
         )
     else:
-        k_cache, v_cache = materialize_kv(cache, dtype=k.dtype)
+        k_cache, v_cache = materialize_kv(cache, dtype=q.dtype)
         y, pooled = gqa_attention(
             q, k_cache, v_cache, mask=cache.mask[:, :, None, None, :],
             return_attn=need_attn, attn_top_k=attn_top_k,

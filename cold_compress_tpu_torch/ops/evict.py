@@ -1,9 +1,11 @@
-"""Fused heavy-hitter eviction (kernel K7): wrapper and plain version.
+"""Fused heavy-hitter eviction (kernel K7), and decode's rotate-and-insert
+built on it: wrappers and plain versions.
 
 Counterpart of ``cold_compress_tpu/ops/pallas_evict.py``. The CUDA kernel
 (``csrc/hh_evict.cu``) replaces ``fused_hh_evict`` (pallas_evict.py:57) and
-serves every heavy-hitter cache with history_window_size 1 (attention
-thresholding changes only the observations, not this step). It computes ``avg = num / max(denom, 1)`` in f32, sets
+serves every heavy-hitter cache with history_window_size 1 that the fused
+insert below does not (attention thresholding changes only the observations,
+not this step). It computes ``avg = num / max(denom, 1)`` in f32, sets
 protected slots (``pos < global`` or ``pos >= input_pos - recent``) to 1 and
 empty slots (``pos == -1``) to 0, takes the argmin per (batch, head) row
 (the first index on ties) and zeroes ``num`` and ``denom`` at that slot, in
@@ -14,6 +16,15 @@ Bound on the H100: bytes, far below a microsecond at the main path's sizes;
 the kernel replaces about ten eager launches per layer per decode step with
 one. One block per (batch, head) row, whose 512 threads issue all their loads
 (16-byte vectors, a scalar head and tail where C % 4 != 0) before computing.
+
+``hh_evict_insert`` is that eviction fused with its neighbours in a decode
+step over a one-slot heavy-hitter kv8 cache at heads of 128 (the
+strategy's ``rotate_insert`` takes it, ``caches/heavy_hitter.py``): rope on the G query rows and the K row of
+each KV head, the kv8 quantization of the rotated K row and of the V row,
+and the insert at the evicted slot (rows, scales, zeros, position, mask bit,
+filled count), in one launch where the eager step took about 70 operations
+a layer. Its plain version is that eager composite, and the kernel rounds
+where it rounds: the same bits.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ import torch
 from . import _build
 
 #: Launch count of the CUDA kernel (incremented only where it launches).
-LAUNCHES = {"hh_evict": 0}
+LAUNCHES = {"hh_evict": 0, "hh_evict_insert": 0}
 
 
 def hh_evict_plain(num, denom, pos, input_pos, global_tokens: int,
@@ -84,3 +95,97 @@ def hh_evict(num, denom, pos, input_pos, *, global_tokens: int,
     _build.check(status, "hh_evict")
     LAUNCHES["hh_evict"] += 1
     return idx
+
+
+def hh_evict_insert_plain(y, freqs, state, input_pos, n_head: int, n_kv_head: int):
+    """Plain version of ``hh_evict_insert``, in place: the fused projection
+    y [B, 1, (H + 2 KVH) hd] split and rotated (``models/rope.py``), the
+    eviction (``hh_evict_plain``) and the insert of the rotated K row and
+    the V row (``caches/base.py::insert_rows``). Returns q [B, H, 1, hd]
+    and idx [B, KVH] int32."""
+    from ..caches.base import input_pos_b11, insert_rows
+    from ..models.rope import split_rotate_qkv
+
+    head_dim = y.shape[-1] // (n_head + 2 * n_kv_head)
+    q, k, v = split_rotate_qkv(y, freqs, n_head, n_kv_head, head_dim)
+    spec = state.spec
+    ipos = input_pos_b11(input_pos, y.shape[0], state.pos.device)
+    idx = hh_evict_plain(state.extra["attn_num"], state.extra["attn_denom"], state.pos, ipos,
+                         spec.global_tokens, spec.recent_window)
+    insert_rows(state, idx, ipos, k[:, :, 0], v[:, :, 0])
+    return q, idx
+
+
+def _insert_lib():
+    fn = _build.library("hh_evict").hh_evict_insert
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def hh_evict_insert(y, freqs, state, input_pos, *, n_head: int, n_kv_head: int):
+    """Decode's rotate, evict and insert for one layer's one-slot
+    heavy-hitter kv8 cache ``state``, in place (see the module docstring).
+    ``y`` [B, 1, (H + 2 KVH) 128] is the fused q|k|v projection, ``freqs``
+    the rope rows [1 or B, 1, 64, 2] at the lanes' positions, ``input_pos``
+    a 0-d or [B] tensor or an int. Returns q [B, H, 1, 128] and the
+    evicted slots idx [B, KVH] int32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, and
+    any input it does not take raises."""
+    if y.device.type == "cpu":
+        return hh_evict_insert_plain(y, freqs, state, input_pos, n_head, n_kv_head)
+    B, H, C = state.pos.shape
+    D = 128
+    if state.spec.cache_bits != 8 or H != n_kv_head or n_head % H:
+        raise ValueError(f"hh_evict_insert: {n_head} heads over a {state.spec.cache_bits}-bit "
+                         f"cache of {H} KV heads")
+    ex = state.extra
+    rows = (B, H, C)
+    want = {  # name: (tensor, dtype, shape, alignment in bytes)
+        "y": (y, torch.bfloat16, (B, 1, (n_head + 2 * H) * D), 8),
+        "freqs": (freqs, torch.float32, tuple(freqs.shape), 8),
+        "attn_num": (ex.get("attn_num"), torch.float32, rows, 16),
+        "attn_denom": (ex.get("attn_denom"), torch.int32, rows, 16),
+        "pos": (state.pos, torch.int32, rows, 16),
+        "mask": (state.mask, torch.bool, rows, 1),
+        "cache_ct": (state.cache_ct, torch.int32, (B, H), 4),
+        "k": (state.k, torch.uint8, rows + (D,), 4),
+        "v": (state.v, torch.uint8, rows + (D,), 4),
+        "k_scales": (state.k_scales, torch.float32, rows, 4),
+        "k_zeros": (state.k_zeros, torch.float32, rows, 4),
+        "v_scales": (state.v_scales, torch.float32, rows, 4),
+        "v_zeros": (state.v_zeros, torch.float32, rows, 4),
+    }
+    for name, (t, dt, shape, align) in want.items():
+        if t is None or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            got = None if t is None else (tuple(t.shape), t.dtype)
+            raise ValueError(f"hh_evict_insert: bad {name} {got}, takes {shape} {dt}")
+        if t.device != y.device:
+            raise ValueError(f"hh_evict_insert: {name} on another device")
+        if t.data_ptr() % align:
+            raise ValueError(f"hh_evict_insert: {name} must start on a {align}-byte boundary")
+    if freqs.numel() not in (D, B * D) or tuple(freqs.shape[-2:]) != (D // 2, 2):
+        raise ValueError(f"hh_evict_insert: rope rows {tuple(freqs.shape)} for batch {B}")
+    if not isinstance(input_pos, torch.Tensor):  # a fill, not a copy from the host
+        ipos = torch.full((1,), int(input_pos), dtype=torch.int32, device=y.device)
+    else:
+        ipos = input_pos.to(device=y.device, dtype=torch.int32).contiguous()
+    if ipos.numel() not in (1, B):
+        raise ValueError(f"hh_evict_insert: input_pos {tuple(ipos.shape)} for batch {B}")
+    q = torch.empty((B, n_head, 1, D), dtype=torch.bfloat16, device=y.device)
+    idx = torch.empty((B, H), dtype=torch.int32, device=y.device)
+    status = _insert_lib()(
+        y.data_ptr(), freqs.data_ptr(), ipos.data_ptr(), ex["attn_num"].data_ptr(),
+        ex["attn_denom"].data_ptr(), state.pos.data_ptr(), state.mask.data_ptr(),
+        state.cache_ct.data_ptr(), state.k.data_ptr(), state.v.data_ptr(),
+        state.k_scales.data_ptr(), state.k_zeros.data_ptr(), state.v_scales.data_ptr(),
+        state.v_zeros.data_ptr(), q.data_ptr(), idx.data_ptr(),
+        B, H, n_head // H, C, y.shape[-1], 0 if freqs.numel() == D else D,
+        0 if ipos.numel() == 1 else 1, int(state.spec.global_tokens),
+        int(state.spec.recent_window), _build.stream_ptr(y.device),
+    )
+    _build.check(status, "hh_evict_insert")
+    LAUNCHES["hh_evict_insert"] += 1
+    return q, idx

@@ -415,6 +415,47 @@ def test_heavy_hitter_one_slot_history_evicts_through_kernel(dev, thresholding):
     assert torch.equal(g.extra["attn_denom"].cpu(), c.extra["attn_denom"])
 
 
+@pytest.mark.parametrize("C", [2048, 1848])
+@pytest.mark.parametrize("KVH,G", [(8, 4), (4, 7)])
+@pytest.mark.parametrize("B", [1, 4])
+def test_hh_evict_insert_matches_plain_bit_for_bit(dev, B, KVH, G, C):
+    """The fused rotate-and-insert against its plain version on the same
+    CUDA tensors, three steps, bit for bit in q, idx and every cache
+    tensor: at both benchmark cells' shapes (B 1 and 4; 8 KV heads of 4
+    queries, 4 of 7) at C = 2048 and the eval's 1848 (rows off a 16-byte
+    boundary), lanes at their own positions, with empty, protected global
+    and recent slots, and a constant V row (the range's floor). Decode
+    steps through it are compared with steps without it in
+    ``tests/test_torch_evict_insert.py``."""
+    from cold_compress_tpu_torch.models.rope import precompute_freqs_cis
+    from torch_hh_insert import assert_same_cache, bits, hh_kv8_state
+
+    H = KVH * G
+    card, plain = hh_kv8_state(dev, B, KVH, C, C + B), hh_kv8_state(dev, B, KVH, C, C + B)
+    rope = precompute_freqs_cis(2 * C + 64, 128, 1e6, device=dev)
+    g = _gen(dev, 7 * B + G)
+    before = evict.LAUNCHES["hh_evict_insert"]
+    for step in range(3):
+        ipos = C + step + 5 * torch.arange(B, dtype=torch.int32, device=dev)
+        freqs = rope[ipos.long()][:, None]
+        y = (3 * torch.randn((B, 1, (H + 2 * KVH) * 128), device=dev, generator=g)
+             ).to(torch.bfloat16)
+        y[0, 0, (H + KVH) * 128:(H + KVH + 1) * 128] = 0.75
+        pos_arg = int(ipos[0]) if B == 1 else ipos  # an int is filled on the card
+        q, idx = evict.hh_evict_insert(y, freqs, card, pos_arg, n_head=H, n_kv_head=KVH)
+        q_ref, idx_ref = evict.hh_evict_insert_plain(y, freqs, plain, ipos, H, KVH)
+        torch.cuda.synchronize()
+        assert q.is_contiguous() and torch.equal(bits(q), bits(q_ref.contiguous()))
+        assert torch.equal(idx, idx_ref)
+        assert_same_cache(card, plain)
+    assert evict.LAUNCHES["hh_evict_insert"] == before + 3
+    assert card.cache_ct[0].tolist() == [C - 2] * KVH  # the empty slots went first
+    with pytest.raises(ValueError):  # f32 activations
+        evict.hh_evict_insert(y.float(), freqs, card, ipos, n_head=H, n_kv_head=KVH)
+    with pytest.raises(ValueError):  # rope rows for another batch
+        evict.hh_evict_insert(y, rope[:3][:, None], card, ipos, n_head=H, n_kv_head=KVH)
+
+
 @pytest.mark.parametrize("cols", [None, *qmm.GEMV_COLS])
 @pytest.mark.parametrize("L", [1, 4, 5, 7, 32])
 @pytest.mark.parametrize("IN,OUT", [(4096, 1000), (256, 512), (1040, 333), (14336, 1000)])
@@ -524,7 +565,8 @@ def test_generate_on_card_matches_cpu(dev):
     assert launches["flash_prefill_summary"] == cfg.n_layer
     assert launches["decode_attention.kv8.i8dot"] == cfg.n_layer * 7
     assert "decode_attention.kv8" not in launches or launches["decode_attention.kv8"] == 0
-    assert launches["hh_evict"] == cfg.n_layer * 7
+    assert launches["hh_evict_insert"] == cfg.n_layer * 7
+    assert launches["hh_evict"] == 0
     assert launches["w4a8_gemv.head"] == 8
 
 
@@ -563,7 +605,7 @@ def test_generate_stops_at_terminator_on_card_as_on_cpu(dev):
                                        prefill_bucket=512, terminator_ids=[gen[2]])
     launches = kernel_launches()
     assert seq_g == prompt + gen[:k + 1] and info_g["perf_stats"]["decode_steps"] == k
-    assert launches["hh_evict"] == cfg.n_layer * k and launches["w4a8_gemv.head"] == k + 1
+    assert launches["hh_evict_insert"] == cfg.n_layer * k and launches["w4a8_gemv.head"] == k + 1
     _, info_c, caches_c = generate(models["cpu"], caches("cpu"), prompt, 8, prefill_bucket=512,
                                    next_tokens=gen[:k + 1])
     assert info_c["perf_stats"]["decode_steps"] == k
