@@ -2,28 +2,31 @@
 plain reference.
 
 Once the window has closed and the program's state is freed, a sample of the
-finished requests (lanes) is run through ``reference/model.py`` at the
-configuration's stated precisions: the prompt prefilled and compressed by
-SnapKV, then every served token fed back, through the evicting cache. The
-sample holds the lanes of the last call served, whose first-layer cache the
-run kept, the lane that served the most tokens (the longest prompt among
-those), and lanes in an order drawn from the seed.
+finished requests (lanes) is run through the architecture's reference
+(``Reference`` of the module ``arch/`` names; ``reference/model.py`` for
+``dense``) at the configuration's stated precisions: the prompt prefilled
+and compressed by SnapKV, then every served token fed back, through the
+evicting cache. The sample holds the lanes of the last call served, whose
+checked layer's cache the run kept (the architecture's ``checked_layer``),
+the lane that served the most tokens (the longest prompt among those), and
+lanes in an order drawn from the seed.
 
 Two numbers are compared, each with its limit in the cell's
-``limits/<workload>.json``. Both read the first layer's cache of the last
-call, against the reference's own first layer over the same prompt and
-served tokens: ``kv_rel_err_l0``, the relative root-mean-square gap between
-the K and V rows the program's cache holds and those the stated cache holds
-for the same positions, and ``pos_miss_l0``, the share of the positions the
-reference keeps (SnapKV, then every eviction) that the program's cache lacks.
-The first layer's rows depend on no earlier layer, so two sound programs
-agree there to the last place; deeper, random weights carry a difference of
-summation order to whole steps of the int8 quantizers (PERF.md). So the
-served tokens' numbers are printed, not compared: ``mean_logp_err`` and
-``max_logp_err``, the mean and widest ``|log p_program - log p_reference|``
-of the served tokens (``p_program`` from ``emitted_probs``),
-``max_logit_gap``, how far a served token's logit lies below the
-reference's best, and ``first_prob_rel_err``, prefill's alone.
+``limits/<workload>.json``. Both read the checked layer's cache of the last
+call, against the reference's own layer over the same prompt and served
+tokens: ``kv_rel_err_l0``, the relative root-mean-square gap between the K
+and V rows the program's cache holds and those the stated cache holds for
+the same positions, and ``pos_miss_l0``, the share of the positions the
+reference keeps (SnapKV, then every eviction) that the program's cache
+lacks. In ``dense`` the checked layer is the first, whose rows depend on no
+earlier layer, so two sound programs agree there to the last place; deeper,
+random weights carry a difference of summation order to whole steps of the
+int8 quantizers (PERF.md). So the served tokens' numbers are printed, not
+compared: ``mean_logp_err`` and ``max_logp_err``, the mean and widest
+``|log p_program - log p_reference|`` of the served tokens (``p_program``
+from ``emitted_probs``), ``max_logit_gap``, how far a served token's logit
+lies below the reference's best, and ``first_prob_rel_err``, prefill's
+alone.
 
 With ``control``, the control's readings come too: the reference one step
 below every precision the configuration states (``Reference.control``), read
@@ -44,24 +47,24 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .reference.model import Reference, tf32
-from .weights import make_weights
+from .reference.model import tf32
 
 
 def sample(records: List[dict], doc: dict, seed: int) -> List[dict]:
-    """The lanes to check, each ``{"prompt", "served", "probs", "cache0"}``
-    (``cache0``: the program's first-layer cache, for the last call's lanes
-    that ran all its steps; else None): the last call's lanes, the lane
-    that served most (the longest prompt among those), then lanes in an
-    order drawn from the seed until ``min_tokens`` served tokens or
-    ``max_lanes``."""
+    """The lanes to check, each ``{"prompt", "served", "probs",
+    "checked_cache"}`` (``checked_cache``: the program's cache of the checked
+    layer, for the last call's lanes that ran all its steps; else None): the
+    last call's lanes, the lane that served most (the longest prompt among
+    those), then lanes in an order drawn from the seed until ``min_tokens``
+    served tokens or ``max_lanes``."""
     lanes = []
     for i, r in enumerate(records):
         for b in range(len(r["lens"])):
             whole = len(r["served"][b]) == r["steps"] + 1
             lanes.append({"prompt": r["prompts"][b], "served": r["served"][b],
                           "probs": r["probs"][b], "last": i == len(records) - 1,
-                          "cache0": r["cache0"][b] if "cache0" in r and whole else None})
+                          "checked_cache": (r["checked_cache"][b]
+                                            if "checked_cache" in r and whole else None)})
     last = [i for i, lane in enumerate(lanes) if lane["last"]]
     longest = max(range(len(lanes)),
                   key=lambda i: (len(lanes[i]["served"]), len(lanes[i]["prompt"])))
@@ -106,21 +109,22 @@ def readings(probs, r) -> Dict[str, float]:
                                       for lane_p, lane_q in zip(probs, r["logp"]))}
 
 
-def first_layer(cands: List[Optional[dict]], r: dict) -> Dict[str, float]:
-    """The first-layer numbers, the worst over the lanes with a cache to
-    read (``cands``, one per lane or None): ``kv_rel_err_l0``, the gap
+def checked_readings(cands: List[Optional[dict]], r: dict) -> Dict[str, float]:
+    """The checked layer's numbers, the worst over the lanes with a cache
+    to read (``cands``, one per lane or None): ``kv_rel_err_l0``, the gap
     between the K and V rows a cache holds and the stated cache's rows for
-    the same positions (``r["kv0"]``), and ``pos_miss_l0``, the share of the
-    positions the reference keeps (``r["cache0"]``) that the cache lacks."""
+    the same positions (``r["checked_kv"]``), and ``pos_miss_l0``, the share
+    of the positions the reference keeps (``r["checked_cache"]``) that the
+    cache lacks."""
     kv, miss = [], []
-    for cand, kv0, ref in zip(cands, r["kv0"], r["cache0"]):
+    for cand, rows, ref in zip(cands, r["checked_kv"], r["checked_cache"]):
         if cand is None:
             continue
         pos = cand["pos"].long()
-        held = (pos >= 0) & (pos < kv0[0].shape[0])
+        held = (pos >= 0) & (pos < rows[0].shape[0])
         h = torch.arange(pos.shape[0])[:, None].expand_as(pos)[held]
         diff = num = 0.0
-        for got, want in zip((cand["k"], cand["v"]), kv0):
+        for got, want in zip((cand["k"], cand["v"]), rows):
             w = want[pos[held], h]
             diff += float(((got[held] - w) ** 2).sum())
             num += float((w ** 2).sum())
@@ -160,19 +164,22 @@ def judge(cell, records: List[dict], seed: int, device, control: bool = False) -
     prompts = [lane["prompt"] for lane in picked]
     served = [lane["served"] for lane in picked]
     probs = [lane["probs"] for lane in picked]
+    arch, d = cell.arch, cell.dims
     with tf32():
-        ref = Reference(cell.dims, make_weights(cell.dims, seed, device), cell.traffic["cache"])
+        ref = arch.Reference(d, arch.make_weights(d, seed, device), cell.traffic["cache"],
+                             checked=arch.checked_layer(d))
         gc.collect()
         r = ref.follow(prompts, served)
-        out = {**first_layer([lane["cache0"] for lane in picked], r), **readings(probs, r),
-               "lanes": len(picked), "tokens": sum(len(s) for s in served)}
+        out = {**checked_readings([lane["checked_cache"] for lane in picked], r),
+               **readings(probs, r), "lanes": len(picked),
+               "tokens": sum(len(s) for s in served)}
         if control:
             ref.control()
             c = ref.follow(prompts, served)
             ref.control(False)
             cr = readings([[math.exp(x) for x in lane] for lane in c["logp"]], r)
-            cr.update(first_layer([c0 if lane["cache0"] is not None else None
-                                   for c0, lane in zip(c["cache0"], picked)], r))
+            cr.update(checked_readings([c0 if lane["checked_cache"] is not None else None
+                                        for c0, lane in zip(c["checked_cache"], picked)], r))
             out.update({f"control_{k}": v for k, v in cr.items() if k != "max_logit_gap"})
             # the gap of the token the control puts first, read by the reference
             c = ref.follow(prompts, served, choices=c["top"])

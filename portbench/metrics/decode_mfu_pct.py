@@ -1,9 +1,7 @@
-"""The whole decode step's least time at the card's peaks
-(``roofline.decode_step``: the larger of its operations and its bytes) over
-the measured step: the window's decode seconds over its decode steps (the
-program's ``perf_stats``, untraced)."""
-
-from portbench import roofline
+"""The whole decode step's least time at the card's peaks (the
+architecture's ``decode_step``: the larger of its operations and its bytes)
+over the measured step: the window's decode seconds over its decode steps
+(the program's ``perf_stats``, untraced)."""
 
 
 def read(ctx):
@@ -13,5 +11,5 @@ def read(ctx):
     span = sum(r["decode_s"] for r in ctx.records)
     if not steps or span <= 0:
         return None
-    least = roofline.decode_step(ctx.d, ctx.B, ctx.C, ctx.cache_bits).seconds()
+    least = ctx.arch.decode_step(ctx.d, ctx.B, ctx.C, ctx.cache_bits).seconds()
     return 100.0 * steps * least / span

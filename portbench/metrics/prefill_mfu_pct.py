@@ -1,8 +1,6 @@
-"""The whole prefill's least time at the card's peaks (``roofline.prefill``
-over the prompts' true lengths) over the window's measured prefill seconds
-(the program's ``perf_stats``, untraced)."""
-
-from portbench import roofline
+"""The whole prefill's least time at the card's peaks (the architecture's
+``prefill`` over the prompts' true lengths) over the window's measured
+prefill seconds (the program's ``perf_stats``, untraced)."""
 
 
 def read(ctx):
@@ -11,4 +9,4 @@ def read(ctx):
     span = sum(r["prefill_s"] for r in ctx.records)
     if span <= 0:
         return None
-    return 100.0 * sum(roofline.prefill(ctx.d, r["lens"]).seconds() for r in ctx.records) / span
+    return 100.0 * sum(ctx.arch.prefill(ctx.d, r["lens"]).seconds() for r in ctx.records) / span

@@ -182,15 +182,20 @@ def softmax_rows(s: torch.Tensor) -> torch.Tensor:
 
 class Reference:
     """The model and cache policy of one configuration at its stated
-    precisions, over the benchmark's raw weights (see ``portbench/weights.py``
+    precisions, over the benchmark's raw weights (see ``portbench/arch/dense.py``
     for the tree). ``kv_bits`` is the cache's precision (the stated 8),
     ``decode_bits`` that of the activations into every projection at decode
     and into the head (the stated int8 of W4A8), ``prefill_bits`` that of
     the activations into the projections at prefill (None: the stated
     bf16). ``control()`` sets each one step below what the configuration
-    states."""
+    states. ``checked`` is the layer whose cache ``follow`` returns (the
+    architecture's ``checked_layer``)."""
 
-    def __init__(self, dims, weights: dict, cache: dict):
+    def __init__(self, dims, weights: dict, cache: dict, checked: int = 0):
+        self.checked = int(checked)
+        if not 0 <= self.checked < len(weights["layers"]):
+            raise ValueError(f"checked layer {self.checked} is not one of the model's "
+                             f"{len(weights['layers'])} layers")
         self.kv_bits = 8
         self.decode_bits = 8
         self.prefill_bits: Optional[int] = None
@@ -356,15 +361,15 @@ class Reference:
 
     # -- the two phases ----------------------------------------------------
 
-    def _first_layer(self, k: torch.Tensor, v: torch.Tensor):
-        """The first layer's K and V rows as the stated cache holds them
+    def _checked_rows(self, k: torch.Tensor, v: torch.Tensor):
+        """The checked layer's K and V rows as the stated cache holds them
         (quantized and read back), f32."""
         return tuple(kv_value(*kv_quant(t, self.kv_bits), self.kv_bits) for t in (k, v))
 
     @torch.no_grad()
     def prefill(self, tokens: Sequence[int]):
         """(logits [V] of the first served token, per-layer cache states,
-        the first layer's K and V rows [n, KVH, hd] as the cache holds
+        the checked layer's K and V rows [n, KVH, hd] as the cache holds
         them)."""
         d = self.d
         dev = self.head[0].device
@@ -377,20 +382,20 @@ class Reference:
         for L in self.layers:
             q, k, v = self._qkv(L, rms_norm(x, L["an"], d.norm_eps), bits)
             q, k = rope(q, cs), rope(k, cs)
-            if not states:
-                first = self._first_layer(k, v)
+            if len(states) == self.checked:
+                checked = self._checked_rows(k, v)
             y, cum, obs = self._prefill_attention(q, k, v)
             x = x + self._linear(y, L["wo"], bits)
             x = x + self._ffn(L, x, bits)
             states.append(self._compress(k, v, cum, obs, n))
             del q, k, v, y
-        return self._logits(x[-1:])[0], states, first
+        return self._logits(x[-1:])[0], states, checked
 
     @torch.no_grad()
     def decode(self, states: List[dict], tokens: torch.Tensor, pos: torch.Tensor):
         """One step for every lane: tokens [B] at positions pos [B] (long);
         ``states`` are stacked per layer ([B, ...] tensors), updated in place.
-        Returns logits [B, V] and the first layer's new K and V rows
+        Returns logits [B, V] and the checked layer's new K and V rows
         [B, KVH, hd] as the cache holds them."""
         d = self.d
         B = tokens.shape[0]
@@ -400,11 +405,11 @@ class Reference:
         bits = self.decode_bits
         rows = torch.arange(B, device=x.device)[:, None]
         heads = torch.arange(d.n_kv_head, device=x.device)[None, :]
-        for L, st in zip(self.layers, states):
+        for li, (L, st) in enumerate(zip(self.layers, states)):
             q, k, v = self._qkv(L, rms_norm(x, L["an"], d.norm_eps), bits)  # [B, heads, hd]
             q, k = rope(q[:, None], cs)[:, 0], rope(k[:, None], cs)[:, 0]
-            if L is self.layers[0]:
-                first = self._first_layer(k, v)
+            if li == self.checked:
+                checked = self._checked_rows(k, v)
             # heavy-hitter eviction, then insert before attending
             avg = st["num"] / st["denom"].clamp_min(1.0)
             spos = st["pos"]
@@ -425,7 +430,7 @@ class Reference:
             st["denom"] += 1.0
             x = x + self._linear(y.reshape(B, -1), L["wo"], bits)
             x = x + self._ffn(L, x, bits)
-        return self._logits(x), first
+        return self._logits(x), checked
 
     @torch.no_grad()
     def follow(self, prompts: Sequence[Sequence[int]], served: Sequence[Sequence[int]],
@@ -436,11 +441,11 @@ class Reference:
         ``choices``: one id per position), ``logp``: the chosen token's log
         probability, and ``top``: the id this reference puts first; ``pos``,
         each layer's cached positions [lanes, KVH, C] at the end; per lane
-        ``kv0``, the first layer's K and V rows [positions, KVH, hd] of every
-        position fed, as the stated cache holds them, and ``cache0``, the
-        first layer's cache after the lane's last step (``pos`` [KVH, C],
-        ``k`` and ``v`` [KVH, C, hd]). Prompts prefill one at a time; the
-        lanes decode together."""
+        ``checked_kv``, the checked layer's K and V rows [positions, KVH, hd]
+        of every position fed, as the stated cache holds them, and
+        ``checked_cache``, the checked layer's cache after the lane's last
+        step (``pos`` [KVH, C], ``k`` and ``v`` [KVH, C, hd]). Prompts
+        prefill one at a time; the lanes decode together."""
         choices = served if choices is None else choices
         out = {"gap": [[] for _ in prompts], "logp": [[] for _ in prompts],
                "top": [[] for _ in prompts]}
@@ -460,40 +465,40 @@ class Reference:
         dev = self.head[0].device
         per_lane, rows = [], []
         for b, p in enumerate(prompts):
-            lg, st, first = self.prefill(p)
+            lg, st, checked = self.prefill(p)
             per_lane.append(st)
-            rows.append([[t.cpu()] for t in first])
+            rows.append([[t.cpu()] for t in checked])
             read([b], lg[None], torch.tensor([int(choices[b][0])], device=dev), [True])
         states = [{key: torch.stack([lane[i][key] for lane in per_lane])
                    for key in per_lane[0][i]} for i in range(len(self.layers))]
         del per_lane
-        out["cache0"] = [None] * len(prompts)
+        out["checked_cache"] = [None] * len(prompts)
 
-        def keep_first(i: int) -> None:
-            """The first layer's cache of the lanes whose last step was i."""
-            st = states[0]
+        def keep_checked(i: int) -> None:
+            """The checked layer's cache of the lanes whose last step was i."""
+            st = states[self.checked]
             for b, s in enumerate(served):
                 if len(s) - 2 == i:
-                    out["cache0"][b] = {
+                    out["checked_cache"][b] = {
                         "pos": st["pos"][b].cpu(),
                         "k": kv_value(st["ku"][b], st["ks"][b], st["kz"][b], self.kv_bits).cpu(),
                         "v": kv_value(st["vu"][b], st["vs"][b], st["vz"][b], self.kv_bits).cpu()}
 
-        keep_first(-1)
+        keep_checked(-1)
         lanes = list(range(len(prompts)))
         plens = torch.tensor([len(p) for p in prompts], dtype=torch.long, device=dev)
         for i in range(max(len(s) for s in served) - 1):
             tok = torch.tensor([int(s[i]) if i < len(s) else 0 for s in served],
                                dtype=torch.long, device=dev)
-            lg, first = self.decode(states, tok, plens + i)
+            lg, checked = self.decode(states, tok, plens + i)
             for b, s in enumerate(served):
                 if i < len(s) - 1:
                     for j in range(2):
-                        rows[b][j].append(first[j][b:b + 1].cpu())
-            keep_first(i)
+                        rows[b][j].append(checked[j][b:b + 1].cpu())
+            keep_checked(i)
             pick = torch.tensor([int(c[i + 1]) if i + 1 < len(c) else 0 for c in choices],
                                 dtype=torch.long, device=dev)
             read(lanes, lg, pick, [i + 1 < len(s) for s in served])
         out["pos"] = [st["pos"].cpu() for st in states]
-        out["kv0"] = [tuple(torch.cat(r) for r in lane) for lane in rows]
+        out["checked_kv"] = [tuple(torch.cat(r) for r in lane) for lane in rows]
         return out

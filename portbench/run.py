@@ -2,7 +2,8 @@
 
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up makes the configuration's int4 weights on the card from the seed,
+Set-up makes the configuration's int4 weights on the card from the seed
+(through the architecture module the configuration names, ``arch/``),
 builds the model with ``runtime.engine.build_model``, the caches with
 ``runtime.engine.build_cache_specs`` and ``models.transformer.init_caches``,
 and serves one warm call per prefill bucket the mix uses (which builds or
@@ -12,8 +13,10 @@ through ``runtime.generate.generate`` (one lane) or ``generate_batch``
 (several), with ``reset_caches`` before each, and closes at the first end
 of a round after ``--seconds``. With ``--trace 1`` the profiler then
 records one more round (after the window: it slows each replayed decode
-step about twofold), and the per-layer metrics are read from that trace and
-from the window's calls. Then the served tokens are checked against the
+step about twofold), with the program's own tracer (``runtime/trace.py``)
+on and its launch counters (``ops.kernel_launches``) read around it, and
+the per-layer metrics are read from that round and from the window's
+calls. Then the served tokens are checked against the
 plain reference (``portbench/check.py``).
 
 The last line of standard output is the JSON result; the numbers compared
@@ -34,7 +37,7 @@ import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from dataclasses import dataclass, field  # noqa: E402
-from typing import List, Optional  # noqa: E402
+from typing import Any, Dict, List, Optional  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -43,7 +46,6 @@ from . import metrics, spec  # noqa: E402
 from .check import READINGS, judge  # noqa: E402
 from .trace import CALL, Profile, summarize  # noqa: E402
 from .traffic import Traffic  # noqa: E402
-from .weights import make_weights  # noqa: E402
 
 #: Top-level module names that must not be loaded in the process that
 #: prints the result: the JAX package and JAX itself.
@@ -84,9 +86,16 @@ def card_state() -> Optional[str]:
 
 @dataclass
 class Context:
-    """What the metric readers read (``portbench/metrics``)."""
+    """What the metric readers read (``portbench/metrics``): the
+    architecture module (``arch``) and its sizes (``d``), the window's calls,
+    and with ``--trace 1`` the traced round: the profiler's summary
+    (``trace``), its calls (``traced``), the program's span records
+    (``spans``, ``runtime/trace.py``) and its kernel launches by name
+    (``launches``, ``ops.kernel_launches``); the last two None with
+    ``--trace 0``."""
 
-    d: spec.Dims
+    arch: Any
+    d: Any
     B: int
     C: int
     cache_bits: int
@@ -97,31 +106,8 @@ class Context:
     on_card: bool = True
     trace: Optional[dict] = None
     traced: List[dict] = field(default_factory=list)
-
-
-def port_config(cell: spec.Cell):
-    """The port's ``ModelConfig`` for the cell: the registry entry with the
-    configuration file's fields set, checked against the published sizes."""
-    from cold_compress_tpu_torch.models.config import ModelConfig
-
-    port = cell.config["port"]
-    cfg = ModelConfig.from_name(port["registry_name"]).replace(**port["set"])
-    d = cell.dims
-    want = {"n_layer": d.n_layer, "dim": d.dim, "n_head": d.n_head, "n_kv_head": d.n_kv_head,
-            "head_dim": d.head_dim, "intermediate_size": d.intermediate, "vocab_size": d.vocab,
-            "rope_base": d.rope_theta, "norm_eps": d.norm_eps, "attention_bias": d.qkv_bias}
-    wrong = {k: (getattr(cfg, k), v) for k, v in want.items() if getattr(cfg, k) != v}
-    if wrong:
-        raise ValueError(f"registry entry {port['registry_name']} differs from the "
-                         f"configuration file: {wrong}")
-    return cfg
-
-
-def cache_kwargs(doc: dict) -> dict:
-    return {"cache_strategy": [doc["strategy"]], "max_cache_length": [doc["max_cache_length"]],
-            "prompt_compression_strategy": [doc["prompt_compression"]],
-            "global_tokens": doc["global_tokens"], "recent_window": doc["recent_window"],
-            "cache_bits": doc["bits"]}
+    spans: Optional[List[dict]] = None
+    launches: Optional[Dict[str, int]] = None
 
 
 def _sync(device) -> None:
@@ -146,16 +132,16 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cu
     from cold_compress_tpu_torch.runtime import generate as gen
 
     t_start = time.perf_counter() if t_start is None else t_start
-    d = cell.dims
-    cfg = port_config(cell)
+    arch, d = cell.arch, cell.dims
+    cfg = arch.port_config(cell)
     traffic = Traffic(cell.traffic, d.vocab, seed)
     cdoc = dict(cell.traffic["cache"])
     if program_control:
         cdoc["bits"] = 4
-    kw = cache_kwargs(cdoc)
+    kw = arch.cache_kwargs(cdoc, cfg)
     engine.cache_compatibility(kw)
     max_positions = max(max(traffic.buckets()), max(traffic.lengths) + traffic.max_new_tokens)
-    params = make_weights(d, seed, device)
+    params = arch.make_weights(d, seed, device)
     model = engine.build_model(cfg, params, device, max_positions=max_positions,
                                prefill_w4a8=program_control)
     del params
@@ -213,18 +199,28 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cu
     if on_card:
         states.append(card_state())
 
-    summary, traced = None, []
+    summary, traced, spans, launches = None, [], None, None
     if trace:  # after the window, one round: the profiler slows the replayed steps
-        with Profile() as prof:
-            for prompts in next(rounds):
-                with torch.autograd.profiler.record_function(CALL):
-                    traced.append(serve(prompts, traffic.max_new_tokens))
+        from cold_compress_tpu_torch import ops
+        from cold_compress_tpu_torch.runtime import trace as program_trace
+
+        before = ops.kernel_launches()
+        program_trace.start()  # outside the profile: start() and stop() synchronise
+        try:
+            with Profile() as prof:
+                for prompts in next(rounds):
+                    with torch.autograd.profiler.record_function(CALL):
+                        traced.append(serve(prompts, traffic.max_new_tokens))
+        finally:
+            spans = program_trace.stop()
+        launches = {k: n - before.get(k, 0) for k, n in ops.kernel_launches().items()
+                    if n != before.get(k, 0)}
         summary = summarize(prof.events)
         del prof
 
-    ctx = Context(d=d, B=traffic.batch, C=C, cache_bits=int(cdoc["bits"]), records=records,
-                  window_s=window_s, setup_s=setup_s, peak_bytes=peak, on_card=on_card,
-                  trace=summary, traced=traced)
+    ctx = Context(arch=arch, d=d, B=traffic.batch, C=C, cache_bits=int(cdoc["bits"]),
+                  records=records, window_s=window_s, setup_s=setup_s, peak_bytes=peak,
+                  on_card=on_card, trace=summary, traced=traced, spans=spans, launches=launches)
     wanted = cell.per_layer if trace else cell.end_to_end
     values = {}
     for m in wanted:
@@ -238,8 +234,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cu
                      f"{states[0]}; after: {states[1]}")
     if summary and summary.get("calls"):
         lines.append(_slowdown_line(records, summary["calls"]))
+    if spans:
+        lines += program_trace.log_lines(spans)
+    if launches is not None:
+        lines.append(_launch_line(launches, traced))
     served = records + traced
-    keep_first_layer(served[-1], caches[0])
+    keep_checked_layer(served[-1], caches[arch.checked_layer(d)])
     if control:  # the last call's cached positions, for the check's diagnosis
         served[-1]["cache_pos"] = [c.pos.cpu() for c in caches]
     del model, caches
@@ -278,15 +278,15 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cu
     return result
 
 
-def keep_first_layer(record: dict, cache) -> None:
-    """The first layer's cache after the call ``record`` (the last one
+def keep_checked_layer(record: dict, cache) -> None:
+    """The checked layer's cache after the call ``record`` (the last one
     served), per lane as the program reads it: positions, and K and V rows
     dequantized (``caches.materialize_kv``), on the host."""
     from cold_compress_tpu_torch.caches import materialize_kv
 
     k, v = materialize_kv(cache, torch.float32)
-    record["cache0"] = [{"pos": cache.pos[b].cpu(), "k": k[b].cpu(), "v": v[b].cpu()}
-                        for b in range(len(record["lens"]))]
+    record["checked_cache"] = [{"pos": cache.pos[b].cpu(), "k": k[b].cpu(), "v": v[b].cpu()}
+                               for b in range(len(record["lens"]))]
 
 
 def free_program_memory() -> None:
@@ -313,6 +313,17 @@ def _run_lines(records, window_s, setup_s, terminators) -> List[str]:
         f"per call, in order: prefill s {[r['prefill_s'] for r in records]!r}; decode ms a "
         f"step {[1e3 * r['decode_s'] / max(r['steps'], 1) for r in records]!r}",
     ]
+
+
+def _launch_line(launches: Dict[str, int], traced: List[dict]) -> str:
+    """The program's kernel launches over the traced round, and each over
+    the round's decode steps: a decode kernel's count per step; prefill's
+    and the head's include the round's prefills."""
+    steps = sum(r["steps"] for r in traced)
+    per = {k: n / steps for k, n in sorted(launches.items())} if steps else {}
+    return (f"program launches over the traced round ({steps} decode steps, "
+            f"{len(traced)} calls): {dict(sorted(launches.items()))!r}; "
+            f"launches over the round / decode steps {per!r}")
 
 
 def _slowdown_line(records, calls) -> str:

@@ -2,7 +2,9 @@
 
 * ``configs/<file>``: the model configuration as published (its ``config.json``
   keys at the top level), the port's registry entry and the fields set on it,
-  the terminators, the weight scheme and the precisions the run states.
+  the terminators, the weight scheme and the precisions the run states, and
+  under ``port.architecture`` the module of ``arch/`` that builds it
+  (``dense`` without the key).
 * ``traffic/<traffic>.json``: the mix (one round of calls, each the prompt
   lengths of its lanes, from the benchmark named in ``source``; new tokens;
   the cache) and the sample the check takes.
@@ -19,43 +21,10 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
 
+from .arch import of as architecture_of
+
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-
-
-@dataclass(frozen=True)
-class Dims:
-    """The sizes the benchmark's own code needs (weights, reference,
-    roofline), read from the published config keys."""
-
-    n_layer: int
-    dim: int
-    n_head: int
-    n_kv_head: int
-    head_dim: int
-    intermediate: int
-    vocab: int
-    rope_theta: float
-    norm_eps: float
-    qkv_bias: bool
-    group_size: int
-
-    @classmethod
-    def from_config(cls, doc: dict) -> "Dims":
-        n_head = int(doc["num_attention_heads"])
-        return cls(
-            n_layer=int(doc["num_hidden_layers"]),
-            dim=int(doc["hidden_size"]),
-            n_head=n_head,
-            n_kv_head=int(doc["num_key_value_heads"]),
-            head_dim=int(doc.get("head_dim") or doc["hidden_size"] // n_head),
-            intermediate=int(doc["intermediate_size"]),
-            vocab=int(doc["vocab_size"]),
-            rope_theta=float(doc["rope_theta"]),
-            norm_eps=float(doc["rms_norm_eps"]),
-            qkv_bias=bool(doc["port"]["qkv_bias"]),
-            group_size=int(doc["port"]["weights"]["group_size"]),
-        )
 
 
 @dataclass
@@ -73,8 +42,13 @@ class Cell:
     per_layer: List[dict]
 
     @property
-    def dims(self) -> Dims:
-        return Dims.from_config(self.config)
+    def arch(self):
+        """The architecture module the configuration names (``arch/``)."""
+        return architecture_of(self.config)
+
+    @property
+    def dims(self):
+        return self.arch.dims(self.config)
 
 
 def load_json(path: Path) -> dict:

@@ -23,11 +23,11 @@ print(sorted({m.split(".")[0] for m in sys.modules}))
 
 REFERENCE_ONLY = """
 import sys, torch
-from portbench.reference.model import Reference
-from portbench.weights import make_weights
 from portbench.tests import tiny
 c = tiny.cell()
-ref = Reference(c.dims, make_weights(c.dims, 1, "cpu"), c.traffic["cache"])
+arch = c.arch
+ref = arch.Reference(c.dims, arch.make_weights(c.dims, 1, "cpu"), c.traffic["cache"],
+                     checked=arch.checked_layer(c.dims))
 ref.follow([[7] * 70], [[9, 10, 11]])
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
@@ -51,9 +51,15 @@ def test_the_reference_loads_nothing_of_the_program():
     assert not loaded & (JAX_SIDE | {PROGRAM})
 
 
-def imports_of(path: Path) -> set:
+def imports_of(path: Path, skip: tuple = ()) -> set:
+    """Top-level names a file imports, leaving out the bodies of the
+    functions named in ``skip``."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name in skip:
+            node.body = []
     names = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -67,6 +73,11 @@ def test_no_source_of_the_benchmark_names_the_jax_side():
 
 
 def test_reference_check_and_weights_import_nothing_of_the_program():
+    """Nor does an architecture module, but for its ``port_config``, which
+    builds the program's ``ModelConfig`` and which the check never calls."""
     for path in [*(spec.HERE / "reference").glob("*.py"), spec.HERE / "check.py",
-                 spec.HERE / "weights.py", spec.HERE / "roofline.py", spec.HERE / "traffic.py"]:
+                 spec.HERE / "weights.py", spec.HERE / "roofline.py", spec.HERE / "traffic.py",
+                 spec.HERE / "spec.py"]:
         assert PROGRAM not in imports_of(path), path
+    for path in (spec.HERE / "arch").glob("*.py"):
+        assert PROGRAM not in imports_of(path, skip=("port_config",)), path

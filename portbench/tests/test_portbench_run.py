@@ -80,3 +80,47 @@ def test_fails_without_the_program(tmp_path):
                        cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0
     assert p.stdout.strip() == ""
+
+
+def test_the_programs_tracer_runs_in_the_traced_round_alone(monkeypatch):
+    """``--trace 1``: the program's tracer runs around the profiler's round
+    and its launch counters are read around it, into ``Context.spans`` and
+    ``Context.launches``, which a reader added as a file can read (here a
+    probe that counts the ``generate.call`` spans). ``--trace 0`` never
+    starts the tracer."""
+    from cold_compress_tpu_torch.runtime import trace as program_trace
+
+    starts = []
+    real_start = program_trace.start
+
+    def start(*args, **kw):
+        starts.append(kw)
+        return real_start(*args, **kw)
+
+    monkeypatch.setattr(program_trace, "start", start)
+    seen = []
+
+    def probe(ctx):
+        seen.append(ctx)
+        return None if ctx.spans is None else sum(s["name"] == "generate.call" for s in ctx.spans)
+
+    real_reader = run.metrics.reader
+    monkeypatch.setattr(run.metrics, "reader",
+                        lambda name: probe if name == "probe_calls" else real_reader(name))
+    cell = tiny.cell()
+    entry = {"name": "probe_calls", "unit": "calls"}
+    cell.end_to_end, cell.per_layer = cell.end_to_end + [entry], cell.per_layer + [entry]
+
+    untraced = run.run_cell(cell, 31, 0.0, False, device="cpu")
+    assert not starts and seen[-1].spans is None and seen[-1].launches is None
+    assert "probe_calls" not in untraced["metrics"]
+
+    traced = run.run_cell(cell, 32, 0.0, True, device="cpu")
+    ctx = seen[-1]
+    assert starts == [{}]
+    assert program_trace.stop() == []  # stopped after the round
+    assert len(ctx.traced) == len(tiny.LENGTHS)  # one round: each call once
+    assert traced["metrics"]["probe_calls"]["value"] == len(ctx.traced)
+    assert {s["call"] for s in ctx.spans} == {s["id"] for s in ctx.spans
+                                              if s["name"] == "generate.call"}
+    assert isinstance(ctx.launches, dict)  # the CPU's plain versions count no launch

@@ -119,26 +119,26 @@ def summarize(events, top: int = 10) -> Dict:
                "kernels": {p: {n: list(v) for n, v in k.items()} for p, k in kernels.items()}}
     if not calls:
         return summary
-    w0, w1 = calls[0][0], calls[-1][1]
-    summary["window_s"] = (w1 - w0) * 1e-9
-    summary["busy_s"] = _busy(spans, w0, w1) * 1e-9
-    summary["breakdown"] = _breakdown(device, host, w0, w1, top)
+    win0, win1 = calls[0][0], calls[-1][1]
+    summary["window_s"] = (win1 - win0) * 1e-9
+    summary["busy_s"] = _busy(spans, win0, win1) * 1e-9
+    summary["breakdown"] = _breakdown(device, host, win0, win1, top)
     return summary
 
 
-def _breakdown(device, host, w0: int, w1: int, top: int) -> Dict:
+def _breakdown(device, host, win0: int, win1: int, top: int) -> Dict:
     """The device operations that took most time, and the idle gaps of the
     device by the innermost host operation running at each gap's middle."""
     by_name = defaultdict(float)
     for s, t, name in device:
-        if s >= w0 and t <= w1:
+        if s >= win0 and t <= win1:
             by_name[name[:200]] += (t - s) * 1e-9
     host.sort()
     starts = [s for s, _, _ in host]
     gaps = defaultdict(float)
-    cur = w0
-    for s, t, _ in device + [(w1, w1, "")]:
-        s, t = max(s, w0), min(t, w1)
+    cur = win0
+    for s, t, _ in device + [(win1, win1, "")]:
+        s, t = max(s, win0), min(t, win1)
         if s > cur:
             m = (cur + s) // 2
             k = bisect.bisect_right(starts, m)
