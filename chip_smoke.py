@@ -37,7 +37,16 @@ Phases; any failure raises and the script exits non-zero:
    rotate-and-insert (``hh_evict_insert``) at B = 4, and at B = 4 over
    Qwen2-7B's 4 KV heads of 7 queries;
    K4 also at GPTQ's calibration shape (10 sequences of 512, no
-   summaries), beside SDPA; and one tensor-parallel rank's shapes at
+   summaries), beside SDPA; Mellum2-12B-A2.5B's kernels at its shapes: the
+   grouped expert GEMV (``ops/moe.py::moe_decode``, its two launches per
+   group of up to 8 lanes) at B = 1, 4 and 16 lanes of top 8 of 64 experts
+   (dim 2304, width 896; lanes sharing experts) against its plain version,
+   with its counter of the experts read and its bound from their bytes,
+   K4's window entry
+   (``flash_prefill_window``) at 4 lanes of 16384 rows with a 1024-key
+   window beside K4's causal pass 1, and K7's ring insert
+   (``hh_evict_insert`` with ``window=1024``) at 4 lanes over 4 KV heads of
+   8 queries, bit for bit; and one tensor-parallel rank's shapes at
    tp = 2 and 4 (phase 5 launches them): K1 at the four projections' shards
    (wqkv and w13 a tp-th of the columns, wo and w2 of the inputs), K2 at a
    tp-th of the vocabulary, decode attention kv8 pooled in its i8dot branch
@@ -106,6 +115,14 @@ Phases; any failure raises and the script exits non-zero:
      dequantizing kv8 pooled variant: its cache length is off the i8dot
      gate) and the fused insert at that run's B = 4 and cache length, against their
      plain versions;
+   - Mellum2-12B-A2.5B at full size (random int4 weights and head):
+     ``generate_batch`` over four lanes of 8064 tokens, kv8 heavy_hitter
+     with SnapKV at C = 2048 on its 7 full layers and a 1024-slot ring on
+     each of its 21 sliding layers, 64 tokens each replayed, with its exact
+     launch witness (2 x 28 grouped expert GEMV launches, 21 ring inserts
+     and 7 fused inserts a step; 21 windowed and 7 causal K4 launches a
+     prefill), the distinct experts read per layer and step, every ring
+     the last 1024 positions, then 16 steps of the graph against eager;
    with ``--profile``, after each run, the wall and device time and the
    device operations of a few more decode steps, eager and replayed, and
    ``generate()``'s decode time per step without and with the per-step
@@ -374,7 +391,7 @@ def record(records, name, counter, source, replaces, err, tol, ratio, ms, plain_
            b_ms, b_by, library_ms, **extra):
     records.append(dict(
         name=name, counter=counter, route="cuda", source=f"{CSRC}/{source}",
-        replaces=f"{REPO_TPU}/{replaces}", max_abs_err=err, tol=tol,
+        replaces=f"{REPO_TPU}/{replaces}" if replaces else None, max_abs_err=err, tol=tol,
         max_err_over_tol=ratio, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=library_ms, **extra,
     ))
@@ -1311,6 +1328,243 @@ def check_w4a8_gemm(dev, records):
                bit_equal_across_launches=same, dense_matmul_ms=dense_ms, int_mm_ms=int_mm_ms,
                also_replaces=f"{REPO_TPU}/ops/pallas_qmm.py:1100")
         del wg, sz, x, y
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, Mellum2-12B-A2.5B: the grouped expert GEMV, K4's window entry and
+# K7's ring insert at its shapes
+# ---------------------------------------------------------------------------
+
+#: Mellum2-12B-A2.5B's expert layer (dim, expert width, experts, top k, int4
+#: group size) and attention (query heads, KV heads, window).
+M2 = dict(D=2304, F=896, E=64, K=8, gs=128, H=32, KVH=4, W=1024)
+M2_NAME, M2_LANES = "Mellum2-12B-A2.5B", 4
+M2_RUN = f"{M2_NAME} generate_batch ({M2_LANES} lanes, kv8 heavy_hitter C 2048, 1024-slot rings)"
+MOE_KERNELS = ("moe_w4a8_gemv_kernel",)
+
+
+def m2_experts(dev, gen):
+    """One layer's 64 random int4 experts in the grouped GEMV's layout."""
+    from cold_compress_tpu_torch.ops import moe
+
+    D, F, gs = M2["D"], M2["F"], M2["gs"]
+
+    def leaf(IN, OUT):
+        w = torch.randint(-128, 128, (IN // 2, OUT), dtype=torch.int8, device=dev, generator=gen)
+        s = torch.rand((IN // gs, OUT), device=dev, generator=gen) * 3e-3 + 1e-3
+        z = s * torch.rand((IN // gs, OUT), device=dev, generator=gen)
+        return {"w": w, "scales": s.to(torch.bfloat16), "zeros": z.to(torch.bfloat16),
+                "group_size": gs}
+
+    return moe.MoEWeights.from_experts([{"w1": leaf(D, F), "w3": leaf(D, F), "w2": leaf(F, D)}
+                                        for _ in range(M2["E"])])
+
+
+def m2_ids(dev, gen, B: int):
+    """B lanes' top-8 expert ids of 64 (distinct within a lane), every lane
+    after the first taking lane 0's first three."""
+    E, K = M2["E"], M2["K"]
+    ids = [torch.randperm(E, device=dev, generator=gen)[:K].tolist()]
+    for _ in range(1, B):
+        rest = [e for e in torch.randperm(E, device=dev, generator=gen).tolist()
+                if e not in ids[0][:3]]
+        ids.append(ids[0][:3] + rest[:K - 3])
+    return torch.tensor(ids, dtype=torch.long, device=dev)
+
+
+def check_moe_gemv(dev, records, B: int):
+    """The grouped expert GEMV (``ops/moe.py::moe_decode``: gate and up with
+    SwiGLU, then down with the weighted combine) at Mellum2's widths, B
+    lanes of top 8 of 64 experts, every lane after the first sharing three
+    of lane 0's experts (at B = 16 in two groups of 8 lanes, a launch pair
+    each): against ``moe_decode_plain`` (K1's plain function per pair), the
+    layer's counter up by each group's distinct experts, the same bits
+    twice, exactly two kernels per group a call (graph nodes), timed over
+    id sets that move the experts read from call to call (each distinct
+    expert's leaves then come from device memory), beside the bound of the
+    bytes of the experts the groups read."""
+    from cold_compress_tpu_torch.ops import moe
+
+    D, F, E, K = M2["D"], M2["F"], M2["E"], M2["K"]
+    gen = torch.Generator(device=dev).manual_seed(60 + B)
+    mw = m2_experts(dev, gen)
+    x = torch.randn((B, D), device=dev, generator=gen).to(torch.bfloat16)
+    ids = m2_ids(dev, gen, B)
+    wts = torch.softmax(torch.randn((B, K), device=dev, generator=gen), -1)
+    arrive = moe.arrive_buffer(D, dev)
+    layer = 0
+    groups = range(0, B, moe.MAX_LANES)
+
+    def read(ids):  # the experts the groups read
+        return sum(len(set(ids[g:g + moe.MAX_LANES].reshape(-1).tolist())) for g in groups)
+
+    distinct = read(ids)
+    c0 = int(moe.expert_counter(dev)[layer])
+    y = moe.moe_decode(x, ids, wts, mw, layer=layer, arrive=arrive)
+    counted = int(moe.expert_counter(dev)[layer]) - c0
+    ref = moe.moe_decode_plain(x, ids, wts, mw)
+    torch.cuda.synchronize()
+    # Exact int8 x int4 group dots on both sides; the f32 order of the group
+    # terms differs, so a gate or up result can round one bf16 unit apart
+    # before SwiGLU, and the down product over 896 inputs carries that: one
+    # bf16 unit of the element plus 2**-6 of the row's largest
+    # (tests/test_torch_mellum2.py holds the same).
+    err, ratio, tol = bf16_out_err(y, ref, 2**-6)
+    same = torch.equal(y, moe.moe_decode(x, ids, wts, mw, layer=layer, arrive=arrive))
+    rows_max = max(collections.Counter(ids.reshape(-1).tolist()).values())
+    name = "moe_gemv" + (f"@L{B}" if B > 1 else "")
+    log(f"[check] {name} D={D} F={F} E={E} K={K} B={B}: {distinct} experts read (counter "
+        f"{counted}), at most {rows_max} lanes on one; max_abs_err={err:.3e}, max err/tol "
+        f"{ratio:.3f} (tol {tol}); two calls bit-equal {same}; arrival buffer zero "
+        f"{int(arrive.abs().sum()) == 0}")
+    assert ratio <= 1, f"{name}: the kernels disagree with the plain version"
+    assert same and counted == distinct and int(arrive.abs().sum()) == 0, name
+    nodes = graph_nodes_per_call(lambda i: moe.moe_decode(x, ids, wts, mw, layer=layer,
+                                                          arrive=arrive))
+    mine, n_torch, other = own_and_torch(nodes, MOE_KERNELS)
+    assert mine == {"moe_w4a8_gemv_kernel": 2 * len(groups)} and n_torch == 0 and not other, \
+        f"{name}: device operations per call {dict(nodes)}"
+
+    # Id sets for timing: at B = 1 eight disjoint sets cover the 64 experts;
+    # at larger B fresh draws, each with lane 0's three shared.
+    n = 8
+    if B == 1:
+        perm = torch.randperm(E, device=dev, generator=gen)
+        sets = [perm[K * i:K * (i + 1)][None].contiguous() for i in range(n)]
+    else:
+        sets = [m2_ids(dev, gen, B) for _ in range(n)]
+    per = [read(s) for s in sets]
+    ms = time_ms(lambda i: moe.moe_decode(x, sets[i % n], wts, mw, layer=layer, arrive=arrive),
+                 64)
+    plain_ms = time_ms(lambda i: moe.moe_decode_plain(x, sets[i % n], wts, mw), 2, 1)
+    expert_bytes = sum(t[0].numel() * t.element_size() for t in mw.tensors())
+    mean_distinct = sum(per) / n
+    # Each distinct expert's leaves once; x, ids and weights, h written and
+    # read, the down rows' f32 workspace written and read, out.
+    nbytes = (mean_distinct * expert_bytes + 2 * B * D + 12 * B * K + 2 * 2 * B * K * F
+              + 2 * 4 * B * K * D + 2 * B * D)
+    b_ms, b_by = bound(nbytes, 2 * B * K * 3 * D * F, "int8")
+    log(f"[time] {name}: {ms:.4f} ms for both launches (bound {b_ms:.4f} ms by {b_by}: "
+        f"{mean_distinct:.2f} experts of {expert_bytes} bytes read a call; "
+        f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, library: none; "
+        f"launch floor {launch_floor_ms():.4f} ms")
+    record(records, name, "moe_gemv.w13", "moe_gemv.cu", None, err, tol, ratio, ms, plain_ms,
+           b_ms, b_by, None, B=B, D=D, F=F, E=E, K=K, experts_read=mean_distinct,
+           expert_bytes=expert_bytes, device_kernels_per_call=sum(nodes.values()),
+           launch_floor_ms=launch_floor_ms(), from_run=M2_RUN)
+    del mw
+
+
+def check_flash_prefill_window(dev, records, B: int = M2_LANES, P: int = 16384,
+                               plen: int = 16256):
+    """K4's window entry (``flash_prefill_window``) at the Mellum2 cell's
+    long call: B lanes of a ``plen``-token prompt in a P-row bucket, 32
+    query heads over 4 KV heads, a 1024-key window; y against the plain
+    version (``chunked_prefill_partial`` with the window) on the prompt's
+    rows, the same bits twice, one kernel per call (graph nodes), timed
+    beside its bound (the window's (query, key) pairs) and beside K4's
+    causal pass 1 on the same inputs."""
+    from cold_compress_tpu_torch.ops import prefill_attn
+    from cold_compress_tpu_torch.ops.attention import chunked_prefill_partial
+
+    H, KVH, W, D = M2["H"], M2["KVH"], M2["W"], 128
+    gen = torch.Generator(device=dev).manual_seed(70 + B)
+    q = torch.randn((B, H, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn((B, KVH, P, D), device=dev, generator=gen).to(torch.bfloat16)
+    y = prefill_attn.flash_prefill_window(q, k, v, W)
+    same = torch.equal(y, prefill_attn.flash_prefill_window(q, k, v, W))
+    ref, _, _ = chunked_prefill_partial(q, k, v, plen, window=W)
+    torch.cuda.synchronize()
+    # As K4: the kernel rounds the unnormalised probabilities to bf16 per
+    # tile, the plain version the normalised ones.
+    err, ratio, tol = bf16_out_err(y[:, :, :plen], ref[:, :, :plen], 2**-7)
+    del ref
+    name = "flash_prefill_window" + (f"@B{B}" if B > 1 else "")
+    log(f"[check] {name} P={P} prompt_len={plen} window={W}: y max_abs_err={err:.3e}, max "
+        f"err/tol {ratio:.3f} (tol {tol}); two calls bit-equal {same}")
+    assert ratio <= 1 and same, f"{name} disagrees with its plain version"
+    nodes = graph_nodes_per_call(lambda i: prefill_attn.flash_prefill_window(q, k, v, W))
+    mine, n_torch, other = own_and_torch(nodes, ("flash_fwd_kernel",))
+    assert mine == {"flash_fwd_kernel": 1} and not other, \
+        f"{name}: device operations per call {dict(nodes)}"
+    ms = time_ms(lambda i: prefill_attn.flash_prefill_window(q, k, v, W), 5, 1)
+    causal_ms = time_ms(lambda i: prefill_attn.flash_pass1(q, k, v), 5, 1)
+    plain_ms = time_ms(lambda i: chunked_prefill_partial(q, k, v, plen, window=W), 1, 1)
+    pairs = B * H * sum(min(i + 1, W) for i in range(P))  # (query, key) pairs in the window
+    nbytes = 2 * (2 * B * H * P * D + 2 * B * KVH * P * D)
+    b_ms, b_by = bound(nbytes, 4 * D * pairs, "bf16")
+    log(f"[time] {name}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; "
+        f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s), K4's causal pass 1 on the same inputs "
+        f"{causal_ms:.3f} ms, plain {plain_ms:.3f} ms, library: none; {sum(nodes.values())} "
+        f"device operations per call ({n_torch} PyTorch's)")
+    record(records, name, "flash_prefill_window", "flash_prefill.cu",
+           "ops/pallas_prefill.py:167", err, tol, ratio, ms, plain_ms, b_ms, b_by, None, B=B,
+           P=P, window=W, causal_pass1_ms=causal_ms, device_kernels_per_call=sum(nodes.values()),
+           from_run=M2_RUN)
+    del q, k, v, y
+
+
+def check_window_insert(dev, records):
+    """K7's ring insert (``hh_evict_insert(window=1024)``, entry
+    ``window_insert``) at Mellum2's sliding layers: four lanes, 4 KV heads of
+    8 queries, a 1024-slot kv8 ring, lanes at positions before, on and past
+    the ring's first wrap; against its plain version on the same tensors
+    over six steps (q, the slot and every cache tensor the same bits), the
+    slot each lane's position mod 1024, timed beside its bound."""
+    from cold_compress_tpu_torch.caches import init_state
+    from cold_compress_tpu_torch.caches.base import CacheSpec
+    from cold_compress_tpu_torch.models.rope import precompute_freqs_cis
+    from cold_compress_tpu_torch.ops import evict
+
+    B, KVH, W, D = M2_LANES, M2["KVH"], M2["W"], 128
+    G = M2["H"] // KVH
+    H = KVH * G
+    spec = CacheSpec(cache_strategy="window", max_cache_length=W, max_seq_length=4 * W,
+                     global_tokens=0, recent_window=W, cache_bits=8,
+                     prompt_compression_strategy="recent_global")
+    gen = torch.Generator(device=dev).manual_seed(80 + B)
+    card = init_state(spec, B, KVH, D, device=dev)
+    plain = init_state(spec, B, KVH, D, device=dev)
+    freqs = precompute_freqs_cis(4 * W, D, 5e5, device=dev)
+    pos = torch.tensor([1000, 1023, 2047, 3000], dtype=torch.int32, device=dev)
+    same, slots = True, True
+    for step in range(6):
+        y = torch.randn((B, 1, (H + 2 * KVH) * D), device=dev, generator=gen).to(torch.bfloat16)
+        f = freqs[(pos + step).long()][:, None]
+        q, idx = evict.hh_evict_insert(y, f, card, pos + step, n_head=H, n_kv_head=KVH, window=W)
+        qp, ip = evict.hh_evict_insert_plain(y, f, plain, pos + step, H, KVH, window=W)
+        torch.cuda.synchronize()
+        same = same and torch.equal(q, qp.contiguous()) and torch.equal(idx, ip) and all(
+            torch.equal(a, b) for a, b in zip(card.tensors(), plain.tensors()))
+        slots = slots and idx[:, 0].tolist() == [(p + step) % W for p in pos.tolist()]
+    name = f"hh_evict_insert.window@B{B}"
+    log(f"[check] {name} KVH={KVH} G={G} C={W}: q, slot and every cache tensor bit-equal over "
+        f"6 steps: {same}; slots at position mod {W}: {slots}")
+    assert same and slots, f"{name} disagrees with its plain version"
+    nodes = graph_nodes_per_call(lambda i: evict.hh_evict_insert(
+        y, f, card, pos, n_head=H, n_kv_head=KVH, window=W))
+    mine, n_torch, other = own_and_torch(nodes, ("hh_evict_kernel_insert",))
+    assert mine == {"hh_evict_kernel_insert": 1} and not other, \
+        f"{name}: device operations per call {dict(nodes)}"
+    # Reads: the projection's row, the rope row, the position; writes: q, two
+    # 128-byte rows, four side scalars, pos, mask, the count and the slot.
+    nbytes = (2 * D * B * (H + 2 * KVH) + 4 * D * B + 4 * B + 2 * D * B * H
+              + B * KVH * (2 * D + 16 + 4 + 1 + 4 + 4))
+    n = copies_for(B * KVH * W * (2 * D + 25))
+    states = [card] + [init_state(spec, B, KVH, D, device=dev) for _ in range(n - 1)]
+    ms = time_ms(lambda i: evict.hh_evict_insert(y, f, states[i % n], pos, n_head=H,
+                                                 n_kv_head=KVH, window=W), 200)
+    plain_ms = time_ms(lambda i: evict.hh_evict_insert_plain(y, f, states[i % n], pos, H, KVH,
+                                                             window=W), 20)
+    b_ms, b_by = bound(nbytes, 0, "bf16")
+    log(f"[time] {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain {plain_ms:.4f} ms "
+        f"({sum(nodes.values())} device operations per fused call, {n_torch} PyTorch's), "
+        f"library: none; launch floor {launch_floor_ms():.4f} ms")
+    record(records, name, "hh_evict_insert.window", "hh_evict.cu", "ops/pallas_evict.py:57",
+           0.0, "bit-equal", 0.0, ms, plain_ms, b_ms, b_by, None, B=B, C=W, H=KVH, G=G,
+           device_kernels_per_call=sum(nodes.values()), launch_floor_ms=launch_floor_ms(),
+           from_run=M2_RUN)
 
 
 # ---------------------------------------------------------------------------
@@ -2749,6 +3003,112 @@ def batch_bench_run(cfg, model, dev, card, runs, main_seq, profile=False):
     return perf, seqs, info
 
 
+def m2_expected_launches(cfg, caches, steps: int, calls: int, i8dot) -> dict:
+    """Exact kernel launches of a Mellum2 ``generate_batch`` run of
+    ``steps`` decode steps after ``calls`` prefill calls: per step the two
+    attention projections (K1) and the grouped GEMV's two launches in every
+    layer, the head (and once per prefill call), decode attention per layer
+    at its cache's length and need of probabilities, the fused insert per
+    full layer and the ring insert per sliding layer; per prefill call K4
+    with summaries (SnapKV) per full layer and its window entry per sliding
+    layer. The experts' prefill launches no kernel of the port."""
+    from cold_compress_tpu_torch.caches import get_cache_strategy
+    from cold_compress_tpu_torch.ops import decode_attn
+
+    n = cfg.n_layer
+    want = {"w4a8_gemv.wqkv": n * steps, "w4a8_gemv.wo": n * steps, "moe_gemv.w13": n * steps,
+            "moe_gemv.w2": n * steps, "w4a8_gemv.head": steps + calls}
+    for c in caches:
+        ring = c.spec.cache_strategy == "window"
+        i8 = decode_attn.i8dot_route(i8dot, 8, c.k.shape[2], cfg.n_kv_head, cfg.head_dim)
+        for key, count in ((decode_attn.variant(
+                8, get_cache_strategy(c.spec.cache_strategy).needs_attn, i8), steps),
+                ("hh_evict_insert.window" if ring else "hh_evict_insert", steps),
+                ("flash_prefill_window" if ring else "flash_prefill_summary", calls)):
+            want[key] = want.get(key, 0) + count
+    return want
+
+
+def mellum2_run(dev, card, runs):
+    """Mellum2-12B-A2.5B at full size (28 layers, 64 experts, random int4
+    weights and head from seed 0) through ``generate_batch``: four lanes
+    of 8064 tokens (the benchmark cell's short call), kv8 heavy_hitter with
+    SnapKV at C = 2048 on the 7 full layers and a 1024-slot ring on each of
+    the 21 sliding layers; a warm-up call that captures the decode graph,
+    ``reset_caches``, then 64 tokens per lane replayed, with its exact
+    launch witness (every count zeroed just before the call and read just
+    after) and the grouped GEMV's distinct experts per layer and step;
+    every cache holding each position once, every ring exactly the last
+    1024; then 16 steps of the graph against eager."""
+    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.runtime.generate import generate_batch, reset_caches
+
+    context, prompt_len, new = 8192, 8064, 64
+    t0 = time.perf_counter()
+    cfg, model = build_model(M2_NAME, 0, dev, context)
+    build_s = time.perf_counter() - t0
+    kw = {"cache_strategy": ["heavy_hitter"], "max_cache_length": [2048],
+          "prompt_compression_strategy": ["heavy_hitter"], "global_tokens": 4,
+          "recent_window": 10, "cache_bits": 8}
+    rng = np.random.RandomState(19)
+    prompts = [rng.randint(5, cfg.vocab_size - 5, size=prompt_len).tolist()
+               for _ in range(M2_LANES)]
+    caches = make_caches(cfg, kw, context, dev, batch=M2_LANES)
+    rings = [c for c in caches if c.spec.cache_strategy == "window"]
+    assert len(rings) == 21 and all(c.spec.max_cache_length == M2["W"] for c in rings), M2_RUN
+    _, warm, _ = generate_batch(model, caches, prompts, 8, prefill_bucket=context)
+    log_capture(M2_RUN, warm, card)
+    reset_caches(caches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    seqs, info, caches = generate_batch(model, caches, prompts, new, prefill_bucket=context)
+    launches = kernel_launches()
+    perf, steps = info["perf_stats"], info["decode_steps"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert not info["decode_graph"]["captured"], f"{M2_RUN}: the timed run captured again"
+    experts = {k: v for k, v in launches.items() if k.startswith("moe_gemv.experts.")}
+    rest = {k: v for k, v in launches.items() if k not in experts}
+    per_step = [experts.get(f"moe_gemv.experts.{i}", 0) / steps for i in range(cfg.n_layer)]
+    log(f"[e2e] {M2_RUN}: launches {json.dumps({k: v for k, v in rest.items() if v})}; "
+        f"launches per decode step {json.dumps({k: v / steps for k, v in rest.items() if v})}")
+    log(f"[e2e] {M2_RUN}: distinct experts read per decode step by layer "
+        f"{[round(v, 3) for v in per_step]} (mean {sum(per_step) / len(per_step):.3f}; uniform "
+        f"routing would give {64 * (1 - (56 / 64) ** M2_LANES):.3f})")
+    log(f"[e2e] {M2_RUN}: model built in {build_s:.1f} s; prompts {info['prompt_lengths']}, "
+        f"prefill {perf['prefill_seconds']:.4f} s for {perf['prefill_tokens']} tokens "
+        f"({perf['prefill_toks_per_sec']:.1f} tok/s); decode {perf['decode_toks_per_sec']:.3f} "
+        f"tok/s aggregate over {M2_LANES} lanes x {steps} steps (graph replays, "
+        f"{1e3 * perf['decode_seconds'] / steps:.3f} ms per step); capture "
+        f"{warm['decode_graph']['capture_seconds']:.3f} s; peak memory {peak_gb:.3f} GB  [{card}]")
+    assert steps == new - 1 and info["num_generated"] == [new] * M2_LANES, M2_RUN
+    assert len(experts) == cfg.n_layer and all(
+        M2["K"] <= v <= min(M2["E"], M2["K"] * M2_LANES) for v in per_step), M2_RUN
+    final = np.asarray(info["final_probs"])
+    assert final.shape == (M2_LANES, cfg.vocab_size) and np.all(np.isfinite(final)), M2_RUN
+    assert np.all(np.abs(final.sum(-1) - 1.0) < 1e-3), M2_RUN
+    last = prompt_len + new - 2  # each lane's last cached position
+    for b, p in enumerate(prompts):
+        gen = seqs[b][len(p):]
+        emitted = np.asarray(info["emitted_probs"][b])
+        assert seqs[b][: len(p)] == p and len(gen) == new, M2_RUN
+        assert all(0 <= t < cfg.vocab_size for t in gen), M2_RUN
+        assert emitted.shape == (new,) and np.all((emitted > 0) & (emitted <= 1)), M2_RUN
+        for c in caches:
+            pos = c.pos[b].cpu().numpy()
+            assert all(len(set(r[r >= 0].tolist())) == int((r >= 0).sum()) for r in pos)
+            assert int(c.cache_ct[b].min()) == min(c.spec.max_cache_length, len(p) + steps)
+            assert int(pos.max()) == last, M2_RUN
+        for c in rings:
+            assert all(sorted(r.tolist()) == list(range(last - M2["W"] + 1, last + 1))
+                       for r in c.pos[b].cpu()), f"{M2_RUN}: a ring holds other positions"
+    witness(M2_RUN, 2048, rest,
+            m2_expected_launches(cfg, caches, steps, 1, model.attn_i8dot), runs)
+    reset_caches(caches)
+    graph_matches_eager(M2_RUN, model, caches, prompts, dev)
+    return perf
+
+
 def eval_full_run(dev, card, runs):
     """The port's ``eval`` at full width: Llama-3-8B with random int4
     weights and head (``--random_quantize int4``), rulerniah, 8 samples, 4
@@ -3472,6 +3832,11 @@ def main() -> int:
     for windows in ((2457,), (819, 2457)):
         check_flash_profile_partial(dev, records, windows, sp_run_name(2, strategy="hybrid"))
     check_w4a8_gemm(dev, records)
+    # Mellum2-12B-A2.5B's own kernels (its run in phase 4 launches them).
+    for B in (1, M2_LANES, 16):
+        check_moe_gemv(dev, records, B)
+    check_flash_prefill_window(dev, records)
+    check_window_insert(dev, records)
     torch.cuda.empty_cache()
     log(f"[phase2] done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3499,6 +3864,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_decode(dev, records, 8, True, C_eval, B=BATCH, from_run=EVAL_RUN)
     check_hh_evict_insert(dev, records, B=BATCH, C=C_eval, from_run=EVAL_RUN)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mellum2_run(dev, card, runs)
+    log(f"[phase4] {M2_NAME} run done at {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     refs.update(bf16_reference(dev, card))

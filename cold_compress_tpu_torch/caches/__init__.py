@@ -1,6 +1,8 @@
 """Cache strategy registry of the port: ``full``, ``random``,
 ``recent_global``, ``l2``, ``keep_it_odd``, ``heavy_hitter``, the FastGen
-``hybrid`` and the ``debug_<name>`` attention-loss analysis wrappers."""
+``hybrid``, the ``debug_<name>`` attention-loss analysis wrappers, and
+``window``, the ring of a sliding-window layer (``caches/window.py``),
+which ``build_cache_specs`` gives such layers whatever policy is asked."""
 
 from .base import (
     CacheSpec,
@@ -43,6 +45,10 @@ def get_cache_strategy(name: str):
         from .hybrid import HybridCache
 
         return HybridCache
+    if name == "window":
+        from .window import WindowCache
+
+        return WindowCache
     if name not in CACHE_STRATEGIES:
         raise ValueError(f"Invalid cache strategy: {name}")
     return CACHE_STRATEGIES[name]

@@ -38,6 +38,16 @@
 // (batch, KV head)). At q_offset = 0, Pq = Pk = kv_rows every instruction is
 // the whole-prompt kernel's.
 //
+// A sliding-window layer's prefill (entry flash_fwd_window, pass 1 alone:
+// its cache keeps the last rows and needs no summaries) bounds each row on
+// the left too: key j is visible to the row at position i iff
+// i - window < j <= i. A CTA starts at the first key tile its first row's
+// window reaches, skipping every tile wholly left of its rows' windows,
+// and masks the keys left of a row's window in the edge tiles. A row's
+// first tiles can then be masked whole for it: its masked keys take weight
+// exp2(mask) = 0 there, and its first visible key (every row sees itself)
+// sets its maximum.
+//
 // A second entry point pair serves pallas_prefill.py::flash_profile (K6):
 // the same pass 1, and pass 2 instantiated over the FastGen profile's
 // accumulators: cum (every valid row) and, for up to four recent-window
@@ -180,11 +190,12 @@ __device__ __forceinline__ void scores_16x64(float (&s)[8][4], const uint32_t (&
   }
 }
 
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads1, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ y,
                  float* __restrict__ mbuf, float* __restrict__ ilbuf, int H, int KVH, int Pq,
-                 int q_offset, int kv_rows, float scale_log2) {
+                 int q_offset, int kv_rows, float scale_log2, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kBR1 * kStride;  // [kStages1][kTile]
@@ -201,7 +212,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int rowA = r0 + warp * 16 + gid, rowB = rowA + 8;
   const int posA = q_offset + rowA / G, posB = q_offset + rowB / G;
   const int first_pos = q_offset + r0 / G;
-  const int n_kb = (q_offset + (min(r0 + kBR1, nrows) - 1) / G) / kBK + 1;
+  const int last_pos = q_offset + (min(r0 + kBR1, nrows) - 1) / G;
+  const int n_kb = last_pos / kBK + 1;
+  // The first key tile any row's window reaches (0 without a window).
+  const int kb0 = kWindow ? max(0, first_pos - window + 1) / kBK : 0;
   const __nv_bfloat16* Kb = k + (size_t)bh * kv_rows * kD;
   const __nv_bfloat16* Vb = v + (size_t)bh * kv_rows * kD;
 
@@ -211,9 +225,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   load_q_tile<kBR1, kThreads1>(Qs, q, b, kvh, r0, H, G, Pq);
 #pragma unroll
   for (int t = 0; t < kStages1 - 1; ++t) {
-    if (t < n_kb) {
-      load_kv_tile<kBK, kThreads1>(Ks + t * kTile, Kb + (size_t)t * kBK * kD);
-      load_kv_tile<kBK, kThreads1>(Vs + t * kTile, Vb + (size_t)t * kBK * kD);
+    if (kb0 + t < n_kb) {
+      load_kv_tile<kBK, kThreads1>(Ks + t * kTile, Kb + (size_t)(kb0 + t) * kBK * kD);
+      load_kv_tile<kBK, kThreads1>(Vs + t * kTile, Vb + (size_t)(kb0 + t) * kBK * kD);
     }
     cp_async_commit();
   }
@@ -226,8 +240,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[dt][j] = 0.f;
 
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int st = kb % kStages1;
+  for (int kb = kb0; kb < n_kb; ++kb) {
+    const int st = (kb - kb0) % kStages1;
     cp_async_wait<kStages1 - 2>();
     // Tile kb is in, and every warp is past tile kb - 1, whose stage the
     // next copy reuses: one barrier per tile.
@@ -235,12 +249,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     {
       const int t = kb + kStages1 - 1;
       if (t < n_kb) {
-        load_kv_tile<kBK, kThreads1>(Ks + (t % kStages1) * kTile, Kb + (size_t)t * kBK * kD);
-        load_kv_tile<kBK, kThreads1>(Vs + (t % kStages1) * kTile, Vb + (size_t)t * kBK * kD);
+        const int ts = (t - kb0) % kStages1;
+        load_kv_tile<kBK, kThreads1>(Ks + ts * kTile, Kb + (size_t)t * kBK * kD);
+        load_kv_tile<kBK, kThreads1>(Vs + ts * kTile, Vb + (size_t)t * kBK * kD);
       }
       cp_async_commit();
     }
-    if (kb == 0) load_a_frags(qa, Qs, warp * 16, lane);
+    if (kb == kb0) load_a_frags(qa, Qs, warp * 16, lane);
 
     float s[8][4];
     scores_16x64(s, qa, Ks + st * kTile, lane);
@@ -259,6 +274,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         }
       }
     }
+    // Keys left of a row's window, in the tiles that reach left of the
+    // block's last row's window.
+    if (kWindow && kb * kBK <= last_pos - window) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = kb * kBK + nt * 8 + tig * 2 + j;
+          if (col <= posA - window) s[nt][j] = kNegInf;
+          if (col <= posB - window) s[nt][2 + j] = kNegInf;
+        }
+      }
+    }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -274,13 +302,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
     const float mn0 = fmaxf(m[0], mx0 * scale_log2), mn1 = fmaxf(m[1], mx1 * scale_log2);
     const float a0 = exp2f(m[0] - mn0), a1 = exp2f(m[1] - mn1);
+    // Under a window a row may see no key yet: its masked keys then take
+    // exp2(mask) = 0 (against its own maximum, the mask's value, the
+    // rounding of the product could give any power of two).
+    const float e0 = (kWindow && mn0 < 0.5f * kNegInf * scale_log2) ? 0.f : mn0;
+    const float e1 = (kWindow && mn1 < 0.5f * kNegInf * scale_log2) ? 0.f : mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        s[nt][j] = exp2f(fmaf(s[nt][j], scale_log2, -mn0));
-        s[nt][2 + j] = exp2f(fmaf(s[nt][2 + j], scale_log2, -mn1));
+        s[nt][j] = exp2f(fmaf(s[nt][j], scale_log2, -e0));
+        s[nt][2 + j] = exp2f(fmaf(s[nt][2 + j], scale_log2, -e1));
         sum0 += s[nt][j];
         sum1 += s[nt][2 + j];
       }
@@ -558,19 +591,39 @@ static bool block_ok(int B, int H, int KVH, int Pq, int Pk, int q_offset, int kv
 
 // Pass 1: y [B, H, Pq, D] bf16 and each folded row's m (base 2) and 1 / l,
 // [B, KVH, Pq*G] f32. scale_log2 = log2(e) / sqrt(D).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* y, void* mbuf,
-                         void* ilbuf, int B, int H, int KVH, int Pq, int Pk, int q_offset,
-                         int kv_rows, float scale_log2, void* stream) {
+template <bool kWindow>
+static int launch_fwd(const void* q, const void* k, const void* v, void* y, void* mbuf,
+                      void* ilbuf, int B, int H, int KVH, int Pq, int Pk, int q_offset,
+                      int kv_rows, float scale_log2, int window, void* stream) {
   if (!block_ok(B, H, KVH, Pq, Pk, q_offset, kv_rows)) return (int)cudaErrorInvalidValue;
   const int G = H / KVH;
   const size_t smem = (size_t)(kBR1 + 2 * kStages1 * kBK) * kStride * sizeof(__nv_bfloat16);
-  cudaError_t e = set_smem((const void*)flash_fwd_kernel, smem);
+  cudaError_t e = set_smem((const void*)flash_fwd_kernel<kWindow>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * KVH, (Pq * G + kBR1 - 1) / kBR1);
-  flash_fwd_kernel<<<grid, kThreads1, smem, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<kWindow><<<grid, kThreads1, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)y, (float*)mbuf, (float*)ilbuf, H, KVH, Pq, q_offset, kv_rows, scale_log2);
+      (__nv_bfloat16*)y, (float*)mbuf, (float*)ilbuf, H, KVH, Pq, q_offset, kv_rows, scale_log2,
+      window);
   return (int)cudaGetLastError();
+}
+
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* y, void* mbuf,
+                         void* ilbuf, int B, int H, int KVH, int Pq, int Pk, int q_offset,
+                         int kv_rows, float scale_log2, void* stream) {
+  return launch_fwd<false>(q, k, v, y, mbuf, ilbuf, B, H, KVH, Pq, Pk, q_offset, kv_rows,
+                           scale_log2, 0, stream);
+}
+
+// Pass 1 over a sliding window of `window` keys (>= 1): key j is visible to
+// the row at position i iff i - window < j <= i.
+extern "C" int flash_fwd_window(const void* q, const void* k, const void* v, void* y,
+                                void* mbuf, void* ilbuf, int B, int H, int KVH, int Pq, int Pk,
+                                int q_offset, int kv_rows, float scale_log2, int window,
+                                void* stream) {
+  if (window < 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd<true>(q, k, v, y, mbuf, ilbuf, B, H, KVH, Pq, Pk, q_offset, kv_rows,
+                          scale_log2, window, stream);
 }
 
 // Pass 2 and the reduction over segments. mode 0 (K4): out [2, B, KVH, Pk] =

@@ -36,6 +36,11 @@
 // thread for G <= 7, the V row in one warp) before the eviction's, so they
 // share its round trip; the rotation and both rows' quantization finish
 // before the argmin is known, which leaves only the stores after it.
+//
+// With window > 0 the same kernel inserts into a sliding-window layer's
+// ring (caches/window.py): the slot is input_pos mod window, given in place
+// of the eviction search, and there is no history to zero (num and denom
+// are null). Entry point window_insert.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -234,7 +239,7 @@ hh_evict_kernel_insert(const __nv_bfloat16* __restrict__ y,  // [B, ystride]: q 
                        __nv_bfloat16* __restrict__ q,        // [B, H * G, 1, 128]
                        int* __restrict__ idx,                // [B, H]
                        int H, int G, int C, int ystride, int fstride, int pstride,
-                       int global_tokens, int recent_window) {
+                       int global_tokens, int recent_window, int window) {
   __shared__ float sv[kWarps];
   __shared__ int si[kWarps], sp[kWarps];
   __shared__ float sk[kHeadDim];  // the rotated K row (bf16 values)
@@ -262,7 +267,13 @@ hh_evict_kernel_insert(const __nv_bfloat16* __restrict__ y,  // [B, ystride]: q 
     vx[2] = __low2float(v23);
     vx[3] = __high2float(v23);
   }
-  Best best = scan_row(num, denom, pos, row, C, input_pos - recent_window, global_tokens, tid);
+  Best best{__int_as_float(0x7f800000), C, -1};  // +inf
+  if (window == 0) {
+    best = scan_row(num, denom, pos, row, C, input_pos - recent_window, global_tokens, tid);
+  } else if (tid == 0) {  // the ring's slot; block_best hands it to every thread
+    const int s = input_pos % window;
+    best = Best{0.f, s, pos[row + s]};
+  }
 
   if (tid < npairs) rotate_pair(first, qb, sk, h, G, tid);
   for (int t = tid + kThreads; t < npairs; t += kThreads)  // G >= 8
@@ -291,8 +302,10 @@ hh_evict_kernel_insert(const __nv_bfloat16* __restrict__ y,  // [B, ystride]: q 
   cache_ct[(size_t)b * H + h] += best.p == -1;
   pos[slot] = input_pos;
   mask[slot] = true;
-  num[slot] = 0.0f;
-  denom[slot] = 0;
+  if (window == 0) {
+    num[slot] = 0.0f;
+    denom[slot] = 0;
+  }
   idx[(size_t)b * H + h] = best.i;
 }
 
@@ -324,6 +337,23 @@ extern "C" int hh_evict_insert(const void* y, const void* freqs, const void* ipo
       (int*)denom, (int*)pos, (bool*)mask, (int*)cache_ct, (uint8_t*)kc, (uint8_t*)vc,
       (float*)k_scales, (float*)k_zeros, (float*)v_scales, (float*)v_zeros,
       (__nv_bfloat16*)q, (int*)idx, H, G, C, ystride, fstride, pstride, global_tokens,
-      recent_window);
+      recent_window, 0);
+  return (int)cudaGetLastError();
+}
+
+// The insert into a sliding-window ring of C slots at slot input_pos mod C:
+// hh_evict_insert's arguments without the history and the eviction's.
+extern "C" int window_insert(const void* y, const void* freqs, const void* ipos, void* pos,
+                             void* mask, void* cache_ct, void* kc, void* vc, void* k_scales,
+                             void* k_zeros, void* v_scales, void* v_zeros, void* q, void* idx,
+                             int B, int H, int G, int C, int ystride, int fstride, int pstride,
+                             void* stream) {
+  if (B < 1 || H < 1 || G < 1 || C < 1 || ystride < (H * G + 2 * H) * kHeadDim)
+    return (int)cudaErrorInvalidValue;
+  hh_evict_kernel_insert<<<dim3(H, B), kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)y, (const float*)freqs, (const int*)ipos, nullptr, nullptr,
+      (int*)pos, (bool*)mask, (int*)cache_ct, (uint8_t*)kc, (uint8_t*)vc, (float*)k_scales,
+      (float*)k_zeros, (float*)v_scales, (float*)v_zeros, (__nv_bfloat16*)q, (int*)idx, H, G,
+      C, ystride, fstride, pstride, 0, 0, C);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "act_quant.cuh"
+#include "w4a8_dot.cuh"
 
 namespace {
 
@@ -117,25 +118,6 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
 __device__ __forceinline__ int xq_pos(int i) {
   const int o = i & (kPiece - 1);
   return (i - o) + (((o >> 4) & 7) * 32 + (o >> 7)) * 16 + (o & 15);
-}
-
-__device__ __forceinline__ int dot32(const int4& xa, const int4& xb, const uint4& w) {
-  const uint32_t m = 0x0F0F0F0Fu;
-  int d = __dp4a(xa.x, (int)(w.x & m), 0);
-  d = __dp4a(xa.y, (int)((w.x >> 4) & m), d);
-  d = __dp4a(xa.z, (int)(w.y & m), d);
-  d = __dp4a(xa.w, (int)((w.y >> 4) & m), d);
-  d = __dp4a(xb.x, (int)(w.z & m), d);
-  d = __dp4a(xb.y, (int)((w.z >> 4) & m), d);
-  d = __dp4a(xb.z, (int)(w.w & m), d);
-  return __dp4a(xb.w, (int)((w.w >> 4) & m), d);
-}
-
-// s * (d - 8 * xs) + z * xs for one group, d = sum xq * q over the group.
-__device__ __forceinline__ float group_term(int d, int xs, uint32_t sz) {
-  const float s = __uint_as_float(sz << 16);
-  const float z = __uint_as_float(sz & 0xFFFF0000u);
-  return s * (float)(d - 8 * xs) + z * (float)xs;
 }
 
 #ifdef GEMV_PHASES

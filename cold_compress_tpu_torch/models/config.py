@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def find_multiple(n: int, k: int) -> int:
@@ -20,13 +20,25 @@ def find_multiple(n: int, k: int) -> int:
 
 @dataclass(frozen=True)
 class RopeScaling:
-    """Llama-3.1 style RoPE frequency scaling (reference: model.py:124-130)."""
+    """RoPE frequency scaling: Llama-3.1's (``rope_type`` ``"llama3"``,
+    reference: model.py:124-130) or YaRN's (``"yarn"``, arXiv:2309.00071,
+    as ``transformers``' ``_compute_yarn_parameters``: ``beta_fast``,
+    ``beta_slow`` and ``attention_factor``, which multiplies cos and sin;
+    None takes ``0.1 ln(factor) + 1``)."""
 
     factor: float = 8.0
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
     original_max_position_embeddings: int = 8192
     rope_type: str = "llama3"
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: Optional[float] = None
+
+
+#: ``layer_types`` values (the published ``config.json``'s names).
+FULL_ATTENTION = "full_attention"
+SLIDING_ATTENTION = "sliding_attention"
 
 
 @dataclass(frozen=True)
@@ -35,7 +47,26 @@ class ModelConfig:
 
     Mirrors the fields of the reference ``ModelArgs`` (model.py:27-50) as
     an immutable dataclass. ``n_kv_head`` is the reference's
-    ``n_local_heads`` (GQA key/value head count).
+    ``n_local_heads`` (GQA key/value head count). ``head_dim`` is
+    ``dim // n_head`` unless ``explicit_head_dim`` gives it (Mellum2: 128
+    where 2304 / 32 is 72).
+
+    Fields the Llama family leaves at their defaults:
+
+    * ``layer_types`` (one per layer, ``FULL_ATTENTION`` or
+      ``SLIDING_ATTENTION``; None: every layer full) and ``sliding_window``:
+      a sliding layer's query at position i sees keys j with
+      ``i - sliding_window < j <= i``; its cache is a ring of exactly
+      ``sliding_window`` slots whatever policy the full layers take
+      (``runtime/engine.py::build_cache_specs``);
+    * ``rope_scaling`` scales the full layers' rope; the sliding layers take
+      plain rope at ``rope_base`` (Mellum2's ``rope_parameters``);
+    * ``n_experts`` > 0 makes the MLP of every layer that
+      ``mlp_layer_types`` marks ``"sparse"`` (None: every layer) a mixture
+      of experts: a router (softmax over ``n_experts`` in f32), the top
+      ``n_experts_per_tok``, their weights divided by their sum where
+      ``norm_topk_prob``, and SwiGLU experts of width
+      ``moe_intermediate_size``.
     """
 
     name: str = "unknown"
@@ -53,6 +84,14 @@ class ModelConfig:
     max_length: int = 4096
     rope_scaling: Optional[RopeScaling] = None
     tie_word_embeddings: bool = False
+    explicit_head_dim: Optional[int] = None
+    layer_types: Optional[Tuple[str, ...]] = None
+    sliding_window: Optional[int] = None
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    moe_intermediate_size: Optional[int] = None
+    norm_topk_prob: bool = True
+    mlp_layer_types: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         if self.n_kv_head == -1:
@@ -63,11 +102,33 @@ class ModelConfig:
             object.__setattr__(
                 self, "intermediate_size", find_multiple(n_hidden, 256)
             )
-        object.__setattr__(self, "head_dim", self.dim // self.n_head)
+        object.__setattr__(self, "head_dim", self.explicit_head_dim or self.dim // self.n_head)
+        for name in ("layer_types", "mlp_layer_types"):
+            kinds = getattr(self, name)
+            if kinds is not None:
+                object.__setattr__(self, name, tuple(kinds))
+                if len(kinds) != self.n_layer:
+                    raise ValueError(f"{name}: {len(kinds)} entries for {self.n_layer} layers")
+        if self.layer_types is not None:
+            if set(self.layer_types) - {FULL_ATTENTION, SLIDING_ATTENTION}:
+                raise ValueError(f"unknown layer types {set(self.layer_types)}")
+            if SLIDING_ATTENTION in self.layer_types and not self.sliding_window:
+                raise ValueError("sliding layers need a sliding_window")
+        if self.n_experts and not 0 < self.n_experts_per_tok <= self.n_experts:
+            raise ValueError(f"top-{self.n_experts_per_tok} of {self.n_experts} experts")
 
     @property
     def q_per_kv(self) -> int:
         return self.n_head // self.n_kv_head
+
+    def is_sliding(self, layer: int) -> bool:
+        """Whether ``layer`` attends over a sliding window."""
+        return self.layer_types is not None and self.layer_types[layer] == SLIDING_ATTENTION
+
+    def is_moe(self, layer: int) -> bool:
+        """Whether ``layer``'s MLP is a mixture of experts."""
+        return self.n_experts > 0 and (self.mlp_layer_types is None
+                                       or self.mlp_layer_types[layer] == "sparse")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -191,6 +252,57 @@ MODEL_CONFIGS = {
         attention_bias=True,
         norm_eps=1e-6,
         max_length=32768,
+    ),
+    # JetBrains/Mellum2-12B-A2.5B-Instruct (config.json on the hub): 28
+    # layers in periods of three sliding-window layers (default rope) and
+    # one full layer (YaRN over 8192 original positions), GQA 32/4 heads of
+    # 128, every MLP 64 SwiGLU experts of width 896, top 8 renormalised.
+    "Mellum2-12B-A2.5B": dict(
+        block_size=131072,
+        n_layer=28,
+        n_head=32,
+        n_kv_head=4,
+        dim=2304,
+        explicit_head_dim=128,
+        intermediate_size=7168,
+        vocab_size=98304,
+        rope_base=500000.0,
+        norm_eps=1e-6,
+        max_length=131072,
+        rope_scaling=RopeScaling(factor=16.0, original_max_position_embeddings=8192,
+                                 rope_type="yarn", beta_fast=32.0, beta_slow=1.0,
+                                 attention_factor=1.2772588722239782),
+        layer_types=tuple(FULL_ATTENTION if i % 4 == 3 else SLIDING_ATTENTION
+                          for i in range(28)),
+        sliding_window=1024,
+        n_experts=64,
+        n_experts_per_tok=8,
+        moe_intermediate_size=896,
+        norm_topk_prob=True,
+    ),
+    # One period of Mellum2's pattern at tiny widths (tests, CLI runs on the
+    # CPU): heads of 128 and a 128-token window, so that the kv8 caches'
+    # fused insert and the integer-dot decode attention take their paths.
+    "TestMellum2": dict(
+        block_size=512,
+        n_layer=4,
+        n_head=2,
+        n_kv_head=1,
+        dim=256,
+        explicit_head_dim=128,
+        intermediate_size=128,
+        vocab_size=512,
+        rope_base=500000.0,
+        norm_eps=1e-6,
+        max_length=512,
+        rope_scaling=RopeScaling(factor=4.0, original_max_position_embeddings=32,
+                                 rope_type="yarn", beta_fast=32.0, beta_slow=1.0,
+                                 attention_factor=1.1386294361119891),
+        layer_types=(SLIDING_ATTENTION,) * 3 + (FULL_ATTENTION,),
+        sliding_window=128,
+        n_experts=8,
+        n_experts_per_tok=4,
+        moe_intermediate_size=128,
     ),
     # Trained tiny fixture: a ~5M-param byte-level LM trained offline on
     # local text (scripts/train_tiny.py) so the converter→quantize→eval

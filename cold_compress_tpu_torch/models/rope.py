@@ -1,4 +1,4 @@
-"""Rotary position embeddings with Llama-3.1 frequency scaling.
+"""Rotary position embeddings with Llama-3.1 or YaRN frequency scaling.
 
 Port of ``cold_compress_tpu/models/rope.py``: interleaved-pair rotation
 (pairs (2i, 2i+1)), not rotate-half.
@@ -23,11 +23,15 @@ def precompute_freqs_cis(
     device=None,
 ) -> torch.Tensor:
     """Return a [seq_len, n_elem//2, 2] (cos, sin) table in f32, computed in
-    float64 numpy exactly as the reference does, then rounded once."""
+    float64 numpy exactly as the reference does, then rounded once. YaRN's
+    table holds cos and sin times its attention factor."""
     freqs = 1.0 / (base ** (np.arange(0, n_elem, 2)[: n_elem // 2] / n_elem))
-    if rope_scaling is not None:
+    mscale = 1.0
+    if rope_scaling is not None and rope_scaling.rope_type == "yarn":
+        freqs, mscale = yarn_freqs(freqs, n_elem, base, rope_scaling)
+    elif rope_scaling is not None:
         if rope_scaling.rope_type != "llama3":
-            raise ValueError("Only Llama 3.1 scaling is supported")
+            raise ValueError(f"rope scaling {rope_scaling.rope_type!r} (llama3 or yarn)")
         low_wl = (
             rope_scaling.original_max_position_embeddings
             / rope_scaling.low_freq_factor
@@ -51,8 +55,32 @@ def precompute_freqs_cis(
                 scaled.append((1 - smooth) * f / rope_scaling.factor + smooth * f)
         freqs = np.array(scaled)
     angles = np.outer(np.arange(seq_len), freqs)
-    table = np.stack([np.cos(angles), np.sin(angles)], axis=-1)
+    table = np.stack([np.cos(angles), np.sin(angles)], axis=-1) * mscale
     return torch.from_numpy(table.astype(np.float32)).to(device)
+
+
+def yarn_freqs(freqs: np.ndarray, n_elem: int, base: float, scaling: RopeScaling):
+    """YaRN's frequencies and attention factor (``transformers``'
+    ``_compute_yarn_parameters``, in float64): the correction dims
+    ``n ln(L / (beta 2 pi)) / (2 ln base)`` for ``beta_fast`` (floored) and
+    ``beta_slow`` (ceiled), clamped to [0, n - 1]; a linear ramp r between
+    them over the n / 2 frequencies; ``inv = (inv / factor) r + inv (1 - r)``;
+    the factor ``attention_factor`` or ``0.1 ln(factor) + 1``."""
+    L = scaling.original_max_position_embeddings
+
+    def dim(rotations: float) -> float:
+        return n_elem * math.log(L / (rotations * 2 * math.pi)) / (2 * math.log(base))
+
+    low = max(math.floor(dim(scaling.beta_fast)), 0)
+    high = min(math.ceil(dim(scaling.beta_slow)), n_elem - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(n_elem // 2, dtype=np.float64) - low) / (high - low), 0.0, 1.0)
+    inv = freqs / scaling.factor * ramp + freqs * (1.0 - ramp)
+    mscale = scaling.attention_factor
+    if mscale is None:
+        mscale = 0.1 * math.log(scaling.factor) + 1.0 if scaling.factor > 1 else 1.0
+    return inv, mscale
 
 
 def apply_rotary_emb(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:

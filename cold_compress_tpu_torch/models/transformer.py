@@ -9,6 +9,12 @@ reference's:
   * decode inserts the new token into the cache BEFORE attention;
   * prefill runs full causal attention FIRST, then (optionally) compresses
     the prompt and fills the cache.
+
+Beyond the Llama family's block (``ModelConfig``'s fields): a layer may
+attend over a sliding window (its own rope table, K4 with a left bound, a
+``window`` ring cache), and its MLP may be a mixture of experts
+(``MoE``: a bf16 router with f32 softmax, the top k, the grouped int4
+GEMV at decode, ``ops/moe.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..caches import (
 from ..device import resolve_device
 from ..ops.attention import gqa_attention, prefill_attention
 from ..ops.decode_attn import I8DOT_MODES, decode_attention, decode_attn_supported, i8dot_route
+from ..ops import moe as moe_ops
 from ..ops.linear import DenseLinear, Int8Linear, QuantizedLinear
 from ..runtime import trace
 from .config import ModelConfig
@@ -74,11 +81,44 @@ class FeedForward(nn.Module):
         self.w2 = make_linear(p["w2"], "w2")
 
 
+class MoE(nn.Module):
+    """A mixture of experts: the router ``[D, E]`` (bf16 values, held in
+    f32 for the f32 logits) and the experts in the grouped GEMV's layout
+    (``ops/moe.py::MoEWeights``; dense expert leaves are quantized to int4
+    group-128 first, the stated precision). ``layer`` indexes the layer's
+    distinct-experts counter."""
+
+    def __init__(self, p: Params, layer: int, top_k: int, norm_topk_prob: bool):
+        super().__init__()
+        experts = [{k: _int4_leaf(leaf) for k, leaf in ex.items()} for ex in p["experts"]]
+        mw = moe_ops.MoEWeights.from_experts(experts)
+        self.register_buffer("router", p["router"].float())
+        for name, t in zip(("w13", "sz13", "w2", "sz2"), mw.tensors()):
+            self.register_buffer(name, t)
+        self.gs13, self.gs2 = mw.gs13, mw.gs2
+        self.register_buffer("arrive", moe_ops.arrive_buffer(mw.w2.shape[1], mw.w2.device))
+        self.layer, self.top_k, self.norm_topk_prob = layer, top_k, norm_topk_prob
+
+    def weights(self) -> "moe_ops.MoEWeights":
+        return moe_ops.MoEWeights(self.w13, self.sz13, self.w2, self.sz2, self.gs13, self.gs2)
+
+
+def _int4_leaf(leaf):
+    if isinstance(leaf, dict):
+        return leaf
+    from ..quantization.weight_quant import quantize_weight_int4
+
+    return quantize_weight_int4(leaf, 128)
+
+
 class Block(nn.Module):
-    def __init__(self, p: Params):
+    def __init__(self, p: Params, cfg: ModelConfig, layer: int):
         super().__init__()
         self.attention = Attention(p["attn"])
-        self.feed_forward = FeedForward(p["ffn"])
+        if "moe" in p:
+            self.moe = MoE(p["moe"], layer, cfg.n_experts_per_tok, cfg.norm_topk_prob)
+        else:
+            self.feed_forward = FeedForward(p["ffn"])
         self.register_buffer("attention_norm", p["attention_norm"])
         self.register_buffer("ffn_norm", p["ffn_norm"])
 
@@ -98,7 +138,8 @@ class Transformer(nn.Module):
     only the prefill (``parallel/sp.py``, ``parallel/pp.py``); None
     otherwise."""
 
-    def __init__(self, cfg: ModelConfig, params: Params, rope: torch.Tensor):
+    def __init__(self, cfg: ModelConfig, params: Params, rope: torch.Tensor,
+                 rope_sliding: Optional[torch.Tensor] = None):
         super().__init__()
         self.cfg = cfg
         self.attn_i8dot = "auto"
@@ -106,15 +147,21 @@ class Transformer(nn.Module):
         self.sp = None
         self.pp = None
         self.register_buffer("tok_embeddings", params["tok_embeddings"])
-        self.layers = nn.ModuleList(Block(lp) for lp in params["layers"])
+        self.layers = nn.ModuleList(Block(lp, cfg, i) for i, lp in enumerate(params["layers"]))
         self.register_buffer("norm", params["norm"])
         out = params["output"]
         self.output = None if out is None else make_linear(out, "head")
         self.register_buffer("rope", rope)
+        self.register_buffer("rope_sliding", rope_sliding)
 
     @property
     def device(self) -> torch.device:
         return self.tok_embeddings.device
+
+    def layer_rope(self, layer: int) -> torch.Tensor:
+        """The rope table of ``layer``'s attention kind (the sliding layers'
+        own where the config has them)."""
+        return self.rope_sliding if self.cfg.is_sliding(layer) else self.rope
 
 
 def set_prefill_w4a8(model: Transformer, on: bool) -> None:
@@ -122,8 +169,9 @@ def set_prefill_w4a8(model: Transformer, on: bool) -> None:
     projections through the W4A8 prefill kernel (K8) instead of bf16
     dequantization. The head sees one row at prefill and stays on K2."""
     for layer in model.layers:
-        for lin in (layer.attention.wqkv, layer.attention.wo, layer.feed_forward.w13,
-                    layer.feed_forward.w2):
+        ffn = getattr(layer, "feed_forward", None)  # experts keep their bf16 prefill
+        for lin in (layer.attention.wqkv, layer.attention.wo) + (
+                () if ffn is None else (ffn.w13, ffn.w2)):
             if not isinstance(lin, QuantizedLinear):
                 raise ValueError("prefill_w4a8 needs int4 layer weights")
             lin.prefill_w4a8 = on
@@ -143,12 +191,15 @@ def set_attn_i8dot(model: Transformer, mode) -> None:
 
 
 def make_rope_table(cfg: ModelConfig, max_positions: Optional[int] = None,
-                    device=None) -> torch.Tensor:
-    """Rope rows for positions [0, n), truncated to the run's length."""
+                    device=None, sliding: bool = False) -> torch.Tensor:
+    """Rope rows for positions [0, n), truncated to the run's length: the
+    full layers' table (``cfg.rope_scaling``), or with ``sliding`` the
+    sliding layers' (plain rope)."""
     n = cfg.block_size
     if max_positions is not None:
         n = min(n, max(int(max_positions), 16))
-    return precompute_freqs_cis(n, cfg.head_dim, cfg.rope_base, cfg.rope_scaling, device)
+    scaling = None if sliding else cfg.rope_scaling
+    return precompute_freqs_cis(n, cfg.head_dim, cfg.rope_base, scaling, device)
 
 
 # --------------------------------------------------------------------------
@@ -179,6 +230,33 @@ def feed_forward(ffn: FeedForward, x: torch.Tensor, prefill: bool = False) -> to
     return _linear(prefill, ffn.w2, nn.functional.silu(y[..., :F]) * y[..., F:])
 
 
+def route(moe: MoE, x: torch.Tensor):
+    """The router over rows x [N, D] bf16: f32 logits against the bf16
+    router, softmax in f32, the top k (ids int64, descending), their
+    probabilities divided by their sum where ``norm_topk_prob``."""
+    probs = torch.softmax(torch.matmul(x.float(), moe.router), dim=-1)
+    wts, ids = torch.topk(probs, moe.top_k, dim=-1)
+    if moe.norm_topk_prob:
+        wts = wts / wts.sum(dim=-1, keepdim=True)
+    return ids, wts
+
+
+def moe_forward(moe: MoE, x: torch.Tensor, prefill: bool = False) -> torch.Tensor:
+    """The experts' output for x [B, L, D] bf16: ``sum_e w_e W2_e(silu(W1_e
+    x) * W3_e x)`` over each row's routed experts; a prefill's router,
+    dispatch, experts and combine under one ``prefill.moe`` span."""
+    B, L, D = x.shape
+    rows = x.reshape(B * L, D)
+    if not prefill:
+        ids, wts = route(moe, rows)
+        y = moe_ops.moe_decode(rows.contiguous(), ids, wts, moe.weights(), layer=moe.layer,
+                               arrive=moe.arrive)
+        return y.reshape(B, L, D)
+    with trace.span("prefill.moe", device=True):
+        ids, wts = route(moe, rows)
+        return moe_ops.moe_prefill(rows, ids, wts, moe.weights()).reshape(B, L, D)
+
+
 def _qkv(cfg: ModelConfig, attn: Attention, x: torch.Tensor, freqs: torch.Tensor,
          prefill: bool = False):
     """Project + rotate. x [B, L, D] -> q [B,H,L,hd], k/v [B,KVH,L,hd]."""
@@ -192,12 +270,13 @@ def _qkv(cfg: ModelConfig, attn: Attention, x: torch.Tensor, freqs: torch.Tensor
 
 
 def attention_prefill(cfg, attn: Attention, x, cache: CacheState, input_pos, valid,
-                      prompt_len, freqs, tokens=None):
+                      prompt_len, freqs, tokens=None, window: int = 0):
     """Prefill attention + cache fill: full causal attention first, then
     prompt compression when the budget is below the padded prompt length.
     A profiling strategy (hybrid) replaces both by one attention pass that
     also profiles the heads (K6), then fills from the profile; ``tokens``
-    [B, P] are the ids it classifies."""
+    [B, P] are the ids it classifies. ``window`` > 0: a sliding layer's
+    attention (the row at i sees keys j with ``i - window < j <= i``)."""
     spec = cache.spec
     strategy = get_cache_strategy(spec.cache_strategy)
     compressor = get_prompt_compressor(spec.prompt_compression_strategy)
@@ -212,7 +291,8 @@ def attention_prefill(cfg, attn: Attention, x, cache: CacheState, input_pos, val
             compress and compressor.needs_attn
         )
         with trace.span("prefill.attn", device=True):
-            y, summary = prefill_attention(q, k, v, valid, prompt_len, need_summary=need_summary)
+            y, summary = prefill_attention(q, k, v, valid, prompt_len, need_summary=need_summary,
+                                           window=window)
         fill_from_kv(strategy, compressor, cache, k, v, summary, input_pos, valid, prompt_len)
     y = y.transpose(1, 2).reshape(B, P, cfg.n_head * cfg.head_dim)
     return _linear(True, attn.wo, y)
@@ -303,8 +383,10 @@ def _block(cfg, layer: Block, x, attn_out, tp=None, prefill: bool = False):
     summed over the tp group first (the JAX package's two ``psum``s)."""
     total = (lambda y: y) if tp is None else tp.all_reduce
     h = x + total(attn_out)
-    return h + total(feed_forward(layer.feed_forward, rms_norm(h, layer.ffn_norm, cfg.norm_eps),
-                                  prefill))
+    hn = rms_norm(h, layer.ffn_norm, cfg.norm_eps)
+    if hasattr(layer, "moe"):
+        return h + moe_forward(layer.moe, hn, prefill)
+    return h + total(feed_forward(layer.feed_forward, hn, prefill))
 
 
 def _logits(model: Transformer, x: torch.Tensor, prefill: bool = False) -> torch.Tensor:
@@ -343,12 +425,12 @@ def prefill(model: Transformer, caches: Sequence[CacheState], tokens: torch.Tens
     input_pos = torch.arange(P, dtype=torch.int32, device=dev)
     plen = torch.as_tensor(prompt_len, dtype=torch.int32, device=dev).reshape(-1)
     valid = (input_pos[None, :] < plen[:, None]).expand(B, P)
-    freqs = model.rope[:P]
     x = _embed(model, tokens)
-    for layer, cache in zip(model.layers, caches):
+    for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         attn_out = attention_prefill(
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
-            cache, input_pos, valid, prompt_len, freqs, tokens=tokens,
+            cache, input_pos, valid, prompt_len, model.layer_rope(i)[:P], tokens=tokens,
+            window=cfg.sliding_window if cfg.is_sliding(i) else 0,
         )
         x = _block(cfg, layer, x, attn_out, model.tp, prefill=True)
     last = x[torch.arange(B, device=dev), plen.expand(B).long() - 1]
@@ -368,12 +450,15 @@ def decode_step(model: Transformer, caches: Sequence[CacheState], token: torch.T
     B = token.shape[0]
     if not isinstance(input_pos, torch.Tensor):
         input_pos = torch.full((B,), int(input_pos), dtype=torch.int32, device=token.device)
-    freqs = model.rope[input_pos.reshape(-1).long()][:, None]  # [1 or B, 1, hd/2, 2]
+    rows = input_pos.reshape(-1).long()
+    freqs = model.rope[rows][:, None]  # [1 or B, 1, hd/2, 2]
+    freqs_sliding = None if model.rope_sliding is None else model.rope_sliding[rows][:, None]
     x = _embed(model, token[:, None])
-    for layer, cache in zip(model.layers, caches):
+    for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         attn_out = attention_decode(
             cfg, layer.attention, rms_norm(x, layer.attention_norm, cfg.norm_eps),
-            cache, input_pos, freqs, attn_top_k, token=token, i8dot=model.attn_i8dot,
+            cache, input_pos, freqs_sliding if cfg.is_sliding(i) else freqs, attn_top_k,
+            token=token, i8dot=model.attn_i8dot,
         )
         x = _block(cfg, layer, x, attn_out, model.tp)
     return _logits(model, x)[:, 0]
@@ -427,6 +512,8 @@ def fuse_layer_params(params: Params) -> Params:
             attn["wqkv"] = _concat_leaves([attn.pop("wq"), attn.pop("wk"), attn.pop("wv")])
             if "bq" in attn:
                 attn["bqkv"] = torch.cat([attn.pop("bq"), attn.pop("bk"), attn.pop("bv")], -1)
+        if "ffn" not in lp:  # a mixture of experts (``MoE`` repacks it)
+            return {**lp, "attn": attn}
         ffn = dict(lp["ffn"])
         if "w1" in ffn:
             ffn["w13"] = _concat_leaves([ffn.pop("w1"), ffn.pop("w3")])
@@ -441,7 +528,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``dtype``) in the JAX package's ``init_params`` layout: the same shapes,
     dtypes and order, unfused, norms one, biases zero. The values come from
     ``generator`` (seeded 0 when omitted) on ``device``, not from JAX's
-    keys; parity with the JAX package goes through checkpoints."""
+    keys; parity with the JAX package goes through checkpoints. A layer
+    with experts (``cfg.is_moe``) holds ``moe``: ``{"router": [D, E],
+    "experts": [{"w1", "w3", "w2"}] * E}`` in place of ``ffn``."""
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
     D, H, KVH, hd, I = cfg.dim, cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.intermediate_size
@@ -457,9 +546,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             attn |= {"bq": torch.zeros(H * hd, dtype=dtype, device=dev),
                      "bk": torch.zeros(KVH * hd, dtype=dtype, device=dev),
                      "bv": torch.zeros(KVH * hd, dtype=dtype, device=dev)}
+        if cfg.is_moe(len(layers)):
+            F = cfg.moe_intermediate_size
+            mlp = {"moe": {"router": dense(D, cfg.n_experts),
+                           "experts": [{"w1": dense(D, F), "w3": dense(D, F),
+                                        "w2": dense(F, D)} for _ in range(cfg.n_experts)]}}
+        else:
+            mlp = {"ffn": {"w1": dense(D, I), "w3": dense(D, I), "w2": dense(I, D)}}
         layers.append({
             "attn": attn,
-            "ffn": {"w1": dense(D, I), "w3": dense(D, I), "w2": dense(I, D)},
+            **mlp,
             "attention_norm": torch.ones(D, dtype=dtype, device=dev),
             "ffn_norm": torch.ones(D, dtype=dtype, device=dev),
         })

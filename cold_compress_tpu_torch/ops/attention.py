@@ -70,15 +70,26 @@ def prefill_attention(
     need_summary: bool = False,
     obs_len: int = 16,
     chunk_size: int = 256,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, Optional[AttnSummary]]:
-    """Full causal self-attention over a (padded) prompt.
+    """Full causal self-attention over a (padded) prompt; with ``window``
+    > 0 a sliding window's (the row at position i sees keys j with
+    ``i - window < j <= i``), which takes no summary.
 
     Shapes the flash kernel takes (``ops/prefill_attn.py``: head_dim 128,
     P a multiple of its 64-row blocks) go to it (K4); others take the
     chunked math below, as the JAX package's gate routes them."""
     B, H, P, D = q.shape
-    from .prefill_attn import flash_prefill, flash_prefill_supported
+    from .prefill_attn import flash_prefill, flash_prefill_supported, flash_prefill_window
 
+    if window:
+        if need_summary:
+            raise ValueError("a sliding-window prefill takes no attention summary")
+        if flash_prefill_supported(q.shape):
+            return flash_prefill_window(q, k, v, window), None
+        y, _, _ = chunked_prefill_partial(q, k, v, prompt_len, chunk_size=chunk_size,
+                                          window=window)
+        return y, None
     if flash_prefill_supported(q.shape):
         return flash_prefill(
             q, k, v, prompt_len, need_summary=need_summary, obs_len=obs_len
@@ -123,9 +134,10 @@ def finalize_summary(cum, obs, plen, P: int, obs_len: int) -> AttnSummary:
 
 
 def chunked_prefill_partial(q, k, v, prompt_len, q_offset=0, need_summary=False,
-                            obs_len=16, chunk_size=256):
+                            obs_len=16, chunk_size=256, window=0):
     """Chunked causal attention for a query block at global position
-    ``q_offset`` against the full key/value sequence.
+    ``q_offset`` against the full key/value sequence (with ``window`` > 0,
+    only the keys j with ``i - window < j <= i`` for the row at i).
 
     Returns (y [B, H, Pq, D], cum [B, KVH, P], obs [B, KVH, P]): y from
     bf16 operands with f32 scores and softmax and the normalized
@@ -151,6 +163,8 @@ def chunked_prefill_partial(q, k, v, prompt_len, q_offset=0, need_summary=False,
         q_pos = q_offset + c0 + torch.arange(n, device=dev)
         scores = torch.einsum("bkgld,bksd->bkgls", qc, kf) * scale
         causal = key_pos[None, :] <= q_pos[:, None]  # [n, P]
+        if window:
+            causal = causal & (key_pos[None, :] > q_pos[:, None] - window)
         scores = scores.masked_fill(~causal[None, None, None], NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         y_c = torch.einsum(

@@ -24,7 +24,10 @@ each KV head, the kv8 quantization of the rotated K row and of the V row,
 and the insert at the evicted slot (rows, scales, zeros, position, mask bit,
 filled count), in one launch where the eager step took about 70 operations
 a layer. Its plain version is that eager composite, and the kernel rounds
-where it rounds: the same bits.
+where it rounds: the same bits. With ``window=W`` it inserts into a
+sliding-window layer's ring instead (``caches/window.py``): the slot is the
+position mod W, given in place of the eviction search, and there is no
+history (entry ``window_insert``, counter ``hh_evict_insert.window``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 from . import _build
 
 #: Launch count of the CUDA kernel (incremented only where it launches).
-LAUNCHES = {"hh_evict": 0, "hh_evict_insert": 0}
+LAUNCHES = {"hh_evict": 0, "hh_evict_insert": 0, "hh_evict_insert.window": 0}
 
 
 def hh_evict_plain(num, denom, pos, input_pos, global_tokens: int,
@@ -97,12 +100,14 @@ def hh_evict(num, denom, pos, input_pos, *, global_tokens: int,
     return idx
 
 
-def hh_evict_insert_plain(y, freqs, state, input_pos, n_head: int, n_kv_head: int):
+def hh_evict_insert_plain(y, freqs, state, input_pos, n_head: int, n_kv_head: int,
+                          window: int = 0):
     """Plain version of ``hh_evict_insert``, in place: the fused projection
     y [B, 1, (H + 2 KVH) hd] split and rotated (``models/rope.py``), the
-    eviction (``hh_evict_plain``) and the insert of the rotated K row and
-    the V row (``caches/base.py::insert_rows``). Returns q [B, H, 1, hd]
-    and idx [B, KVH] int32."""
+    eviction (``hh_evict_plain``; with ``window`` the slot position mod
+    ``window``) and the insert of the rotated K row and the V row
+    (``caches/base.py::insert_rows``). Returns q [B, H, 1, hd] and idx
+    [B, KVH] int32."""
     from ..caches.base import input_pos_b11, insert_rows
     from ..models.rope import split_rotate_qkv
 
@@ -110,8 +115,11 @@ def hh_evict_insert_plain(y, freqs, state, input_pos, n_head: int, n_kv_head: in
     q, k, v = split_rotate_qkv(y, freqs, n_head, n_kv_head, head_dim)
     spec = state.spec
     ipos = input_pos_b11(input_pos, y.shape[0], state.pos.device)
-    idx = hh_evict_plain(state.extra["attn_num"], state.extra["attn_denom"], state.pos, ipos,
-                         spec.global_tokens, spec.recent_window)
+    if window:
+        idx = (ipos[:, :, 0].long() % window).expand(state.pos.shape[:2]).to(torch.int32)
+    else:
+        idx = hh_evict_plain(state.extra["attn_num"], state.extra["attn_denom"], state.pos,
+                             ipos, spec.global_tokens, spec.recent_window)
     insert_rows(state, idx, ipos, k[:, :, 0], v[:, :, 0])
     return q, idx
 
@@ -124,9 +132,20 @@ def _insert_lib():
     return fn
 
 
-def hh_evict_insert(y, freqs, state, input_pos, *, n_head: int, n_kv_head: int):
+def _window_lib():
+    fn = _build.library("hh_evict").window_insert
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def hh_evict_insert(y, freqs, state, input_pos, *, n_head: int, n_kv_head: int,
+                    window: int = 0):
     """Decode's rotate, evict and insert for one layer's one-slot
-    heavy-hitter kv8 cache ``state``, in place (see the module docstring).
+    heavy-hitter kv8 cache ``state``, in place (see the module docstring);
+    with ``window`` the insert into a sliding-window ring of that many
+    slots (``state.pos``'s C) at the position mod ``window``.
     ``y`` [B, 1, (H + 2 KVH) 128] is the fused q|k|v projection, ``freqs``
     the rope rows [1 or B, 1, 64, 2] at the lanes' positions, ``input_pos``
     a 0-d or [B] tensor or an int. Returns q [B, H, 1, 128] and the
@@ -135,19 +154,24 @@ def hh_evict_insert(y, freqs, state, input_pos, *, n_head: int, n_kv_head: int):
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
     any input it does not take raises."""
     if y.device.type == "cpu":
-        return hh_evict_insert_plain(y, freqs, state, input_pos, n_head, n_kv_head)
+        return hh_evict_insert_plain(y, freqs, state, input_pos, n_head, n_kv_head, window)
     B, H, C = state.pos.shape
     D = 128
     if state.spec.cache_bits != 8 or H != n_kv_head or n_head % H:
         raise ValueError(f"hh_evict_insert: {n_head} heads over a {state.spec.cache_bits}-bit "
                          f"cache of {H} KV heads")
+    if window and window != C:
+        raise ValueError(f"hh_evict_insert: a window of {window} over a ring of {C} slots")
     ex = state.extra
     rows = (B, H, C)
+    history = {} if window else {
+        "attn_num": (ex.get("attn_num"), torch.float32, rows, 16),
+        "attn_denom": (ex.get("attn_denom"), torch.int32, rows, 16),
+    }
     want = {  # name: (tensor, dtype, shape, alignment in bytes)
         "y": (y, torch.bfloat16, (B, 1, (n_head + 2 * H) * D), 8),
         "freqs": (freqs, torch.float32, tuple(freqs.shape), 8),
-        "attn_num": (ex.get("attn_num"), torch.float32, rows, 16),
-        "attn_denom": (ex.get("attn_denom"), torch.int32, rows, 16),
+        **history,
         "pos": (state.pos, torch.int32, rows, 16),
         "mask": (state.mask, torch.bool, rows, 1),
         "cache_ct": (state.cache_ct, torch.int32, (B, H), 4),
@@ -176,14 +200,26 @@ def hh_evict_insert(y, freqs, state, input_pos, *, n_head: int, n_kv_head: int):
         raise ValueError(f"hh_evict_insert: input_pos {tuple(ipos.shape)} for batch {B}")
     q = torch.empty((B, n_head, 1, D), dtype=torch.bfloat16, device=y.device)
     idx = torch.empty((B, H), dtype=torch.int32, device=y.device)
+    strides = (B, H, n_head // H, C, y.shape[-1], 0 if freqs.numel() == D else D,
+               0 if ipos.numel() == 1 else 1)
+    if window:
+        status = _window_lib()(
+            y.data_ptr(), freqs.data_ptr(), ipos.data_ptr(), state.pos.data_ptr(),
+            state.mask.data_ptr(), state.cache_ct.data_ptr(), state.k.data_ptr(),
+            state.v.data_ptr(), state.k_scales.data_ptr(), state.k_zeros.data_ptr(),
+            state.v_scales.data_ptr(), state.v_zeros.data_ptr(), q.data_ptr(), idx.data_ptr(),
+            *strides, _build.stream_ptr(y.device),
+        )
+        _build.check(status, "window_insert")
+        LAUNCHES["hh_evict_insert.window"] += 1
+        return q, idx
     status = _insert_lib()(
         y.data_ptr(), freqs.data_ptr(), ipos.data_ptr(), ex["attn_num"].data_ptr(),
         ex["attn_denom"].data_ptr(), state.pos.data_ptr(), state.mask.data_ptr(),
         state.cache_ct.data_ptr(), state.k.data_ptr(), state.v.data_ptr(),
         state.k_scales.data_ptr(), state.k_zeros.data_ptr(), state.v_scales.data_ptr(),
         state.v_zeros.data_ptr(), q.data_ptr(), idx.data_ptr(),
-        B, H, n_head // H, C, y.shape[-1], 0 if freqs.numel() == D else D,
-        0 if ipos.numel() == 1 else 1, int(state.spec.global_tokens),
+        *strides, int(state.spec.global_tokens),
         int(state.spec.recent_window), _build.stream_ptr(y.device),
     )
     _build.check(status, "hh_evict_insert")

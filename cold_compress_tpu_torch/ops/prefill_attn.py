@@ -47,7 +47,7 @@ from .attention import NEG_INF, AttnSummary, chunked_prefill_partial, finalize_s
 
 #: Launch counts of the CUDA kernels (one per call; a call runs both passes).
 LAUNCHES = {"flash_prefill_summary": 0, "flash_profile": 0, "flash_prefill_partial": 0,
-            "flash_profile_partial": 0}
+            "flash_profile_partial": 0, "flash_prefill_window": 0}
 
 HEAD_DIM = 128
 BLOCK = 64
@@ -110,7 +110,7 @@ def colsum_items(P: int, G: int, prompt_len: int, q_offset: int = 0, Pk=None):
 
 #: C argument types after the pointers: (B, H, KVH, Pq, Pk, q_offset,
 #: kv_rows), the scale, then each entry's own ints, then the stream.
-_ARGS = {"flash_fwd": (6, 0), "flash_colsum": (7, 9)}
+_ARGS = {"flash_fwd": (6, 0), "flash_colsum": (7, 9), "flash_fwd_window": (6, 1)}
 
 
 def _fn(name):
@@ -186,6 +186,38 @@ def flash_pass1(q, k, v, q_offset: int = 0):
     )
     _build.check(status, "flash_fwd")
     return y, mbuf, ilbuf
+
+
+def flash_prefill_window(q, k, v, window: int):
+    """Pass 1 over a sliding window (``flash_fwd_window``): y [B, H, P, D]
+    of the whole prompt, the row at position i attending to keys j with
+    ``i - window < j <= i``. Key tiles wholly left of a CTA's rows' windows
+    are skipped, the edge tile masked. No summary: a window layer's cache
+    keeps the last rows. One count under ``flash_prefill_window``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, and
+    any input it does not take raises."""
+    _whole_prompt("flash_prefill_window", q, k)
+    if window < 1:
+        raise ValueError(f"flash_prefill_window: window {window}")
+    if q.device.type == "cpu":
+        y, _, _ = chunked_prefill_partial(q, k, v, q.shape[2], window=window)
+        return y
+    qb, kb, vb, _ = _check_block("flash_prefill_window", q, k, v, 0)
+    B, H, P, D = qb.shape
+    KVH = kb.shape[1]
+    dev = q.device
+    y = torch.empty((B, H, P, D), dtype=torch.bfloat16, device=dev)
+    mbuf = torch.empty((B, KVH, P * (H // KVH)), dtype=torch.float32, device=dev)
+    ilbuf = torch.empty_like(mbuf)
+    status = _fn("flash_fwd_window")(
+        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), y.data_ptr(), mbuf.data_ptr(),
+        ilbuf.data_ptr(), B, H, KVH, P, P, 0, kv_rows(kb), math.log2(math.e) / math.sqrt(D),
+        int(window), _build.stream_ptr(dev),
+    )
+    _build.check(status, "flash_fwd_window")
+    LAUNCHES["flash_prefill_window"] += 1
+    return y.to(q.dtype)
 
 
 def flash_pass2(q, k, mbuf, ilbuf, plen, obs_len: int = 16, window_lens=None,

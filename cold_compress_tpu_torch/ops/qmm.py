@@ -178,23 +178,25 @@ def _as_bf16(a: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_gemv(wg: torch.Tensor) -> torch.Tensor:
-    """Kernel-layout bytes [OUT, IN/2] -> unsigned nibbles [OUT, IN] uint8."""
-    OUT, IN2 = wg.shape
-    b = wg.reshape(OUT, IN2 // 4, 1, 4)
-    q = torch.cat([b & _MASK, b >> 4], dim=2)  # [OUT, IN/8, 2, 4]
-    return q.reshape(OUT, IN2 * 2)
+    """Kernel-layout bytes [..., OUT, IN/2] -> unsigned nibbles [..., OUT, IN]
+    uint8 (leading dimensions: a stack of weights, e.g. a layer's experts)."""
+    *lead, IN2 = wg.shape
+    b = wg.reshape(*lead, IN2 // 4, 1, 4)
+    q = torch.cat([b & _MASK, b >> 4], dim=-2)  # [..., OUT, IN/8, 2, 4]
+    return q.reshape(*lead, IN2 * 2)
 
 
 def dequantize_gemv(wg: torch.Tensor, sz: torch.Tensor, group_size: int,
                     dtype=torch.bfloat16) -> torch.Tensor:
-    """Dense [IN, OUT] weight from the kernel layout: ``(q - 8) * s + z`` in
-    f32, cast once to ``dtype`` (ops/linear.py::dequantize_weight's math).
-    Returned as a transposed view of an [OUT, IN] tensor."""
-    OUT = wg.shape[0]
-    q = unpack_gemv(wg).float().reshape(OUT, -1, group_size)
-    s = sz[..., 0].float()[:, :, None]
-    z = sz[..., 1].float()[:, :, None]
-    return ((q - 8.0) * s + z).reshape(OUT, -1).to(dtype).t()
+    """Dense [..., IN, OUT] weight from the kernel layout [..., OUT, IN/2]:
+    ``(q - 8) * s + z`` in f32, cast once to ``dtype``
+    (ops/linear.py::dequantize_weight's math). Returned as a transposed
+    view of an [..., OUT, IN] tensor."""
+    lead = wg.shape[:-1]
+    q = unpack_gemv(wg).float().reshape(*lead, -1, group_size)
+    s = sz[..., 0].float()[..., None]
+    z = sz[..., 1].float()[..., None]
+    return ((q - 8.0) * s + z).reshape(*lead, -1).to(dtype).transpose(-1, -2)
 
 
 def quantize_activations(x: torch.Tensor):

@@ -163,6 +163,9 @@ def build_rank_model(cfg: ModelConfig, params: Dict[str, Any], ctx,
     from ..runtime.engine import build_model
     from .mesh import SpContext
 
+    if cfg.n_experts or cfg.layer_types is not None:
+        raise ValueError(f"{cfg.name}: experts and sliding-window layers run on one card "
+                         "(the parallel layouts' prefills and shards take neither)")
     if isinstance(ctx, TpContext):
         return build_tp_model(cfg, params, ctx, max_positions, **build_kw)
     if isinstance(ctx, SpContext) and ctx.tp > 1:

@@ -177,9 +177,18 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0, mode: str = "int4",
         rand_q(p + "attn/wk/", D, KVH * hd)
         rand_q(p + "attn/wv/", D, KVH * hd)
         rand_q(p + "attn/wo/", H * hd, D)
-        rand_q(p + "ffn/w1/", D, I)
-        rand_q(p + "ffn/w3/", D, I)
-        rand_q(p + "ffn/w2/", I, D)
+        if cfg.is_moe(i):  # no JAX counterpart: router bf16, then each expert
+            F = cfg.moe_intermediate_size
+            router = rng.standard_normal((D, cfg.n_experts)).astype(np.float32) * 0.02
+            flat[p + "moe/router#bf16"] = bf16_bits(torch.from_numpy(router))
+            for e in range(cfg.n_experts):
+                rand_q(p + f"moe/experts/{e}/w1/", D, F)
+                rand_q(p + f"moe/experts/{e}/w3/", D, F)
+                rand_q(p + f"moe/experts/{e}/w2/", F, D)
+        else:
+            rand_q(p + "ffn/w1/", D, I)
+            rand_q(p + "ffn/w3/", D, I)
+            rand_q(p + "ffn/w2/", I, D)
         if cfg.attention_bias:
             flat[p + "attn/bq#bf16"] = np.full((H * hd,), zero_bits, np.uint16)
             flat[p + "attn/bk#bf16"] = np.full((KVH * hd,), zero_bits, np.uint16)

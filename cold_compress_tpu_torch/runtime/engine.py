@@ -63,23 +63,32 @@ def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
     recent windows and the global-token budget check. The hybrid options
     (``hybrid_strategies``, ``min_recovery_frac``) come from the cache
     options; ``token_ids`` (or ``cache_kwargs["token_ids"]``) gives the
-    ``special`` id sequences and ``punctuation`` ids hybrid keeps."""
+    ``special`` id sequences and ``punctuation`` ids hybrid keeps.
+
+    A sliding-window layer (``cfg.is_sliding``) takes no part in any of
+    that: its cache is a ``window`` ring of exactly ``cfg.sliding_window``
+    slots at the asked-for ``cache_bits``, its prompt compressed to the
+    last rows (``recent_global`` with no global tokens), whatever policy
+    and length were asked for; the asked-for ones govern the full layers,
+    tiled over them alone."""
     kw = dict(cache_kwargs)
+    full = [i for i in range(cfg.n_layer) if not cfg.is_sliding(i)]
+    n_policy = len(full) or cfg.n_layer
     lengths = [
         normalize_cache_length(length, max_seq_length)
         for length in _as_list(kw.get("max_cache_length", [1.0]))
     ]
-    lengths = apply_pattern(lengths, cfg.n_layer, kw.get("cache_length_pattern", "tile"),
+    lengths = apply_pattern(lengths, n_policy, kw.get("cache_length_pattern", "tile"),
                             max_seq_length=max_seq_length)
     strategy_pattern = kw.get("cache_strategy_pattern", "tile")
     strategies = apply_pattern(
-        _as_list(kw.get("cache_strategy", ["full"])), cfg.n_layer, strategy_pattern
+        _as_list(kw.get("cache_strategy", ["full"])), n_policy, strategy_pattern
     )
     for s in set(strategies):
         get_cache_strategy(s)  # fail fast on unknown names
     prompt_strategies = apply_pattern(
         _as_list(kw.get("prompt_compression_strategy", ["recent_global"])),
-        cfg.n_layer, strategy_pattern,
+        n_policy, strategy_pattern,
     )
     recent = kw.get("recent_window", 10)
     if not isinstance(recent, (list, tuple)):
@@ -98,7 +107,7 @@ def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
     token_ids = token_ids or kw.get("token_ids") or {}
     token_ids_special = tuple(tuple(int(t) for t in seq) for seq in token_ids.get("special", ()))
     token_ids_punc = tuple(int(t) for t in token_ids.get("punctuation", ()))
-    return tuple(
+    specs = [
         CacheSpec(
             cache_strategy=strategies[i],
             max_cache_length=int(lengths[i]),
@@ -114,12 +123,27 @@ def build_cache_specs(cfg: ModelConfig, cache_kwargs: Dict[str, Any],
             token_ids_special=token_ids_special,
             token_ids_punc=token_ids_punc,
         )
+        for i in range(n_policy)
+    ]
+    if len(full) == cfg.n_layer:
+        return tuple(specs)
+    policy = iter(specs)
+    return tuple(
+        CacheSpec(cache_strategy="window", max_cache_length=int(cfg.sliding_window),
+                  max_seq_length=int(max_seq_length), global_tokens=0,
+                  recent_window=int(cfg.sliding_window), cache_bits=kw.get("cache_bits"),
+                  prompt_compression_strategy="recent_global")
+        if cfg.is_sliding(i) else next(policy)
         for i in range(cfg.n_layer)
     )
 
 
 def min_cache_length(specs: Sequence[CacheSpec]) -> int:
-    return min(s.max_cache_length for s in specs)
+    """The smallest asked-for budget: that of the layers a policy governs
+    (a sliding layer's ring is its window, which evicts nothing a policy
+    would choose)."""
+    policy = [s for s in specs if s.cache_strategy != "window"] or specs
+    return min(s.max_cache_length for s in policy)
 
 
 def compute_max_seq_length(cfg: ModelConfig, prompt_lens: Sequence[int],
@@ -259,15 +283,19 @@ def load_model(checkpoint_path, precision: Optional[torch.dtype] = torch.bfloat1
 def build_model(cfg: ModelConfig, params: Dict[str, Any], device=None,
                 max_positions: Optional[int] = None, prefill_w4a8: bool = False,
                 attn_i8dot="auto") -> Transformer:
-    """Fuse q/k/v and w1/w3, repack int4 leaves into the kernel layout and
-    build the ``Transformer`` with a rope table for ``max_positions``.
+    """Fuse q/k/v and w1/w3, repack int4 leaves into the kernel layout (a
+    layer's experts into the grouped GEMV's, ``ops/moe.py``) and build the
+    ``Transformer`` with a rope table for ``max_positions`` (and the
+    sliding layers' own where the config has them).
     ``prefill_w4a8`` sends the int4 layer projections' prefill to the W4A8
     prefill kernel (K8; off by default, as in the JAX package);
     ``attn_i8dot`` is decode attention's ``i8dot`` mode
     (``models/transformer.py::set_attn_i8dot``)."""
     dev = resolve_device(device)
     rope = make_rope_table(cfg, max_positions, device=dev)
-    model = Transformer(cfg, fuse_layer_params(params), rope).to(dev)
+    rope_sliding = (make_rope_table(cfg, max_positions, device=dev, sliding=True)
+                    if any(map(cfg.is_sliding, range(cfg.n_layer))) else None)
+    model = Transformer(cfg, fuse_layer_params(params), rope, rope_sliding).to(dev)
     if prefill_w4a8:
         set_prefill_w4a8(model, True)
     set_attn_i8dot(model, attn_i8dot)

@@ -33,7 +33,10 @@ them): ``generate.call`` (``runtime/generate.py``: lanes, prompt lengths,
 bucket, steps); ``generate.prefill`` and ``generate.decode`` (the two
 phases ``perf_stats`` times, device); ``prefill.linear`` (each projection
 of a prefill and its head, ``models/transformer.py``, device);
-``prefill.attn`` (K4/K6 or their plain versions, device); ``prefill.cache``
+``prefill.moe`` (a mixture of experts' router, dispatch, experts and
+combine, ``models/transformer.py::moe_forward``, device; its projections
+are not in ``prefill.linear``); ``prefill.attn`` (K4/K6 or their plain
+versions, device); ``prefill.cache``
 (compression and the cache fill, device); ``decode.step`` (one step of
 ``decode_loop_core``: device events just before and after the replay);
 ``decode.launch`` (the graph's launch, host); ``decode.stop_read`` (the
@@ -310,7 +313,7 @@ def decode_readings(records: List[dict]) -> Optional[Dict[str, float]]:
     }
 
 
-PREFILL_PARTS = ("linear", "attn", "cache")
+PREFILL_PARTS = ("linear", "moe", "attn", "cache")
 
 
 def prefill_readings(records: List[dict]) -> Optional[Dict[str, float]]:
@@ -318,9 +321,10 @@ def prefill_readings(records: List[dict]) -> Optional[Dict[str, float]]:
     ``prefill_linear_ms`` and ``prefill_cache_ms`` (the median call's
     device ms in its ``prefill.linear`` / ``prefill.cache`` spans),
     ``calls``, and per call on average the prefill's device ms (``whole_ms``)
-    split into ``linear_ms``, ``attn_ms``, ``cache_ms`` and ``rest_ms`` (the
-    whole less the three: norms, rope, the embedding, the head's norm and
-    softmax, and the card's idle time). None without device times."""
+    split into ``linear_ms``, ``moe_ms`` (experts; only where the model
+    has them), ``attn_ms``, ``cache_ms`` and ``rest_ms`` (the whole less the
+    four: norms, rope, the embedding, the head's norm and softmax, and the
+    card's idle time). None without device times."""
     whole = {r["call"]: _dur(r) for r in records
              if r["name"] == "generate.prefill" and r["device"]}
     if not whole:
@@ -337,6 +341,8 @@ def prefill_readings(records: List[dict]) -> Optional[Dict[str, float]]:
     for k in PREFILL_PARTS:
         out[f"{k}_ms"] = sum(p[k] for p in parts.values()) / n * 1e-6
     out["rest_ms"] = out["whole_ms"] - sum(out[f"{k}_ms"] for k in PREFILL_PARTS)
+    if not out["moe_ms"]:  # a model without experts
+        del out["moe_ms"]
     return out
 
 
@@ -356,6 +362,7 @@ def log_lines(records: List[dict]) -> List[str]:
     if p:
         lines.append(
             f"prefill device ms per call (CUDA events, {p['calls']} calls): {p['whole_ms']!r} = "
-            f"linear {p['linear_ms']!r} + attention {p['attn_ms']!r} + cache "
-            f"{p['cache_ms']!r} + rest {p['rest_ms']!r}")
+            f"linear {p['linear_ms']!r} + "
+            + (f"experts {p['moe_ms']!r} + " if "moe_ms" in p else "")
+            + f"attention {p['attn_ms']!r} + cache {p['cache_ms']!r} + rest {p['rest_ms']!r}")
     return lines

@@ -1,0 +1,4 @@
+"""Tier-1 collects ``portbench/tests/test_portbench_faults.py`` (``tests/portbench_collect.py``)."""
+
+from portbench.tests.test_portbench_faults import *  # noqa: F401,F403
+from portbench_collect import jax_loaded_by_the_suite  # noqa: F401  (autouse)
