@@ -42,7 +42,12 @@ Phases; any failure raises and the script exits non-zero:
    group of up to 8 lanes) at B = 1, 4 and 16 lanes of top 8 of 64 experts
    (dim 2304, width 896; lanes sharing experts) against its plain version,
    with its counter of the experts read and its bound from their bytes,
-   K4's window entry
+   the expert layer's prefill (``ops/moe.py::moe_prefill``: the grouped
+   int4 GEMM's gate/up and down launches and the combine) at the cell's
+   4 x 8064 and 4 x 16256 rows against its plain version, exactly those
+   three kernels and no matmul in a captured call, each launch timed alone
+   beside its bound, its plain version and a per-expert cuBLAS loop over
+   the same rows and pre-dequantized weights, K4's window entry
    (``flash_prefill_window``) at 4 lanes of 16384 rows with a 1024-key
    window beside K4's causal pass 1, and K7's ring insert
    (``hh_evict_insert`` with ``window=1024``) at 4 lanes over 4 KV heads of
@@ -120,8 +125,9 @@ Phases; any failure raises and the script exits non-zero:
      with SnapKV at C = 2048 on its 7 full layers and a 1024-slot ring on
      each of its 21 sliding layers, 64 tokens each replayed, with its exact
      launch witness (2 x 28 grouped expert GEMV launches, 21 ring inserts
-     and 7 fused inserts a step; 21 windowed and 7 causal K4 launches a
-     prefill), the distinct experts read per layer and step, every ring
+     and 7 fused inserts a step; 21 windowed and 7 causal K4 launches and
+     3 x 28 of the experts' grouped GEMM and combine a prefill, no call of
+     their plain versions), the distinct experts read per layer and step, every ring
      the last 1024 positions, then 16 steps of the graph against eager;
    with ``--profile``, after each run, the wall and device time and the
    device operations of a few more decode steps, eager and replayed, and
@@ -1452,6 +1458,116 @@ def check_moe_gemv(dev, records, B: int):
            b_ms, b_by, None, B=B, D=D, F=F, E=E, K=K, experts_read=mean_distinct,
            expert_bytes=expert_bytes, device_kernels_per_call=sum(nodes.values()),
            launch_floor_ms=launch_floor_ms(), from_run=M2_RUN)
+    del mw
+
+
+MOE_GEMM_KERNELS = ("moe_gemm_kernel", "moe_combine_kernel")
+
+
+def check_moe_gemm(dev, records, N: int):
+    """The expert layer's prefill (``ops/moe.py::moe_prefill``) at
+    Mellum2's widths over N rows (the cell's four lanes of a call), top 8 of
+    64 experts by a random router: against ``moe_prefill_plain``, the same
+    bits twice, a captured call holding exactly the two grouped GEMM
+    launches and the combine beside PyTorch's dispatch ops (no matmul), then
+    each launch timed alone beside its bound (the GEMMs by bf16 operations,
+    the combine by bytes), its plain version, and, for the GEMMs, a
+    per-expert cuBLAS loop over the same sorted rows and weights dequantized
+    beforehand (each expert's rows padded to 256, as the layer ran before)."""
+    from cold_compress_tpu_torch.ops import moe, qmm
+
+    D, F, E, K = M2["D"], M2["F"], M2["E"], M2["K"]
+    gen = torch.Generator(device=dev).manual_seed(70 + N)
+    mw = m2_experts(dev, gen)
+    x = torch.randn((N, D), device=dev, generator=gen).to(torch.bfloat16)
+    logits = torch.randn((N, E), device=dev, generator=gen)
+    wts, ids = torch.topk(torch.softmax(logits, -1), K, dim=-1)
+    wts = wts / wts.sum(-1, keepdim=True)
+    y = moe.moe_prefill(x, ids, wts, mw)
+    ref = moe.moe_prefill_plain(x, ids, wts, mw)
+    torch.cuda.synchronize()
+    # Only each f32 sum's order differs (wgmma against cuBLAS): a gate or up
+    # product can round one bf16 unit apart before SwiGLU, and the down
+    # product carries that h unit as a share of one term.
+    err, ratio, tol = bf16_out_err(y, ref, 2**-8)
+    same = torch.equal(y, moe.moe_prefill(x, ids, wts, mw))
+    name = f"moe_gemm@N{N}"
+    log(f"[check] {name} D={D} F={F} E={E} K={K}: max_abs_err={err:.3e}, max err/tol "
+        f"{ratio:.3f} (tol {tol}); two calls bit-equal {same}")
+    assert ratio <= 1, f"{name}: the kernels disagree with the plain version"
+    assert same, name
+    nodes = graph_nodes_per_call(lambda i: moe.moe_prefill(x, ids, wts, mw))
+    mine, n_torch, other = own_and_torch(nodes, MOE_GEMM_KERNELS)
+    # The dispatch's sort runs PyTorch's cub kernels (and their memsets);
+    # no matmul kernel may run.
+    mm = {n: c for n, c in other.items()
+          if any(k in n.lower() for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas"))}
+    assert mine == {"moe_gemm_kernel": 2, "moe_combine_kernel": 1} and not mm, \
+        f"{name}: device operations per call {dict(nodes)}"
+    log(f"[check] {name}: a captured call runs {mine}, {n_torch} of PyTorch's own kernels and "
+        f"{sum(other.values())} other operations (cub's sort, memsets, copies), no matmul")
+    del ref
+
+    sched = moe.dispatch(ids, E)
+    h = torch.empty((N * K, F), dtype=torch.bfloat16, device=dev)
+    ys = torch.empty((N * K, D), dtype=torch.bfloat16, device=dev)
+    moe.moe_gemm(x, sched.src, sched.tiles, mw.w13, mw.sz13, mw.gs13, h, swiglu=True)
+    moe.moe_gemm(h, sched.pair, sched.tiles, mw.w2, mw.sz2, mw.gs2, ys, swiglu=False)
+    yv = ys.view(N, K, D)
+    t = {"dispatch": time_ms(lambda i: moe.dispatch(ids, E), 8),
+         "w13": time_ms(lambda i: moe.moe_gemm(x, sched.src, sched.tiles, mw.w13, mw.sz13,
+                                                mw.gs13, h, swiglu=True), 8),
+         "w2": time_ms(lambda i: moe.moe_gemm(h, sched.pair, sched.tiles, mw.w2, mw.sz2,
+                                               mw.gs2, ys, swiglu=False), 8),
+         "combine": time_ms(lambda i: moe.moe_combine(yv, wts), 8),
+         "layer": time_ms(lambda i: moe.moe_prefill(x, ids, wts, mw), 4)}
+    plain = {"w13": time_ms(lambda i: moe.moe_gemm_plain(
+                 x, sched.src, sched.tiles, mw.w13, mw.sz13, mw.gs13, h, swiglu=True), 1, 1),
+             "w2": time_ms(lambda i: moe.moe_gemm_plain(
+                 h, sched.pair, sched.tiles, mw.w2, mw.sz2, mw.gs2, ys, swiglu=False), 1, 1),
+             "combine": time_ms(lambda i: moe.combine(yv, wts), 2, 1),
+             "layer": time_ms(lambda i: moe.moe_prefill_plain(x, ids, wts, mw), 1, 1)}
+    # The yardstick: cuBLAS over the same sorted rows, weights dequantized
+    # beforehand, each expert's rows padded to 256 (one plan per size).
+    counts = torch.bincount(ids.reshape(-1), minlength=E).tolist()
+    offsets = [0]
+    for c in counts:
+        offsets.append(offsets[-1] + -(-c // 256) * 256)
+    xs = x.index_select(0, sched.src.long())
+    xs = torch.cat([xs, xs[:offsets[-1] - N * K]])  # padding rows, not read
+    hs = torch.cat([h, h[:offsets[-1] - N * K]])
+    w13d = qmm.dequantize_gemv(mw.w13, mw.sz13, mw.gs13)
+    w2d = qmm.dequantize_gemv(mw.w2, mw.sz2, mw.gs2)
+    gu = torch.empty((offsets[-1], 2 * F), dtype=torch.bfloat16, device=dev)
+    yl = torch.empty((offsets[-1], D), dtype=torch.bfloat16, device=dev)
+
+    def loop(a, w, out):
+        for e in range(E):
+            if offsets[e + 1] > offsets[e]:
+                torch.matmul(a[offsets[e]:offsets[e + 1]], w[e], out=out[offsets[e]:offsets[e + 1]])
+
+    lib = {"w13": time_ms(lambda i: loop(xs, w13d, gu), 4),
+           "w2": time_ms(lambda i: loop(hs, w2d, yl), 4)}
+    del xs, hs, w13d, w2d, gu, yl
+    ex13 = sum(t_.numel() * t_.element_size() for t_ in (mw.w13, mw.sz13))
+    ex2 = sum(t_.numel() * t_.element_size() for t_ in (mw.w2, mw.sz2))
+    work = {"w13": (2 * N * D + ex13 + 2 * N * K * F + 4 * N * K, 2 * N * K * D * 2 * F, "bf16"),
+            "w2": (2 * N * K * F + ex2 + 2 * N * K * D + 4 * N * K, 2 * N * K * F * D, "bf16"),
+            "combine": (2 * N * K * D + 4 * N * K + 2 * N * D, N * K * D * 2, "bf16")}
+    for part, counter in (("w13", "moe_gemm.w13"), ("w2", "moe_gemm.w2"),
+                          ("combine", "moe_combine")):
+        b_ms, b_by = bound(*work[part])
+        lib_ms = lib.get(part)
+        log(f"[time] {name} {part}: {t[part]:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"{100 * b_ms / t[part]:.1f}%; {work[part][1] / t[part] / 1e9:.1f} TFLOP/s), plain "
+            f"{plain[part]:.3f} ms, library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        record(records, f"{counter}@N{N}", counter, "moe_gemm.cu", None, err, tol, ratio,
+               t[part], plain[part], b_ms, b_by, lib_ms, N=N, D=D, F=F, E=E, K=K,
+               from_run=M2_RUN)
+    b_all = sum(bound(*work[p])[0] for p in work)
+    log(f"[time] {name} layer: {t['layer']:.4f} ms (dispatch {t['dispatch']:.4f} ms; the three "
+        f"bounds {b_all:.4f} ms), plain {plain['layer']:.3f} ms; "
+        f"x 28 layers: {28 * t['layer']:.1f} ms a call")
     del mw
 
 
@@ -3011,13 +3127,15 @@ def m2_expected_launches(cfg, caches, steps: int, calls: int, i8dot) -> dict:
     at its cache's length and need of probabilities, the fused insert per
     full layer and the ring insert per sliding layer; per prefill call K4
     with summaries (SnapKV) per full layer and its window entry per sliding
-    layer. The experts' prefill launches no kernel of the port."""
+    layer; per prefill call the experts' grouped GEMM (gate/up, down) and
+    combine per layer."""
     from cold_compress_tpu_torch.caches import get_cache_strategy
     from cold_compress_tpu_torch.ops import decode_attn
 
     n = cfg.n_layer
     want = {"w4a8_gemv.wqkv": n * steps, "w4a8_gemv.wo": n * steps, "moe_gemv.w13": n * steps,
-            "moe_gemv.w2": n * steps, "w4a8_gemv.head": steps + calls}
+            "moe_gemv.w2": n * steps, "w4a8_gemv.head": steps + calls,
+            "moe_gemm.w13": n * calls, "moe_gemm.w2": n * calls, "moe_combine": n * calls}
     for c in caches:
         ring = c.spec.cache_strategy == "window"
         i8 = decode_attn.i8dot_route(i8dot, 8, c.k.shape[2], cfg.n_kv_head, cfg.head_dim)
@@ -3040,7 +3158,7 @@ def mellum2_run(dev, card, runs):
     after) and the grouped GEMV's distinct experts per layer and step;
     every cache holding each position once, every ring exactly the last
     1024; then 16 steps of the graph against eager."""
-    from cold_compress_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from cold_compress_tpu_torch.ops import kernel_launches, moe, reset_kernel_launches
     from cold_compress_tpu_torch.runtime.generate import generate_batch, reset_caches
 
     context, prompt_len, new = 8192, 8064, 64
@@ -3062,8 +3180,15 @@ def mellum2_run(dev, card, runs):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_launches()
-    seqs, info, caches = generate_batch(model, caches, prompts, new, prefill_bucket=context)
+    plain_calls = []
+    real_plain = moe.moe_gemm_plain
+    moe.moe_gemm_plain = lambda *a, **k: plain_calls.append(1) or real_plain(*a, **k)
+    try:
+        seqs, info, caches = generate_batch(model, caches, prompts, new, prefill_bucket=context)
+    finally:
+        moe.moe_gemm_plain = real_plain
     launches = kernel_launches()
+    assert not plain_calls, f"{M2_RUN}: the experts' prefill took the plain version"
     perf, steps = info["perf_stats"], info["decode_steps"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert not info["decode_graph"]["captured"], f"{M2_RUN}: the timed run captured again"
@@ -3835,6 +3960,8 @@ def main() -> int:
     # Mellum2-12B-A2.5B's own kernels (its run in phase 4 launches them).
     for B in (1, M2_LANES, 16):
         check_moe_gemv(dev, records, B)
+    for plen in (8064, 16256):
+        check_moe_gemm(dev, records, M2_LANES * plen)
     check_flash_prefill_window(dev, records)
     check_window_insert(dev, records)
     torch.cuda.empty_cache()

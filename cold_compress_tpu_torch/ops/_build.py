@@ -23,7 +23,7 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("w4a8_gemv", "w8a8_gemv", "decode_attn", "hh_evict", "flash_prefill", "w4a8_gemm",
-           "moe_gemv")
+           "moe_gemv", "moe_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -23,24 +23,32 @@ which ``ops.kernel_launches`` reports as ``moe_gemv.experts.<layer>``; the
 second (down) combines the lanes' K rows in k order. Launch counters
 ``moe_gemv.w13`` and ``moe_gemv.w2``.
 
-Prefill (``moe_prefill``): every token's K pairs sorted by expert (one
-host read of the counts a layer), each expert's rows through its weights
-dequantized to bf16, the rows put back in pair order and combined as at
-decode. No token is dropped.
+Prefill (``moe_prefill``): every token's K pairs sorted by expert on the
+card (``dispatch``: a stable sort, each expert's first row and a schedule of
+tiles of at most ``TILE_ROWS`` rows of one expert, sized from N alone, so no
+host read), each expert's rows through its weights dequantized to bf16 (bf16
+products, f32 sums), SwiGLU, the rows put back in pair order and combined as
+at decode. No token is dropped. CUDA tensors take ``csrc/moe_gemm.cu``'s
+three launches a layer (counters ``moe_gemm.w13``, ``moe_gemm.w2`` and
+``moe_combine``): a grouped GEMM over the schedule that dequantizes the
+stored int4 leaves in registers, gathers the token rows by index and writes
+SwiGLU's bf16 h; the same over the down weights, each row written to its
+pair's place; one pass that combines each token's K rows in k order.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
 from . import _build, qmm
 
 #: Launch counts of the CUDA kernels (incremented only where they launch).
-LAUNCHES = {"moe_gemv.w13": 0, "moe_gemv.w2": 0}
+LAUNCHES = {"moe_gemv.w13": 0, "moe_gemv.w2": 0, "moe_gemm.w13": 0, "moe_gemm.w2": 0,
+            "moe_combine": 0}
 
 #: Lanes a decode launch takes (the kernel's rows of one expert; a larger
 #: batch launches in groups of this many lanes), and the longest input row
@@ -236,44 +244,157 @@ def moe_decode(x, ids, wts, mw: MoEWeights, *, layer: int, arrive=None) -> torch
 # --------------------------------------------------------------------------
 
 
-#: A prefill gives each expert a whole number of these rows (zeros past its
-#: own), so that its matmuls come in few shapes, whose cuBLAS plans are then
-#: found once (each new shape costs the host a heuristic search, with the
-#: card idle).
-PREFILL_ROWS = 256
+#: Rows of one expert a prefill tile holds (``csrc/moe_gemm.cu``'s kBN, the
+#: wgmma's N); an expert's last tile is masked at its rows.
+TILE_ROWS = 256
+#: Weight columns a GEMM item takes (the kernel's kBM) and inputs a step.
+ITEM_COLS, STEP_IN = 128, 64
+
+
+class Schedule(NamedTuple):
+    """A prefill's pairs sorted by expert (``dispatch``), all on ids' device.
+
+    ``pair`` int32 [N K]: the pair (``n K + k``) of each sorted row, each
+    expert's rows in token order; ``src`` int32 [N K]: its token;
+    ``offsets`` int64 [E + 1]: each expert's first sorted row; ``tiles``
+    int32 [slots, 3]: (expert, first sorted row, rows) of every tile of at
+    most ``tile`` rows of one expert, by expert and row, then unused slots
+    (expert E - 1, first N K, rows 0), ``slots`` = ceil(N K / tile) + E."""
+
+    pair: torch.Tensor
+    src: torch.Tensor
+    offsets: torch.Tensor
+    tiles: torch.Tensor
+
+
+def dispatch(ids: torch.Tensor, n_experts: int, tile: int = TILE_ROWS) -> Schedule:
+    """The schedule of a prefill's top-k ``ids`` [N, K] (int64) over
+    ``n_experts``: a stable sort of the pairs by expert, an exclusive cumsum
+    of the counts, and the tiles. Device ops only (no host read): the tile
+    list has ceil(N K / tile) + E slots, a bound on the tiles any counts
+    need."""
+    N, K = ids.shape
+    E, dev = n_experts, ids.device
+    flat = ids.reshape(-1)
+    keys, order = torch.sort(flat, stable=True)
+    experts = torch.arange(E + 1, device=dev, dtype=flat.dtype)
+    offsets = torch.searchsorted(keys, experts)  # exclusive cumsum of the counts
+    counts = offsets[1:] - offsets[:-1]
+    per = (counts + tile - 1) // tile
+    ends = torch.cumsum(per, 0)
+    slot = torch.arange(-(-N * K // tile) + E, device=dev, dtype=ends.dtype)
+    e = torch.searchsorted(ends, slot, right=True)  # E past the last tile
+    used = e < E
+    e = e.clamp(max=E - 1)
+    j = slot - (ends[e] - per[e])  # the tile's index within its expert
+    first = torch.where(used, offsets[e] + j * tile, N * K)
+    rows = torch.where(used, (counts[e] - j * tile).clamp(max=tile), 0)
+    tiles = torch.stack([e, first, rows], dim=1).to(torch.int32)
+    return Schedule(order.to(torch.int32), (order // K).to(torch.int32), offsets, tiles)
+
+
+def moe_gemm_plain(x, rowmap, tiles, w, sz, gs: int, out, *, swiglu: bool) -> None:
+    """Plain version of ``moe_gemm`` (any device; reads the schedule on the
+    host): each expert's tiles (consecutive sorted rows) as one bf16 matmul
+    over its weights dequantized to bf16 (``qmm.dequantize_gemv``, all
+    experts at once), with ``swiglu_pairs`` after gate and up."""
+    wd = qmm.dequantize_gemv(w, sz, gs)
+    spans: Dict[int, list] = {}
+    for e, first, rows in tiles.tolist():
+        if rows:
+            spans.setdefault(e, [first, first])[1] = first + rows
+    rowmap = rowmap.long()
+    for e, (a, b) in spans.items():
+        if swiglu:
+            out[a:b] = swiglu_pairs(torch.matmul(x.index_select(0, rowmap[a:b]), wd[e]))
+        else:
+            out[rowmap[a:b]] = torch.matmul(x[a:b], wd[e])
+
+
+def _prefill(x, ids, mw: MoEWeights, gemm) -> torch.Tensor:
+    """The rows y [N, K, D] of every pair, each expert's rows through
+    ``gemm`` twice over ``dispatch``'s schedule (the plain and the kernel
+    path share it)."""
+    N, K = ids.shape
+    D, F = mw.w2.shape[1], mw.w13.shape[1] // 2
+    sched = dispatch(ids, mw.n_experts)
+    h = torch.empty((N * K, F), dtype=torch.bfloat16, device=x.device)
+    gemm(x, sched.src, sched.tiles, mw.w13, mw.sz13, mw.gs13, h, swiglu=True)
+    y = torch.empty((N * K, D), dtype=torch.bfloat16, device=x.device)
+    gemm(h, sched.pair, sched.tiles, mw.w2, mw.sz2, mw.gs2, y, swiglu=False)
+    return y.view(N, K, D)
+
+
+def moe_prefill_plain(x, ids, wts, mw: MoEWeights) -> torch.Tensor:
+    """Plain version of ``moe_prefill`` (any device): ``dispatch``'s
+    schedule, each expert's rows through ``moe_gemm_plain`` (gate and up with
+    SwiGLU, then down, each row put at its pair's place), and the pairs
+    combined in k order (``combine``)."""
+    return combine(_prefill(x, ids, mw, moe_gemm_plain), wts)
+
+
+def _gemm_fns():
+    lib = _build.library("moe_gemm")
+    gemm, comb = lib.moe_gemm, lib.moe_combine
+    if gemm.argtypes is None:
+        gemm.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        gemm.restype = ctypes.c_int
+        comb.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        comb.restype = ctypes.c_int
+    return gemm, comb
+
+
+def moe_gemm(x, rowmap, tiles, w, sz, gs: int, out, *, swiglu: bool) -> None:
+    """One grouped launch of ``csrc/moe_gemm.cu`` over ``tiles`` (a
+    ``Schedule``'s). ``swiglu``: x [N, IN] token rows gathered by ``rowmap``
+    (the schedule's ``src``) through the interleaved gate and up ``w``/``sz``
+    [E, 2F, ...], out h [rows, F]; else x the sorted h rows [rows, IN]
+    through the down weights, out y [N K, OUT] at the rows ``rowmap`` (the
+    schedule's ``pair``) gives."""
+    E, OUT, IN2 = w.shape
+    slots = tiles.shape[0]
+    ctas = min(qmm.sm_count(x.device), slots * (OUT // ITEM_COLS))
+    gemm, _ = _gemm_fns()
+    _build.check(gemm(x.data_ptr(), rowmap.data_ptr(), tiles.data_ptr(), slots, w.data_ptr(),
+                      sz.data_ptr(), out.data_ptr(), x.shape[0], E, 2 * IN2, OUT, gs,
+                      int(swiglu), ctas, _build.stream_ptr(x.device)), "moe_gemm")
+    LAUNCHES["moe_gemm.w13" if swiglu else "moe_gemm.w2"] += 1
+
+
+def moe_combine(y, wts) -> torch.Tensor:
+    """``combine`` of y [N, K, D] bf16 and wts [N, K] f32 by the kernel."""
+    N, K, D = y.shape
+    out = torch.empty((N, D), dtype=torch.bfloat16, device=y.device)
+    _, comb = _gemm_fns()
+    ctas = min(-(-N * D // 8 // 256), 16 * qmm.sm_count(y.device))
+    _build.check(comb(y.data_ptr(), wts.data_ptr(), out.data_ptr(), N, K, D, ctas,
+                      _build.stream_ptr(y.device)), "moe_combine")
+    LAUNCHES["moe_combine"] += 1
+    return out
 
 
 def moe_prefill(x, ids, wts, mw: MoEWeights) -> torch.Tensor:
-    """The experts' output [N, D] bf16 for prefill rows x [N, D] bf16: the
-    N K pairs sorted by expert (stable, so each expert's rows keep token
-    order) into one buffer, each expert's rows padded to ``PREFILL_ROWS``,
-    SwiGLU over its weights dequantized to bf16 (bf16 products, f32 sums,
-    bf16 results) on its slice, the rows put back in pair order and
-    combined in k order. One host read (the counts) a layer."""
+    """The experts' output [N, D] bf16 for prefill rows x [N, D] bf16, each
+    row's K experts ``ids`` [N, K] (int64) and weights ``wts`` [N, K] (f32),
+    as the router leaves them on the device.
+
+    CPU tensors take the plain version. CUDA tensors take the three
+    launches over ``dispatch``'s schedule (gate and up with SwiGLU, down,
+    combine), with no host read; any input the kernels do not take raises."""
+    if x.device.type == "cpu":
+        return moe_prefill_plain(x, ids, wts, mw)
     N, K = ids.shape
-    flat = ids.reshape(-1)
-    order = torch.sort(flat, stable=True).indices
-    counts = torch.bincount(flat, minlength=mw.n_experts).tolist()
-    padded = [-(-n // PREFILL_ROWS) * PREFILL_ROWS for n in counts]
-    starts, shift, at, pat = [], [], 0, 0
-    for n, p in zip(counts, padded):
-        starts.append(pat)
-        shift.append(pat - at)
-        at, pat = at + n, pat + p
-    dev = x.device
-    rows = torch.arange(N * K, device=dev) + torch.tensor(shift, device=dev)[flat[order]]
-    # each padded row's token (a padding row takes token 0: a matmul's rows
-    # are independent, and those results are not read), and each pair's row
-    src = torch.zeros((pat,), dtype=torch.long, device=dev)
-    src[rows] = order // K
-    dst = torch.empty((N * K,), dtype=torch.long, device=dev)
-    dst[order] = rows
-    xs = x.index_select(0, src)
-    w13 = qmm.dequantize_gemv(mw.w13, mw.sz13, mw.gs13)  # every expert's at once
-    w2 = qmm.dequantize_gemv(mw.w2, mw.sz2, mw.gs2)
-    ys = torch.empty((pat, mw.w2.shape[1]), dtype=torch.bfloat16, device=dev)
-    for e, (start, p) in enumerate(zip(starts, padded)):
-        if p:
-            torch.matmul(swiglu_pairs(torch.matmul(xs[start:start + p], w13[e])), w2[e],
-                         out=ys[start:start + p])
-    return combine(ys.index_select(0, dst).view(N, K, -1), wts)
+    E, F2, D2 = mw.w13.shape
+    D, F = 2 * D2, F2 // 2
+    if x.dtype != torch.bfloat16 or tuple(x.shape) != (N, D):
+        raise ValueError(f"moe_prefill: x {tuple(x.shape)} {x.dtype} for dim {D}")
+    if ids.dtype != torch.int64 or wts.dtype != torch.float32 or tuple(wts.shape) != (N, K):
+        raise ValueError(f"moe_prefill: ids {ids.dtype} / weights {wts.dtype} "
+                         f"{tuple(wts.shape)}")
+    if (D % STEP_IN or F % STEP_IN or mw.gs13 % STEP_IN or mw.gs2 % STEP_IN or D % mw.gs13
+            or F % mw.gs2 or F2 % ITEM_COLS or D % ITEM_COLS):
+        raise ValueError(f"moe_prefill: widths {D} / {F} at group sizes {mw.gs13} / {mw.gs2}")
+    if tuple(mw.w2.shape) != (E, D, F // 2):
+        raise ValueError(f"moe_prefill: down weights {tuple(mw.w2.shape)}")
+    return moe_combine(_prefill(x.contiguous(), ids, mw, moe_gemm), wts.contiguous())
