@@ -21,8 +21,10 @@ reference's hold. A finished lane records nothing more (``-1`` tokens,
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -64,18 +66,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _perf_stats(counts: Dict[str, int], t0: float, t1: float, t2: float,
-                device: torch.device) -> Dict[str, Any]:
+def _perf_stats(counts: Dict[str, int], prefill_seconds: float, decode_seconds: float,
+                total_seconds: float, memory_used_gb: float) -> Dict[str, Any]:
     """A call's ``perf_stats``: ``counts`` (its lanes and tokens, the dict's
     first keys; ``prefill_tokens`` and ``decode_tokens`` among them), then
-    rates and seconds from the host's clock where the ``generate.prefill``
-    span opens (``t0``, after the synchronise) and closes (``t1``, after the
-    host's read of the first token's probabilities) and where the
-    ``generate.decode`` span closes (``t2``, after the read of the tokens;
-    ``t1`` where nothing is decoded)."""
-    prefill_seconds = t1 - t0
-    decode_seconds = max(t2 - t1, 1e-9)
-    total_seconds = t2 - t0
+    rates over the seconds of the ``generate.prefill`` span (from after the
+    synchronise to after the host's read of the first token's
+    probabilities), of the decode (from there to after the read of the
+    tokens; 0 where nothing is decoded) and of the whole, then the memory."""
+    decode_seconds = max(decode_seconds, 1e-9)
     return {
         **counts,
         "prefill_toks_per_sec": counts["prefill_tokens"] / max(prefill_seconds, 1e-9),
@@ -85,10 +84,25 @@ def _perf_stats(counts: Dict[str, int], t0: float, t1: float, t2: float,
         "prefill_seconds": prefill_seconds,
         "decode_seconds": decode_seconds,
         "decode_seconds_frac_of_total": decode_seconds / max(total_seconds, 1e-9),
-        "memory_used_gb": (
-            torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
-        ),
+        "memory_used_gb": memory_used_gb,
     }
+
+
+def _merge_perf(perfs: Sequence[Dict[str, Any]], batch_size: int) -> Dict[str, Any]:
+    """The dp replicas' ``perf_stats`` as one call's: their tokens summed,
+    over the longest replica's seconds, and the most memory any used."""
+    counts = {"batch_size": batch_size,
+              **{k: sum(p[k] for p in perfs) for k in ("prefill_tokens", "decode_tokens")}}
+    seconds = (max(p[k] for p in perfs)
+               for k in ("prefill_seconds", "decode_seconds", "total_seconds"))
+    return _perf_stats(counts, *seconds, max(p["memory_used_gb"] for p in perfs))
+
+
+def _prefill_length(n: int, min_cache_length: int) -> int:
+    """How many of a prompt's ``n`` tokens prefill: all, but a prompt
+    exactly as long as the smallest cache feeds its last token through
+    decode, so that eviction state exists before the cache overflows."""
+    return n - (n == min_cache_length)
 
 
 def _use_graph(model: Transformer, cuda_graph: Optional[bool]) -> bool:
@@ -167,114 +181,43 @@ def generate(
     eager; else whether this call captured, the capture's seconds, the
     graph pool's bytes and the kernel launches of one replay).
     """
-    device = model.device
     cuda_graph = _use_graph(model, cuda_graph)
     if model.tp is not None and model.tp.dp > 1:
         raise ValueError("generate() runs one prompt: dp must be 1 (generate_batch shards "
                          "lanes over dp)")
-    cfg = model.cfg
     prompt = [int(t) for t in prompt]
-    prompt_length = len(prompt)
-    terminator_ids = [int(t) for t in (terminator_ids or [])]
     specs = [c.spec for c in caches]
 
     min_cache_length = min_cache_length or engine.min_cache_length(specs)
-    max_prompt_len = min_cache_length - 1
-    prefix: List[int] = []
-    if (feed_long_prompts and prompt_length > max_prompt_len) or (
-            prompt_length == min_cache_length):
-        prompt, prefix = prompt[:max_prompt_len], prompt[max_prompt_len:]
-        max_new_tokens += len(prefix)
-        prompt_length = len(prompt)
+    n = _prefill_length(len(prompt), min_cache_length)
+    if feed_long_prompts:
+        n = min(n, min_cache_length - 1)
+    prompt, prefix = prompt[:n], prompt[n:]
+    max_new_tokens += len(prefix)
     if decode_first_token:
         prompt, prefix = prompt[:-1], prompt[-1:] + prefix
         max_new_tokens += 1
-        prompt_length = len(prompt)
-
     if next_tokens is not None:
         next_tokens = [int(t) for t in next_tokens]
-        max_new_tokens = len(next_tokens)
-        forced_first: Optional[int] = next_tokens[0]
-        prefix = next_tokens[1:]
-    elif prefix:
-        forced_first, prefix = prefix[0], prefix[1:]
+        max_new_tokens, first, prefix = len(next_tokens), next_tokens[0], next_tokens[1:]
     else:
-        forced_first = None
+        first, prefix = (prefix[0], prefix[1:]) if prefix else (-1, [])
 
-    # ---- prefill ---------------------------------------------------------
-    P = _prefill_bucket(specs, prompt_length, prefill_bucket)
+    P = _prefill_bucket(specs, len(prompt), prefill_bucket)
     if model.sp is not None:  # the query blocks split the bucket evenly
         P = -(-P // model.sp.sp) * model.sp.sp
-    tokens = torch.tensor(
-        [prompt + [pad_id] * (P - prompt_length)], dtype=torch.long, device=device
-    )
-
-    max_steps = max(max_new_tokens - 1, 0)
-    with trace.span("generate.call", lanes=1, prompt_lengths=[prompt_length], bucket=P) as call:
-        _sync(device)
-        t0 = time.perf_counter()
-        with trace.span("generate.prefill", device=True):
-            with torch.inference_mode():
-                if model.pp is not None:
-                    from ..parallel.pp import pp_prefill
-
-                    logits = pp_prefill(model, caches, tokens, prompt_length, chunk=min(64, P))
-                elif model.sp is not None:
-                    from ..parallel.sp import sp_prefill, sp_tp_prefill
-
-                    run = sp_prefill if model.tp is None else sp_tp_prefill
-                    logits = run(model, caches, tokens, prompt_length)
-                else:
-                    logits = prefill(model, caches, tokens, prompt_length)
-                prefill_probs = torch.softmax(logits.float(), dim=-1)
-                greedy_tok = logits.argmax(dim=-1)
-            prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
-        t1 = time.perf_counter()
-
-        if forced_first is not None:
-            first_token = torch.tensor([forced_first], dtype=torch.long, device=device)
-            first_id = forced_first
-        else:
-            first_token = greedy_tok
-            first_id = int(greedy_tok[0])
-        first_prob = float(prefill_probs_np[0, first_id])
-
-        # ---- decode loop -------------------------------------------------
-        graph_info = None
-        if max_steps > 0:
-            with trace.span("generate.decode", device=True):
-                tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
-                    model, caches, first_token, prompt_length, prefix, terminator_ids,
-                    max_steps, attn_top_k, cuda_graph,
-                )
-                tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
-            t2 = time.perf_counter()
-            gen = [int(t) for t in tokens_np[:, 0] if int(t) != -1]
-            emitted_probs = [first_prob] + [
-                float(p) for p in probs_buf[:steps, 0].cpu().numpy()
-            ]
-            final_probs = last_probs[0].cpu().numpy()
-        else:
-            t2 = t1
-            gen = [first_id]
-            steps = 0
-            emitted_probs = [first_prob]
-            final_probs = prefill_probs_np[0]
-        call.set(steps=steps)
-
-    seq = prompt + gen
-    perf_stats = _perf_stats({"prefill_tokens": prompt_length, "decode_tokens": steps + 1,
-                              "decode_steps": steps}, t0, t1, t2, device)
+    run = _run_lanes(model, caches, [prompt], [first], prefix, max_new_tokens, terminator_ids,
+                     attn_top_k, pad_id, P, cuda_graph)
     info = {
-        "perf_stats": perf_stats,
-        "emitted_probs": emitted_probs,
-        "final_probs": final_probs,
-        "decode_graph": graph_info,
-        "prompt_length": prompt_length,
-        "num_generated": len(gen),
-        "vocab_size": cfg.vocab_size,
+        "perf_stats": {k: v for k, v in run.perf_stats.items() if k != "batch_size"},
+        "emitted_probs": run.emitted_probs[0],
+        "final_probs": run.final_probs[0],
+        "decode_graph": run.decode_graph,
+        "prompt_length": len(prompt),
+        "num_generated": len(run.emitted_probs[0]),
+        "vocab_size": model.cfg.vocab_size,
     }
-    return seq, info, caches
+    return run.seqs[0], info, caches
 
 
 def generate_batch(
@@ -317,135 +260,128 @@ def generate_batch(
 
         raise ValueError(SP_LANES if model.sp is not None else PP_ALONE)
     prompts = [[int(t) for t in p] for p in prompts]
-    kw = dict(terminator_ids=terminator_ids, attn_top_k=attn_top_k, pad_id=pad_id,
-              cuda_graph=cuda_graph)
-    if model.tp is None or model.tp.dp == 1:
-        return _batch_lanes(model, caches, prompts, max_new_tokens,
-                            prefill_bucket=prefill_bucket, **kw)
-    return _batch_over_dp(model, caches, prompts, max_new_tokens,
-                          prefill_bucket=prefill_bucket, **kw)
-
-
-def _prefill_lengths(specs, prompts) -> List[int]:
-    """Each lane's prefill length: a prompt exactly as long as the shortest
-    cache feeds its last token through decode instead."""
-    mcl = engine.min_cache_length(specs)
-    return [len(p) - (len(p) == mcl) for p in prompts]
-
-
-def _batch_over_dp(model: Transformer, caches, prompts, max_new_tokens: int, *,
-                   prefill_bucket, **kw):
-    """``generate_batch`` on one dp replica's lanes, in the bucket of every
-    replica's lanes, then every replica's lanes gathered in lane order."""
     tp_ctx = model.tp
-    B, dp = len(prompts), tp_ctx.dp
+    B, dp = len(prompts), 1 if tp_ctx is None else tp_ctx.dp
     if B % dp:
         raise ValueError(f"dp shards batch lanes: {B} lanes do not divide over dp={dp}")
     Bl = B // dp
-    if caches[0].k.shape[0] != Bl:
+    if dp > 1 and caches[0].k.shape[0] != Bl:
         raise ValueError(f"caches hold {caches[0].k.shape[0]} lanes; a dp={dp} replica of {B} "
                          f"lanes runs {Bl}")
     specs = [c.spec for c in caches]
-    bucket = _prefill_bucket(specs, max(_prefill_lengths(specs, prompts)), prefill_bucket)
-    lo = tp_ctx.d * Bl
-    seqs, info, caches = _batch_lanes(model, caches, prompts[lo:lo + Bl], max_new_tokens,
-                                      prefill_bucket=bucket, all_done=tp_ctx.all_done, **kw)
-    lane_keys = ("emitted_probs", "prompt_lengths", "num_generated")
-    parts = tp_ctx.gather_lanes((seqs, {k: info[k] for k in lane_keys}, info["final_probs"],
-                                 info["perf_stats"]))
-    seqs = [s for part in parts for s in part[0]]
-    merged = {k: [v for part in parts for v in part[1][k]] for k in lane_keys}
-    perfs = [part[3] for part in parts]
-    tokens = {k: sum(p[k] for p in perfs) for k in ("prefill_tokens", "decode_tokens")}
-    secs = {k: max(p[k] for p in perfs)
-            for k in ("prefill_seconds", "decode_seconds", "total_seconds")}
-    perf = {
-        "batch_size": B, **tokens,
-        "prefill_toks_per_sec": tokens["prefill_tokens"] / max(secs["prefill_seconds"], 1e-9),
-        "decode_toks_per_sec": tokens["decode_tokens"] / secs["decode_seconds"],
-        "total_toks_per_sec": tokens["decode_tokens"] / max(secs["total_seconds"], 1e-9),
-        **secs,
-        "decode_seconds_frac_of_total": secs["decode_seconds"] / max(secs["total_seconds"],
-                                                                     1e-9),
-        "memory_used_gb": max(p["memory_used_gb"] for p in perfs),
+    mcl = engine.min_cache_length(specs)
+    lens = [_prefill_length(len(p), mcl) for p in prompts]
+    bucket = _prefill_bucket(specs, max(lens), prefill_bucket)
+    if bucket < max(lens):
+        raise ValueError(f"Longest prompt ({max(lens)} tokens) exceeds the prefill bucket "
+                         f"({bucket}).")
+    mine = range(B) if dp == 1 else range(tp_ctx.d * Bl, (tp_ctx.d + 1) * Bl)
+    run = _run_lanes(model, caches, [prompts[b][:lens[b]] for b in mine],
+                     [prompts[b][-1] if lens[b] < len(prompts[b]) else -1 for b in mine], [],
+                     max_new_tokens, terminator_ids, attn_top_k, pad_id, bucket, cuda_graph,
+                     None if dp == 1 else tp_ctx.all_done)
+    seqs, emitted, final_probs = run.seqs, run.emitted_probs, run.final_probs
+    perf = {k: v for k, v in run.perf_stats.items() if k != "decode_steps"}
+    if dp > 1:  # every replica's lanes, in lane order
+        parts = tp_ctx.gather_lanes((seqs, emitted, final_probs, perf))
+        seqs = [s for part in parts for s in part[0]]
+        emitted = [e for part in parts for e in part[1]]
+        final_probs = np.concatenate([part[2] for part in parts])
+        perf = _merge_perf([part[3] for part in parts], B)
+    info = {
+        "perf_stats": perf,
+        "emitted_probs": emitted,
+        "final_probs": final_probs,
+        "prompt_lengths": lens,
+        "num_generated": [len(e) for e in emitted],
+        "decode_steps": run.steps,
+        "decode_graph": run.decode_graph,
     }
-    info = {**info, **merged, "perf_stats": perf,
-            "final_probs": np.concatenate([part[2] for part in parts])}
     return seqs, info, caches
 
 
-def _batch_lanes(model: Transformer, caches, prompts: List[List[int]], max_new_tokens: int, *,
-                 terminator_ids, attn_top_k: float, pad_id: int, prefill_bucket: Optional[int],
-                 cuda_graph: bool, all_done: Optional[Callable[[torch.Tensor], bool]] = None):
-    """``generate_batch`` over the lanes this process holds."""
+class _Lanes(NamedTuple):
+    """One call's results for the lanes this process holds."""
+
+    seqs: List[List[int]]  # each lane's prefilled tokens, then its generation
+    emitted_probs: List[List[float]]  # one a generated token
+    final_probs: np.ndarray  # [lanes, vocab]
+    steps: int
+    decode_graph: Optional[Dict[str, Any]]
+    perf_stats: Dict[str, Any]  # both entries' counts; each keeps its own
+
+
+def _run_lanes(model: Transformer, caches, prompts: List[List[int]], first: List[int],
+               prefix: List[int], max_new_tokens: int, terminator_ids, attn_top_k: float,
+               pad_id: int, bucket: int, cuda_graph: bool,
+               all_done: Optional[Callable[[torch.Tensor], bool]] = None) -> _Lanes:
+    """One call over the lanes this process holds, under the
+    ``generate.call`` span: each lane's ``prompts`` entry (what it
+    prefills) padded with ``pad_id`` to ``bucket`` slots and prefilled, its
+    first token (``first``: forced, or -1 for the greedy one), then
+    ``max_new_tokens - 1`` decode steps, the first of them forced by
+    ``prefix``. The host reads the first token's probabilities, the first
+    tokens unless all were forced, and the loop's buffers once."""
     device = model.device
     B = len(prompts)
+    lens = [len(p) for p in prompts]
     terminator_ids = [int(t) for t in (terminator_ids or [])]
-    specs = [c.spec for c in caches]
-    lens = _prefill_lengths(specs, prompts)
-    forced_first = [p[-1] if n < len(p) else -1 for p, n in zip(prompts, lens)]
+    tokens = torch.tensor([p + [pad_id] * (bucket - len(p)) for p in prompts],
+                          dtype=torch.long, device=device)
+    # one lane's length stays a host int, which K4 and the compressors fill
+    # on the device; more become one copy
+    plen = lens[0] if B == 1 else torch.tensor(lens, dtype=torch.int32, device=device)
+    if model.pp is not None:
+        from ..parallel.pp import pp_prefill
 
-    P = _prefill_bucket(specs, max(lens), prefill_bucket)
-    if P < max(lens):
-        raise ValueError(f"Longest prompt ({max(lens)} tokens) exceeds the prefill bucket ({P}).")
-    tokens = torch.tensor(
-        [p[: lens[b]] + [pad_id] * (P - lens[b]) for b, p in enumerate(prompts)],
-        dtype=torch.long, device=device,
-    )
-    plen = torch.tensor(lens, dtype=torch.int32, device=device)
+        run_prefill = functools.partial(pp_prefill, chunk=min(64, bucket))
+    elif model.sp is not None:
+        from ..parallel.sp import sp_prefill, sp_tp_prefill
+
+        run_prefill = sp_prefill if model.tp is None else sp_tp_prefill
+    else:
+        run_prefill = prefill
 
     max_steps = max(max_new_tokens - 1, 0)
-    with trace.span("generate.call", lanes=B, prompt_lengths=lens, bucket=P) as call:
+    with trace.span("generate.call", lanes=B, prompt_lengths=lens, bucket=bucket) as call:
         _sync(device)
         t0 = time.perf_counter()
         with trace.span("generate.prefill", device=True):
             with torch.inference_mode():
-                logits = prefill(model, caches, tokens, plen)
+                logits = run_prefill(model, caches, tokens, plen)
                 prefill_probs = torch.softmax(logits.float(), dim=-1)
-                forced = torch.tensor(forced_first, dtype=torch.long, device=device)
-                first_token = torch.where(forced >= 0, forced, logits.argmax(dim=-1))
+                first_token = logits.argmax(dim=-1)
+                if max(first) >= 0:
+                    forced = torch.tensor(first, dtype=torch.long, device=device)
+                    first_token = torch.where(forced >= 0, forced, first_token)
             prefill_probs_np = prefill_probs.cpu().numpy()  # waits for the device
         t1 = time.perf_counter()
-        first_np = first_token.cpu().numpy()
-        first_probs = [float(prefill_probs_np[b, int(first_np[b])]) for b in range(B)]
+        first_ids = first if min(first) >= 0 else first_token.cpu().tolist()
+        first_probs = [float(prefill_probs_np[b, t]) for b, t in enumerate(first_ids)]
 
-        graph_info = None
+        graph_info, steps, t2 = None, 0, t1
+        gens, probs_np, final_probs = [[t] for t in first_ids], np.zeros((0, B)), prefill_probs_np
         if max_steps > 0:
             with trace.span("generate.decode", device=True):
                 tokens_buf, probs_buf, last_probs, steps, graph_info = decode_loop_core(
-                    model, caches, first_token, lens, [], terminator_ids, max_steps, attn_top_k,
-                    cuda_graph, all_done,
+                    model, caches, first_token, lens, prefix, terminator_ids, max_steps,
+                    attn_top_k, cuda_graph, all_done,
                 )
                 tokens_np = tokens_buf.cpu().numpy()  # the one read of the loop
             t2 = time.perf_counter()
             gens = [[int(t) for t in tokens_np[:, b] if int(t) != -1] for b in range(B)]
-            probs_np = probs_buf.cpu().numpy()
-            emitted_probs = [
-                [first_probs[b]] + [float(p) for p in probs_np[: len(gens[b]) - 1, b]]
-                for b in range(B)
-            ]
+            probs_np = probs_buf[:steps].cpu().numpy()
             final_probs = last_probs.cpu().numpy()
-        else:
-            t2 = t1
-            steps = 0
-            gens = [[int(first_np[b])] for b in range(B)]
-            emitted_probs = [[first_probs[b]] for b in range(B)]
-            final_probs = prefill_probs_np
         call.set(steps=steps)
 
-    seqs = [prompts[b][: lens[b]] + gens[b] for b in range(B)]
-    perf_stats = _perf_stats({"batch_size": B, "prefill_tokens": int(sum(lens)),
-                              "decode_tokens": sum(len(g) for g in gens)}, t0, t1, t2, device)
-    info = {
-        "perf_stats": perf_stats,
-        "emitted_probs": emitted_probs,
-        "final_probs": final_probs,
-        "prompt_lengths": lens,
-        "num_generated": [len(g) for g in gens],
-        "decode_steps": steps,
-        "decode_graph": graph_info,
-    }
-    return seqs, info, caches
+    emitted = [[first_probs[b]] + [float(p) for p in probs_np[: len(gens[b]) - 1, b]]
+               for b in range(B)]
+    memory_gb = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
+    perf_stats = _perf_stats({"batch_size": B, "prefill_tokens": sum(lens),
+                              "decode_tokens": sum(len(g) for g in gens), "decode_steps": steps},
+                             t1 - t0, t2 - t1, t2 - t0, memory_gb)
+    return _Lanes([p + g for p, g in zip(prompts, gens)], emitted, final_probs, steps,
+                  graph_info, perf_stats)
 
 
 def _decode_body(model: Transformer, caches, buf: LoopBuffers, attn_top_k: float) -> None:

@@ -192,20 +192,56 @@ def test_batched_terminators_stop_lanes_independently(tiny):
         assert info2["decode_steps"] == 7
 
 
-def test_batched_single_lane_matches_generate(tiny):
-    """One lane through ``generate_batch`` equals ``generate()``, probabilities
-    included, and a second call after ``reset_caches`` repeats it."""
+#: One lane: its prompt, the index among the free-running generation's
+#: tokens of the one given as a terminator (None: no terminator), and the
+#: new tokens ``generate_batch`` is asked for where ``generate()`` is asked
+#: for 6. The third prompt is as long as the 24-slot caches and feeds its
+#: last token through decode: ``generate()`` adds that token to its new
+#: tokens, ``generate_batch`` counts it among them, as the JAX package's do.
+SINGLE_LANE = {
+    "no_terminator": (PROMPTS[0], None, 6),
+    "emitted_terminator": (PROMPTS[0], 2, 6),
+    "fills_smallest_cache": (list(range(30, 54)), None, 7),
+}
+
+
+@pytest.mark.parametrize("case", list(SINGLE_LANE))
+def test_batched_single_lane_matches_generate(tiny, case):
+    """One lane through ``generate_batch`` equals ``generate()``: tokens,
+    emitted probabilities, final distribution, every cache tensor to the bit
+    and the kernel launches; and a second call after ``reset_caches``
+    repeats it."""
     _, _, cfg, model = tiny
     _, specs = _specs(cfg, "recent_global")
-    caches = TT.init_caches(cfg, specs, 1, torch.float32, device="cpu")
-    seq, info, _ = generate(model, caches, PROMPTS[0], 6, prefill_bucket=32)
-    caches = TT.init_caches(cfg, specs, 1, torch.float32, device="cpu")
-    seqs, binfo, caches = generate_batch(model, caches, [PROMPTS[0]], 6, prefill_bucket=32)
+    prompt, term_at, batch_new = SINGLE_LANE[case]
+    kw = dict(prefill_bucket=32)
+    if term_at is not None:
+        caches = TT.init_caches(cfg, specs, 1, torch.float32, device="cpu")
+        free, _, _ = generate(model, caches, prompt, 6, **kw)
+        kw["terminator_ids"] = [free[len(prompt) + term_at]]
+    runs = []
+    for batch in (False, True):
+        caches = TT.init_caches(cfg, specs, 1, torch.float32, device="cpu")
+        before = kernel_launches()
+        out = (generate_batch(model, caches, [prompt], batch_new, **kw) if batch
+               else generate(model, caches, prompt, 6, **kw))
+        runs.append((out, {k: n - before.get(k, 0) for k, n in kernel_launches().items()}))
+    ((seq, info, caches), launches), ((seqs, binfo, bcaches), blaunches) = runs
     assert seqs[0] == seq
+    assert binfo["prompt_lengths"] == [info["prompt_length"]]
+    assert binfo["num_generated"] == [info["num_generated"]]
     np.testing.assert_array_equal(binfo["emitted_probs"][0], info["emitted_probs"])
     np.testing.assert_array_equal(binfo["final_probs"][0], info["final_probs"])
-    reset_caches(caches)
-    again, _, _ = generate_batch(model, caches, [PROMPTS[0]], 6, prefill_bucket=32)
+    for c, bc in zip(caches, bcaches):
+        for t, bt in zip(c.tensors(), bc.tensors(), strict=True):
+            assert t.dtype == bt.dtype and torch.equal(t, bt)
+    assert blaunches == launches
+    if term_at is not None:
+        assert seq[-1] == kw["terminator_ids"][0] and info["num_generated"] < 6
+    if case == "fills_smallest_cache":
+        assert info["prompt_length"] == len(prompt) - 1 and seq[len(prompt) - 1] == prompt[-1]
+    reset_caches(bcaches)
+    again, _, _ = generate_batch(model, bcaches, [prompt], batch_new, **kw)
     assert again == seqs
 
 

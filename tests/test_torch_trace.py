@@ -3,8 +3,8 @@ changes nothing; on, every span of a ``generate``/``generate_batch`` call
 nests in its parent and shares the call's id, with one ``prefill.cache``
 span per layer, four ``prefill.linear`` spans per layer and one for the
 head, and one ``decode.step`` span per step run; the readings on
-hand-built records; ``perf_stats`` against the formulas it had; the
-``--profile`` exporter's ranges. The ``cuda`` case (skipped without a card)
+hand-built records; ``perf_stats`` against the formulas it had, and the
+dp merge's rates from them; the ``--profile`` exporter's ranges. The ``cuda`` case (skipped without a card)
 holds the captured decode graph to the same launches with the tracer on.
 """
 
@@ -22,7 +22,8 @@ from cold_compress_tpu_torch.models.config import ModelConfig
 from cold_compress_tpu_torch.models.transformer import init_caches, init_params
 from cold_compress_tpu_torch.runtime import trace
 from cold_compress_tpu_torch.runtime.engine import build_model
-from cold_compress_tpu_torch.runtime.generate import _perf_stats, generate, generate_batch
+from cold_compress_tpu_torch.runtime.generate import (_merge_perf, _perf_stats, generate,
+                                                      generate_batch)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROMPTS = [list(range(5, 45)), list(range(40, 73)), list(range(7, 27))]
@@ -129,7 +130,7 @@ def test_spans_nest_and_count_per_call(tiny, strategy, batch):
 def test_perf_stats_keeps_its_formulas(tiny):
     """The one helper against a hand copy of the formulas ``generate`` and
     ``generate_batch`` each wrote out, for a call that decodes and one that
-    does not (t2 = t1)."""
+    does not (t2 = t1), given the seconds the call's clock readings span."""
     for t0, t1, t2 in ((1.0, 1.25, 2.0), (3.0, 3.5, 3.5)):
         for counts in ({"prefill_tokens": 40, "decode_tokens": 6, "decode_steps": 5},
                        {"batch_size": 3, "prefill_tokens": 93, "decode_tokens": 17}):
@@ -139,8 +140,24 @@ def test_perf_stats_keeps_its_formulas(tiny):
                     "decode_toks_per_sec": d / dec, "total_toks_per_sec": d / max(tot, 1e-9),
                     "total_seconds": tot, "prefill_seconds": pre, "decode_seconds": dec,
                     "decode_seconds_frac_of_total": dec / max(tot, 1e-9), "memory_used_gb": 0.0}
-            got = _perf_stats(counts, t0, t1, t2, torch.device("cpu"))
+            got = _perf_stats(counts, t1 - t0, t2 - t1, t2 - t0, 0.0)
             assert list(got) == list(want) and got == want
+
+
+def test_dp_merge_rates_are_perf_stats_over_summed_tokens_and_longest_seconds():
+    """Two dp replicas' ``perf_stats`` merge into one call's: tokens summed,
+    each of the three seconds the longer replica's, the most memory, and
+    every rate ``_perf_stats``'s over those (one replica decoded nothing)."""
+    a = _perf_stats({"batch_size": 2, "prefill_tokens": 60, "decode_tokens": 14},
+                    0.5, 1.5, 2.0, 3.25)
+    b = _perf_stats({"batch_size": 2, "prefill_tokens": 33, "decode_tokens": 2},
+                    0.75, 0.0, 0.75, 3.5)
+    got = _merge_perf([a, b], 4)
+    assert list(got) == BATCH_KEYS
+    assert got == _perf_stats({"batch_size": 4, "prefill_tokens": 93, "decode_tokens": 16},
+                              0.75, 1.5, 2.0, 3.5)
+    assert got["prefill_toks_per_sec"] == 93 / 0.75 and got["decode_toks_per_sec"] == 16 / 1.5
+    assert got["total_toks_per_sec"] == 16 / 2.0 and got["decode_seconds_frac_of_total"] == 0.75
 
 
 def _rec(i, name, parent, call, host, device=None):
